@@ -1,0 +1,129 @@
+"""NBS — NavP Bridging Services (paper §3).
+
+One NBS instance models a cluster: a set of *nodes* (Cloud instances), each
+with its own torch device and a service registry, plus a shared store (the
+S3 / shared-volume analogue). ``svc/hop`` on a node restores a CMI onto
+*that node's* device and hands back the live state — Figure 4's
+
+    (1) copy CMI and restart script from S3
+    (2) run dmtcp_restart_script.sh
+
+where step (2) is deterministic reconstruction: re-binding the state tree to
+the destination device.
+
+Everything is in-process but service-shaped: handlers take/return plain data
+so fronting them with RPC is mechanical. Process-backed nodes need the
+fabric, which comes to the port in a later slice.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.cmi import restore_cmi
+from repro_torch.core.plugins import PluginBus
+from repro_torch.utils import logger, resolve_device
+
+HOP_NAMESPACE = "hops"
+
+
+@dataclass
+class Node:
+    """A compute node: a named torch device + services (a Cloud instance)."""
+
+    name: str
+    device: torch.device
+    services: dict[str, Callable] = field(default_factory=dict)
+    meta: dict[str, Any] = field(default_factory=dict)
+
+    def register(self, svc_name: str, handler: Callable) -> None:
+        self.services[svc_name] = handler
+
+    def invoke(self, svc_name: str, /, **kwargs) -> Any:
+        """Dispatch a service call on this node."""
+        try:
+            handler = self.services[svc_name]
+        except KeyError:
+            raise KeyError(f"node {self.name!r} has no service {svc_name!r}") from None
+        return handler(**kwargs)
+
+
+class NBS:
+    """Service fabric: nodes + shared store + plugin event bus."""
+
+    def __init__(self, store_root: str | os.PathLike):
+        self.store_root = Path(store_root)
+        (self.store_root / HOP_NAMESPACE).mkdir(parents=True, exist_ok=True)
+        self.nodes: dict[str, Node] = {}
+        self.plugins = PluginBus()
+
+    # -- topology ----------------------------------------------------------
+    def add_node(self, name: str, device: torch.device | str | None = None, **meta) -> Node:
+        """Register an in-process node on ``device`` (default: the CUDA card;
+        raises where there is none)."""
+        if name in self.nodes:
+            raise ValueError(f"node {name!r} already registered")
+        node = Node(name=name, device=resolve_device(device), meta=meta)
+        self._install_default_services(node)
+        self.nodes[name] = node
+        return node
+
+    def add_remote_node(self, name: str, address, *, resolver=None, **meta) -> Node:
+        """Process-backed nodes need the fabric (``repro.fabric`` in the JAX
+        package), which the port does not have yet."""
+        raise NotImplementedError(
+            "remote nodes need the fabric, which repro_torch does not port yet"
+        )
+
+    def remove_node(self, name: str) -> None:
+        """A spot reclaim: the node vanishes; in-flight work must re-hop."""
+        self.nodes.pop(name, None)
+        logger.info("node %s reclaimed", name)
+
+    def node(self, name: str) -> Node:
+        try:
+            return self.nodes[name]
+        except KeyError:
+            raise KeyError(f"no such node {name!r} (reclaimed?)") from None
+
+    # -- service call ------------------------------------------------------
+    def call(self, node_name: str, svc_name: str, /, **kwargs) -> Any:
+        return self.node(node_name).invoke(svc_name, **kwargs)
+
+    # -- default services ----------------------------------------------------
+    def _install_default_services(self, node: Node) -> None:
+        def svc_ping() -> dict:
+            return {"node": node.name, "device": str(node.device)}
+
+        def svc_hop(
+            cmi: str,
+            store_root: str | None = None,
+            io_threads: int = 0,
+            gc: bool = True,
+        ) -> Any:
+            """Figure 4: restore the named CMI onto this node's device.
+
+            Hop CMIs are transit baggage, not published products: once the
+            state is live on this node the image is deleted (``gc=False`` to
+            keep it), else long itineraries grow the store without bound.
+            """
+            root = Path(store_root) if store_root else self.store_root / HOP_NAMESPACE
+            state, manifest = restore_cmi(root, cmi, device=node.device, io_threads=io_threads)
+            self.plugins.emit("on_restart", node=node.name, cmi=cmi, step=manifest.step)
+            if gc:
+                shutil.rmtree(root / cmi, ignore_errors=True)
+            logger.info("svc/hop: restored %s on node %s (step %d)", cmi, node.name, manifest.step)
+            return state
+
+        node.register("svc/ping", svc_ping)
+        node.register("svc/hop", svc_hop)
+
+    @property
+    def hop_root(self) -> Path:
+        return self.store_root / HOP_NAMESPACE

@@ -1,0 +1,185 @@
+"""Shared small utilities: tree path flattening, devices, sizes, hashing.
+
+The path strings and the leaf order of :func:`flatten_with_paths` are
+byte-identical to the JAX package's (``repro/utils.py``), because manifests
+key arrays by these strings and the delta bitmaps follow this order:
+
+* dict keys are sorted (``OrderedDict`` keeps insertion order);
+* list and tuple items are keyed by index, namedtuple items by field name;
+* ``None`` is an empty subtree, not a leaf;
+* a tree that is a single leaf has the path ``"."``.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import logging
+import os
+import zlib
+from typing import Any
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("repro_torch")
+if not logger.handlers:  # configure once; launchers may reconfigure
+    _h = logging.StreamHandler()
+    _h.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s"))
+    logger.addHandler(_h)
+    logger.setLevel(os.environ.get("REPRO_LOGLEVEL", "INFO"))
+
+
+# ---------------------------------------------------------------------------
+# devices: entry points run on the card unless the caller asks for the CPU
+# ---------------------------------------------------------------------------
+
+
+def resolve_device(device: torch.device | str | None = None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card.
+
+    Asking for CUDA where there is none raises: nothing falls back to the
+    CPU behind the caller's back.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but CUDA is not available; pass "
+            "device='cpu' to run on the host"
+        )
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# tree <-> flat dict keyed by "/"-joined path strings
+# ---------------------------------------------------------------------------
+
+
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(node: Any) -> list[tuple[str, Any]] | None:
+    """``[(key, child)]`` for a container, ``None`` for a leaf."""
+    if isinstance(node, collections.OrderedDict):
+        return [(str(k), v) for k, v in node.items()]
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f, getattr(node, f)) for f in node._fields]
+    if isinstance(node, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    return None
+
+
+class TreeDef:
+    """The structure of a flattened tree; :meth:`unflatten` rebuilds it."""
+
+    def __init__(self, tree: Any):
+        self._tree = tree
+        self.paths: list[str] = []
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.paths)
+
+    def unflatten(self, flat: dict[str, Any]) -> Any:
+        def rec(node: Any, path: str) -> Any:
+            if node is None:
+                return None
+            kids = _children(node)
+            if kids is None:
+                key = path or "."
+                if key not in flat:
+                    raise KeyError(f"missing leaf {key!r} during unflatten")
+                return flat[key]
+            built = {k: rec(v, f"{path}/{k}" if path else k) for k, v in kids}
+            if isinstance(node, dict):
+                return type(node)((k, built[str(k)]) for k in node)
+            if _is_namedtuple(node):
+                return type(node)(*(built[f] for f in node._fields))
+            items = [built[str(i)] for i in range(len(node))]
+            return tuple(items) if isinstance(node, tuple) else items
+
+        return rec(self._tree, "")
+
+
+def flatten_with_paths(tree: Any) -> tuple[dict[str, Any], TreeDef]:
+    """Flatten ``tree`` to ``{path: leaf}`` plus the treedef for unflattening."""
+    treedef = TreeDef(tree)
+    flat: dict[str, Any] = {}
+
+    def rec(node: Any, path: str) -> None:
+        if node is None:
+            return
+        kids = _children(node)
+        if kids is None:
+            key = path or "."
+            if key in flat:
+                raise ValueError(f"duplicate flattened key {key!r}")
+            flat[key] = node
+            treedef.paths.append(key)
+            return
+        for k, v in kids:
+            rec(v, f"{path}/{k}" if path else k)
+
+    rec(tree, "")
+    return flat, treedef
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """Apply ``fn`` to every leaf, keeping the structure."""
+    flat, treedef = flatten_with_paths(tree)
+    return treedef.unflatten({k: fn(v) for k, v in flat.items()})
+
+
+# ---------------------------------------------------------------------------
+# numpy <-> tensor (the shared on-disk format is how state crosses packages)
+# ---------------------------------------------------------------------------
+
+
+def numpy_to_tensor(x: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """A tensor on ``device`` with the same dtype and bytes as ``x``.
+
+    A ``bfloat16`` array (the JAX package's, from ml_dtypes) crosses through
+    an int16 view, since numpy has no bfloat16 of its own.
+    """
+    x = np.ascontiguousarray(x).reshape(x.shape)
+    if x.dtype.name == "bfloat16":
+        t = torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(x)
+    return t.to(device)
+
+
+def from_numpy_tree(tree: Any, device: torch.device | str) -> Any:
+    """Every numpy array leaf of ``tree`` as a tensor on ``device``."""
+    return tree_map(
+        lambda v: numpy_to_tensor(v, device) if isinstance(v, np.ndarray) else v, tree
+    )
+
+
+# ---------------------------------------------------------------------------
+# sizes / formatting
+# ---------------------------------------------------------------------------
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
+# ---------------------------------------------------------------------------
+# hashing (content ids for delta checkpoints)
+# ---------------------------------------------------------------------------
+
+
+def content_hash(buf: bytes | memoryview) -> str:
+    return hashlib.blake2b(buf, digest_size=16).hexdigest()
+
+
+def crc32_of(buf: bytes | memoryview) -> int:
+    return zlib.crc32(buf) & 0xFFFFFFFF
