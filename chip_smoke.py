@@ -8,17 +8,26 @@ with nvcc and prints one JSON line per phase:
   env        torch / CUDA versions, the card, nvidia-smi's name and power limit
   build      nvcc wall time and each kernel's registers and shared memory
   kernels    each kernel against its plain PyTorch version on the card, at the
-             main path's shapes (bitwise), with its time, the plain version's,
+             main path's shapes (K1, K2 bitwise; K3 in bf16 within one
+             rounding of its float32 answer), with its time, the plain version's,
              one PyTorch library call's and the card's lower bound
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
              through a transit CMI, preempted after the match publish and
              resumed; the product equals an uninterrupted run's
   publish    the Fig. 7 form: a publish after each stage with device change
              hints (K1), its wall time and bytes written
+  serve      qwen3-1.7b at full width (28 layers, random weights from seed 0)
+             through ``repro_torch.launch.serve.main``: 4 requests of 2048
+             prompt tokens and 32 generated, K3 in every prefill layer;
+             transcripts equal ``run_reference``'s; one request published
+             (CAS) on admit and every 16 steps, its host dropped mid-
+             generation and resumed by another with zero re-prefill; prefill
+             logits with K3 against the plain attention at the same weights
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
-made on the main path (the itinerary and publish phases), the nvidia-smi
-line, and last ``{"ok": true, "device": {...}}``. Any failure raises and the
+made on its main path (K1 and K2: the itinerary and publish phases; K3: the
+serve phase's ``main``), the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
 card, or a directory without the rest of the repository.
 """
@@ -48,6 +57,18 @@ M_FOVS = 48 * 30 * 9  # 12,960
 CHUNK = 1 << 20  # the publish phase's chunk size; K1's grid follows it
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, bf16 dense tensor cores
+F32_TOL = 2e-5  # float32 sums in another order: tests/test_kernels.py's float32 tolerance
+BF16_TOL = 2e-2  # tests/test_kernels.py's bfloat16 tolerance
+BF16_ROUNDING = 2.0 ** -8  # one round to nearest bf16 moves x by at most 2**-8 |x|
+# the serve phase: qwen3-1.7b at full width, the CLI's requests, and the
+# request published and resumed
+SERVE_SPEC = "model:qwen3-1.7b:full:seed=0"
+PROMPT_LEN, GEN, BATCH = 2048, 32, 4
+SERVE_ARGV = ["--arch", "qwen3-1.7b", "--prompt-len", str(PROMPT_LEN), "--gen", str(GEN),
+              "--batch", str(BATCH), "--seed", "0", "--device", "cuda"]
+PUBLISH_EVERY = 16
+DROP_AT_DONE = 24  # the first host is dropped here; its last publish is at done 17
 
 
 def emit(phase: str, **fields) -> None:
@@ -236,6 +257,107 @@ def check_colocate(dev, state) -> dict:
     return {"name": "colocate", "cases": cases, "max_abs_err": max_err, **timing}
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the attention mask keeps: the work K3 must do."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def one_bf16_rounding(got: torch.Tensor, ref32: torch.Tensor) -> dict:
+    """``got`` (bf16) is ``ref32`` (the plain version's float32 answer on
+    the same bf16-exact inputs) rounded once: every element within
+    2**-8 |ref32| + F32_TOL of it. Where outputs are small (a causal row at
+    S = 32768 averages ~1e4 keys, |out| ~ 0.015) 2e-2 would pass a dropped
+    key tile or an off-by-one mask; this limit scales with each output."""
+    err = (got.float() - ref32).abs()
+    use = float((err / (BF16_ROUNDING * ref32.abs() + F32_TOL)).max())
+    rms = float(ref32.square().mean().sqrt())
+    out = {"max_abs_err_vs_f32": float(err.max()), "out_rms": rms,
+           "max_err_over_rms": float(err.max()) / rms if rms else 0.0,
+           "rounding_limit": f"2**-8 |x| + {F32_TOL}", "rounding_limit_use": use}
+    assert use <= 1.0, out
+    return out
+
+
+def check_flash_attention(dev) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    cases = []
+    # the six cases of tests/test_kernels.py, then the serve prefill's shape and
+    # prefill_32k's sequence length at the same heads
+    shapes = [(2, 4, 4, 128, 128, 64, True, 0, "float32"),
+              (1, 8, 2, 257, 257, 64, True, 0, "float32"),
+              (2, 4, 2, 200, 200, 128, True, 64, "float32"),
+              (1, 4, 4, 96, 160, 64, False, 0, "bfloat16"),
+              (1, 2, 1, 512, 512, 64, True, 0, "bfloat16"),
+              (1, 4, 4, 64, 64, 128, True, 32, "bfloat16"),
+              (1, 16, 8, 2048, 2048, 128, True, 0, "bfloat16"),
+              (1, 16, 8, 32768, 32768, 128, True, 0, "bfloat16")]
+    timed = {}
+    for i, (b, h, hkv, sq, sk, d, causal, window, dt) in enumerate(shapes):
+        rng = np.random.default_rng(i)
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+                   for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got.float() - want.float()).abs().max())
+        tol = BF16_TOL if dt == "bfloat16" else F32_TOL
+        close = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+        assert close and torch.isfinite(got).all(), (b, h, hkv, sq, sk, d, causal, window, dt, err)
+        case = {"shape": f"B{b} H{h} Hkv{hkv} Sq{sq} Sk{sk} D{d}", "causal": causal,
+                "window": window, "dtype": dt, "max_abs_err": err, "tol": tol}
+        if dt == "bfloat16":
+            case.update(one_bf16_rounding(got, flash_attention_plain(
+                q.float(), k.float(), v.float(), causal=causal, window=window)))
+        if sq >= 2048:  # the main path's shape and the 32k one: timed
+            pairs = visible_pairs(sq, sk, causal, window)
+            flops = 4 * b * h * d * pairs
+            nbytes = (2 * b * h * sq + 2 * b * hkv * sk) * d * q.element_size()
+            reps = 20 if sq <= 2048 else 3
+
+            def library(q=q, k=k, v=v):  # the yardstick only; the port never calls it
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+            lib_err = float((library().float() - want.float()).abs().max())
+            case.update({
+                "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), reps),
+                "kernel_only_ms": profiled_ms(
+                    lambda: flash_attention(q, k, v, causal=causal, window=window),
+                    "flash_fwd_kernel", reps),
+                "plain_ms": plain_ms,
+                "library_ms": cuda_ms(library, reps),
+                "library_max_abs_err": lib_err,
+                "visible_pairs": pairs, "flops": flops, "bytes": nbytes,
+                "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+                "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S
+                else "bytes",
+            })
+            timed[sq] = case
+        cases.append(case)
+        del q, k, v, got, want
+    serve = timed[2048]
+    return {"name": "flash_attention", "cases": cases, "max_abs_err": serve["max_abs_err"],
+            **{key: serve[key] for key in ("ms", "kernel_only_ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")},
+            "shape": "q bf16[1,16,2048,128], k/v bf16[1,8,2048,128], causal",
+            **{key: serve[key] for key in ("max_abs_err_vs_f32", "out_rms",
+                                           "rounding_limit_use")},
+            "at_32k": {key: timed[32768][key] for key in
+                       ("ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms",
+                        "max_abs_err", "max_abs_err_vs_f32", "out_rms",
+                        "rounding_limit_use")}}
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
@@ -400,6 +522,199 @@ def check_product(itin: dict, calm: dict, dev) -> dict:
             "cpu_sample_pixels": len(rows), "cpu_sample_idx_equal": True}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving qwen3-1.7b at full width
+# ---------------------------------------------------------------------------
+
+
+def check_serve(metrics: dict, dev, spec: str = SERVE_SPEC) -> dict:
+    """The served transcripts equal ``run_reference``'s on an engine rebuilt
+    from the seed, and are not degenerate."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import make_engine, run_reference
+
+    engine = make_engine(spec, device=dev)
+    requests = launch_serve.build_requests(engine.vocab, batch=BATCH, prompt_len=PROMPT_LEN,
+                                           gen=GEN, seed=0)
+    t0 = time.perf_counter()
+    reference = run_reference(engine, requests)
+    reference_s = time.perf_counter() - t0
+    transcripts = metrics["transcripts"]
+    assert transcripts == reference, (transcripts, reference)
+    assert all(len(t) == GEN and len(set(t)) > 1 for t in transcripts.values()), transcripts
+    assert len({tuple(t) for t in transcripts.values()}) == len(requests), transcripts
+    leaves = _leaves(engine.params)
+    return {"engine": engine, "requests": requests, "reference": reference,
+            "line": {"spec": spec, "params": sum(t.numel() for t in leaves),
+                     "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+                     "prefill_s": metrics["prefill_s"], "decode_s": metrics["decode_s"],
+                     "prefill_tok_s": metrics["prefill_tok_s"],
+                     "decode_tok_s": metrics["decode_tok_s"], "decoded": metrics["decoded"],
+                     "reference_s": reference_s, "transcripts_equal_reference": True,
+                     "first_tokens": {rid: t[:8] for rid, t in transcripts.items()}}}
+
+
+def _leaves(tree):
+    from repro_torch.utils import flatten_with_paths
+
+    return list(flatten_with_paths(tree)[0].values())
+
+
+def run_serve_resume(root: Path, dev, engine, req: dict, want: list[int]) -> dict:
+    """One request under a job: published on admit and every 16 steps, its
+    host dropped at done 24, resumed by a new host from the CMI of done 17."""
+    from repro_torch.checkpoint.fsck import fsck_store
+    from repro_torch.checkpoint.serializer import load_manifest
+    from repro_torch.core import DHP, NBS, JobStore
+    from repro_torch.core.jobstore import STATUS_FINISHED
+    from repro_torch.serve import ServeHost
+
+    nbs = NBS(root / "s3")
+    nbs.add_node("serve-0", device=dev)
+    nbs.add_node("serve-1", device=dev)
+    store = JobStore(root / "jobs")
+    job = store.create_job({"app": "serve", "req": req["id"]})
+    publishes, opened = [], {}
+
+    def on_checkpoint(node, cmi, step):
+        opened[cmi] = time.perf_counter()
+
+    def on_publish(job_id, status, name):
+        if name in opened:
+            stats = load_manifest(store.cmi_root(job_id), name).extra["stats"]
+            publishes.append({"cmi": name, "publish_s": time.perf_counter() - opened.pop(name),
+                              "written_bytes": stats["written_bytes"],
+                              "ref_bytes": stats["ref_bytes"], "chunks": stats["chunks"],
+                              "ref_chunks": stats["ref_chunks"]})
+
+    nbs.plugins.subscribe("on_checkpoint", on_checkpoint)
+    nbs.plugins.subscribe("on_publish", on_publish)
+    host = ServeHost(engine, node_name="serve-0", dhp=DHP(nbs, "serve-0", store, chunk_bytes=CHUNK),
+                     publish_every=PUBLISH_EVERY)
+    got = [tok for _, tok in host.admit(req["id"], req["prompt"], req["max_new"],
+                                        job_id=job.job_id)["tokens"]]
+    while host.status()["requests"][req["id"]]["done"] < DROP_AT_DONE:
+        got += [tok for _, tok in host.step()["tokens"][req["id"]]]
+    assert host.counters["publishes"] == 2 and got == want[:DROP_AT_DONE]
+    assert host.drop(req["id"]) == {"dropped": True}
+    del host  # the reclaimed instance: its decode state is gone
+
+    host2 = ServeHost(engine, node_name="serve-1",
+                      dhp=DHP(nbs, "serve-1", store, chunk_bytes=CHUNK))
+    t0 = time.perf_counter()
+    res = host2.resume(req["id"], job.job_id)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resumed_at = res["done"]
+    assert resumed_at == 1 + PUBLISH_EVERY, resumed_at
+    assert host2.active[req["id"]]["caches"]["g0"]["k"].device.type == engine.device.type
+    got = [tok for _, tok in res["tokens"]]
+    while host2.active:
+        got += [tok for _, tok in host2.step()["tokens"].get(req["id"], [])]
+    assert got == want, (got, want)
+    assert host2.counters["prefills"] == 0 and host2.counters["resumes"] == 1
+    report = fsck_store(store.cmi_root(job.job_id))
+    assert report.clean, report.summary()
+    assert store.read_job(job.job_id).status == STATUS_FINISHED
+    cfg = engine.cfg
+    kv_bytes = 2 * cfg.n_layers * (PROMPT_LEN + GEN) * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    assert len(publishes) == 2
+    for pub in publishes:  # every layer's cache rows changed: the whole cache is written
+        assert pub["written_bytes"] >= kv_bytes, (pub, kv_bytes)
+    assert publishes[1]["ref_bytes"] > 0  # the unchanged prompt is referenced, not rewritten
+    return {"resumed_at_done": resumed_at, "dropped_at_done": DROP_AT_DONE,
+            "resume_s": resume_s, "kv_cache_bytes": kv_bytes, "publishes": publishes,
+            "transcript_equal": True, "reprefills": host2.counters["prefills"],
+            "fsck": report.summary()}
+
+
+def check_model_kernel_vs_plain(engine, prompt: list[int]) -> dict:
+    """Prefill logits of one prompt with K3 and with the plain attention,
+    at the same weights (launches here are not the main path's)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.models import attention as attn
+
+    tokens = torch.tensor([prompt], dtype=torch.int64, device=engine.device)
+    s_max = len(prompt) + 1
+    got, _ = engine.model.prefill(engine.params, {"tokens": tokens}, s_max=s_max)
+    kernel = attn.flash_attention
+    attn.flash_attention = flash_attention_plain
+    try:
+        want, _ = engine.model.prefill(engine.params, {"tokens": tokens}, s_max=s_max)
+    finally:
+        attn.flash_attention = kernel
+    assert got.shape == (1, engine.cfg.vocab) and got.dtype == torch.float32
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    top1 = bool(torch.argmax(got[0]) == torch.argmax(want[0]))
+    assert top1
+    return {"prompt_tokens": len(prompt), "logits_max_abs_diff": float((got - want).abs().max()),
+            "logits_max_abs": float(want.abs().max()), "top1_agree": top1}
+
+
+def _kernel_group(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "K3 flash_attention"
+    if any(tag in low for tag in ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "xmma")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if "reduce" in low or "softmax" in low:
+        return "reductions"
+    return "elementwise and other"
+
+
+def profile_serve(engine, prompt: list[int], steps: int = 8) -> dict:
+    """Where one request's time goes: a 2048-token prefill and ``steps``
+    decode steps under torch.profiler, device time by kernel group and the
+    device's idle share of each phase's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import is_done
+
+    state = engine.prefill(prompt, steps + 1)  # warm
+    engine.decode(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = engine.prefill(prompt, steps + 1)
+    t1 = time.perf_counter()
+    while not is_done(state):
+        engine.decode(state)
+    out = {"unprofiled_prefill_ms": (t1 - t0) * 1e3,
+           "unprofiled_decode_ms_per_step": (time.perf_counter() - t1) * 1e3 / steps}
+    for phase in ("prefill", "decode"):
+        state = engine.prefill(prompt, steps + 1) if phase == "decode" else None
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if phase == "prefill":
+                engine.prefill(prompt, steps + 1)
+            else:
+                while not is_done(state):
+                    engine.decode(state)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        groups: dict[str, float] = {}
+        by_name: dict[str, float] = {}
+        for e in kernels:
+            us = e.time_range.elapsed_us()
+            groups[_kernel_group(e.name)] = groups.get(_kernel_group(e.name), 0.0) + us
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us
+        busy = sum(groups.values())
+        out[phase] = {
+            "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / wall_us if kernels else None,
+            "kernel_launches": len(kernels),
+            "groups_ms": {k: v / 1e3 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": {k: v / 1e3 for k, v in
+                               sorted(by_name.items(), key=lambda kv: -kv[1])[:6]},
+            "steps": 1 if phase == "prefill" else steps,
+        }
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card here; nothing was run", file=sys.stderr)
@@ -407,6 +722,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.colocate import ops as colocate_ops
     from repro_torch.kernels.delta_encode import ops as delta_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve as launch_serve
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -430,7 +747,8 @@ def main() -> int:
         k1 = check_delta_encode(dev)
         k2 = check_colocate(dev, geo)
         del geo
-        emit("kernels", delta_encode=k1, colocate=k2)
+        k3 = check_flash_attention(dev)
+        emit("kernels", delta_encode=k1, colocate=k2, flash_attention=k3)
 
         # the main path: counts from 0 just before, read just after
         delta_ops.changed_blocks.launches = 0
@@ -453,21 +771,53 @@ def main() -> int:
              launches={k: launches[k] - launches_itin[k] for k in launches})
         assert launches["delta_encode"] > launches_itin["delta_encode"] >= 0
         assert launches["colocate"] > 0
+
+        # the serve path: counts from 0 just before, read just after
+        delta_ops.changed_blocks.launches = 0
+        colocate_ops.colocate_match.launches = 0
+        flash_ops.flash_attention.launches = 0
+        metrics = launch_serve.main(SERVE_ARGV)
+        torch.cuda.synchronize()
+        launches["flash_attention"] = flash_ops.flash_attention.launches
+        serve_launches = {"delta_encode": delta_ops.changed_blocks.launches,
+                          "colocate": colocate_ops.colocate_match.launches,
+                          "flash_attention": launches["flash_attention"]}
+        served = check_serve(metrics, dev)
+        cfg = served["engine"].cfg
+        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                cfg.d_ff, cfg.vocab, cfg.dtype, cfg.tie_embeddings) == \
+            (28, 2048, 16, 8, 128, 6144, 151936, "bfloat16", True), cfg
+        n_layers = cfg.n_layers
+        assert serve_launches == {"delta_encode": 0, "colocate": 0,
+                                  "flash_attention": BATCH * n_layers}, serve_launches
+        engine, req = served["engine"], served["requests"][0]
+        resume = run_serve_resume(work / "serve", dev, engine, req, served["reference"][req["id"]])
+        in_model = check_model_kernel_vs_plain(engine, req["prompt"])
+        trace = profile_serve(engine, req["prompt"])
+        emit("serve", **served["line"], resume=resume, kernel_vs_plain_in_model=in_model,
+             where_the_time_goes=trace,
+             launches=serve_launches, k3_launches_per_prefill=n_layers,
+             peak_memory_bytes=torch.cuda.max_memory_allocated())
+        del served, engine
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     rows = []
-    for k, name, replaces in ((k1, "delta_encode", "src/repro/kernels/delta_encode/delta_encode.py:48"),
-                              (k2, "colocate", "src/repro/kernels/colocate/colocate.py:66")):
+    parity = {"delta_encode": "bitmaps equal", "colocate": "idx equal, cos bitwise equal",
+              "flash_attention": "within 2e-5 (f32) / 2e-2 (bf16) of the plain version; "
+                                 "bf16 within one rounding (2**-8 |x| + 2e-5) of its "
+                                 "float32 answer"}
+    for k, name, replaces in (
+            (k1, "delta_encode", "src/repro/kernels/delta_encode/delta_encode.py:48"),
+            (k2, "colocate", "src/repro/kernels/colocate/colocate.py:66"),
+            (k3, "flash_attention", "src/repro/kernels/flash_attention/flash_attention.py:120")):
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
                      "launches": launches[name], "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "kernel_ms": k["ms"], "kernel_only_ms": k["kernel_only_ms"],
-                     "shape": k["shape"],
-                     "parity": "bitmaps equal" if name == "delta_encode"
-                     else "idx equal, cos bitwise equal"})
+                     "shape": k["shape"], "parity": parity[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,25 @@
+"""yi-34b — dense llama-arch GQA [arXiv:2403.04652; hf]."""
+
+from repro_torch.configs.base import ArchConfig
+
+
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="yi-34b",
+        family="dense",
+        n_layers=60,
+        d_model=7168,
+        n_heads=56,
+        n_kv_heads=8,
+        d_ff=20480,
+        vocab=64000,
+        rope_theta=5_000_000.0,
+        source="[arXiv:2403.04652; hf]",
+    )
+
+
+def smoke() -> ArchConfig:
+    return config().with_(
+        n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_ff=128, vocab=256,
+        loss_chunk=64,
+    )

@@ -1,0 +1,159 @@
+"""K3: forward GQA flash attention, causal and/or sliding window.
+
+Port of the Pallas kernel ``repro/kernels/flash_attention`` (wrapper
+``ops.flash_attention``, kernel ``flash_attention_padded``, oracle
+``ref.attention_ref``): online softmax over key tiles with float32 running
+``(m, l, acc)``, key positions past ``s_k`` masked, a row with no visible
+key exactly 0, the output cast to q's dtype. Query head ``h`` reads kv
+head ``h // (H / Hkv)``.
+
+:func:`flash_attention` runs :func:`flash_attention_plain` for CPU tensors
+and the CUDA kernel ``csrc/flash_attention.cu`` for CUDA tensors. Both keep
+the probabilities in float32 for the PV product, as K3 does. The kernel
+masks the ragged edges itself, so nothing is padded, and it reads q, k and
+v through their strides: ``(B, S, H, D)`` activations transposed to the
+``(B, H, S, D)`` layout cost no copy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+DEFAULT_BLOCK_Q = 512  # the plain version's tiles (the reference's defaults)
+DEFAULT_BLOCK_K = 512
+KERNEL_BLOCK_Q = 64  # the CUDA kernel's fixed q tile: one block each
+KERNEL_MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"need q (B,H,Sq,D) and k/v (B,Hkv,Sk,D), got {tuple(q.shape)} "
+                         f"{tuple(k.shape)}")
+    b, h, _, d = q.shape
+    bk, hkv, _, dk = k.shape
+    if (bk, dk) != (b, d) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"n_heads {h} not a multiple of n_kv_heads {hkv}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+
+
+def flash_attention_plain(
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """K3's arithmetic in PyTorch: float32 online softmax over
+    ``block_q`` x ``block_k`` tiles, fully masked tiles skipped. Never
+    holds more than one score tile, so it runs at Sq = Sk = 32768."""
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    block_q = min(block_q, max(16, sq))
+    block_k = min(block_k, max(16, sk))
+    qf = q.reshape(b, hkv, g, sq, d).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, block_q):
+        q1 = min(sq, q0 + block_q)
+        qb = qf[:, :, :, q0:q1]  # (B, Hkv, G, tq, D)
+        m = torch.full(qb.shape[:-1] + (1,), float("-inf"), device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        for k0 in range(0, sk, block_k):
+            # tile skip, as the Pallas kernel's (tiles of the padded grid)
+            if causal and k0 > q0 + block_q - 1:
+                continue
+            if window > 0 and k0 + block_k - 1 <= q0 - window:
+                continue
+            k1 = min(sk, k0 + block_k)
+            s = torch.matmul(qb, kf[:, :, None, k0:k1].transpose(-1, -2)) * scale
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kpos <= qpos
+            if window > 0:
+                mask &= kpos > qpos - window
+            s = torch.where(mask, s, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            # rows with no visible key yet keep m = -inf; guard exp(-inf + inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.matmul(p, vf[:, :, None, k0:k1])
+            m = m_new
+        out[:, :, :, q0:q1] = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """(B, H, Sq, D) in q's dtype — the plain version (512 x 512 tiles) on
+    the CPU, the kernel (64 x 64 tiles) on CUDA."""
+    _check(q, k, v)
+    window = int(window)
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention needs q, k, v on one CUDA device or on the CPU, "
+                         f"got {q.device} {k.device} {v.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d > KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, got {d}")
+    if b * h >= 2**31 or sq > 65535 * KERNEL_BLOCK_Q or sk >= 2**31:
+        raise ValueError(f"flash_attention shapes beyond the kernel's grid: "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    # the kernel reads rows through strides; each row's D values must be dense
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)  # keeps q's dense layout: (B,S,H,D) storage stays so
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    if out.numel():
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        with torch.cuda.device(q.device):  # the launch goes to the current device
+            err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                            b, h, hkv, sq, sk, d, *strides, scale, int(bool(causal)), window,
+                            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0  # kernel launches since the last reset

@@ -1,0 +1,112 @@
+"""Shared layers: norms, RoPE, embeddings, SwiGLU.
+
+Port of the JAX package's ``repro/models/layers.py`` with its float32
+upcasts kept: norms and RoPE compute in float32 and round once to the
+activation dtype, and the unembedding returns float32 logits from bf16
+operands. ``softmax_xent_chunked``, ``layernorm`` and ``gelu_mlp`` come
+with the training and encoder slices.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+# Vocabulary rows per float32 block of the unembedding: 16,384 rows at
+# d_model 2048 is a 134 MB transient, in place of a 1.24 GB float32 copy
+# of qwen3-1.7b's tied 151,936-row embedding.
+UNEMBED_BLOCK_ROWS = 16384
+
+
+def pdtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init_dense(gen: torch.Generator | None, shape, axes, dtype: torch.dtype,
+               device: torch.device | str, scale: float | None = None) -> torch.Tensor:
+    """Truncated normal in [-2, 2] times ``scale`` (fan-in scaling by
+    default: ``1/sqrt`` of the product of the non-``layers`` axes but the
+    last). On the ``meta`` device only the shape and dtype are made."""
+    fan_in = math.prod([s for s, a in zip(shape, axes) if a != "layers"][:-1]) or 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    if w.device.type != "meta":
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        w.mul_(scale)
+    return w.to(dtype)
+
+
+def init_embedding(gen: torch.Generator | None, cfg: ArchConfig,
+                   device: torch.device | str) -> torch.Tensor:
+    emb = torch.empty((cfg.vocab, cfg.d_model), dtype=torch.float32, device=device)
+    if emb.device.type != "meta":
+        emb.normal_(0.0, 1.0, generator=gen).mul_(0.02)
+    return emb.to(pdtype(cfg))
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (GPT-NeoX half-rotation)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: (S,) or (..., S) int."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (half,)
+    angles = positions.float()[..., :, None] * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding / FFN
+# ---------------------------------------------------------------------------
+
+
+def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    return emb[tokens]
+
+
+def unembed_logits(h: torch.Tensor, emb_out: torch.Tensor) -> torch.Tensor:
+    """h: (..., E) -> float32 logits (..., V).
+
+    The reference's ``preferred_element_type=float32``: the bf16 operands
+    are widened to float32 (exactly) and multiplied in float32, block by
+    block of :data:`UNEMBED_BLOCK_ROWS` vocabulary rows, so no float32
+    copy of the whole table is kept. Greedy argmax over bf16-rounded
+    logits would tie far more often.
+    """
+    hf = h.float()
+    v = emb_out.shape[0]
+    out = torch.empty(h.shape[:-1] + (v,), dtype=torch.float32, device=h.device)
+    for r0 in range(0, v, UNEMBED_BLOCK_ROWS):
+        blk = emb_out[r0:r0 + UNEMBED_BLOCK_ROWS].float()
+        out[..., r0:r0 + blk.shape[0]] = torch.matmul(hf, blk.T)
+    return out
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    return torch.matmul(F.silu(g) * u, w_down)

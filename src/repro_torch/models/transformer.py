@@ -1,0 +1,143 @@
+"""Decoder-only transformer assembly: layer groups, stacked layers, caches.
+
+Port of the JAX package's ``repro/models/transformer.py`` for the GQA mixer
+with the dense (SwiGLU) FFN. Layers with identical structure are stacked on
+a leading ``L`` axis, as in the reference; each ``lax.scan`` over that axis
+is a Python loop over its slices here. ``block_groups`` is the reference's
+grouping, so parameter paths and cache paths are the same in both
+packages. The other mixers (mla, hybrid, mlstm) and the MoE FFN raise
+``NotImplementedError`` (ROADMAP queue 1, item 11); ``forward_train``
+comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import init_dense, init_embedding, pdtype, rmsnorm, swiglu
+
+_LATER = "is not ported yet (ROADMAP queue 1, item 11: models and training)"
+
+
+def block_groups(cfg: ArchConfig) -> list[tuple[str, int, str, str]]:
+    """[(group_name, n_layers, mixer_kind, ffn_kind)]"""
+    if cfg.mla:
+        mixer = "mla"
+    elif cfg.ssm:
+        mixer = "hybrid"
+    elif cfg.mlstm:
+        mixer = "mlstm"
+    else:
+        mixer = "gqa"
+    ffn = "moe" if cfg.moe else ("dense" if cfg.d_ff > 0 else "none")
+    if cfg.moe and cfg.first_dense_layers > 0:
+        return [
+            ("g0", cfg.first_dense_layers, mixer, "dense"),
+            ("g1", cfg.n_layers - cfg.first_dense_layers, mixer, "moe"),
+        ]
+    return [("g0", cfg.n_layers, mixer, ffn)]
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not run."""
+    if cfg.encdec or cfg.vision_prefix:
+        raise NotImplementedError(f"{cfg.name}: the encoder/vision front ends {_LATER}")
+    for _, _, mixer, ffn in block_groups(cfg):
+        if mixer != "gqa":
+            raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} {_LATER}")
+        if ffn != "dense":
+            raise NotImplementedError(f"{cfg.name}: ffn {ffn!r} {_LATER}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_ffn(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
+    dt, e = pdtype(cfg), cfg.d_model
+    return {
+        "wg": init_dense(gen, (n_layers, e, cfg.d_ff), ("layers", "embed", "mlp"), dt, device),
+        "wu": init_dense(gen, (n_layers, e, cfg.d_ff), ("layers", "embed", "mlp"), dt, device),
+        "wd": init_dense(gen, (n_layers, cfg.d_ff, e), ("layers", "mlp", "embed"), dt, device),
+    }
+
+
+def init_lm(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[str, Any]:
+    """The parameter tree, with the reference's paths and shapes. Weights
+    come from ``gen`` in a fixed order; on the ``meta`` device only shapes
+    and dtypes are made."""
+    check_supported(cfg)
+    dt = pdtype(cfg)
+    params: dict[str, Any] = {"embed": init_embedding(gen, cfg, device)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_embedding(gen, cfg, device)
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+    params["blocks"] = {}
+    for gname, n, _, _ in block_groups(cfg):
+        params["blocks"][gname] = {
+            "ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+            "attn": attn.init_gqa(gen, cfg, n, device),
+            "ln2": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+            "ffn": _init_ffn(gen, cfg, n, device),
+        }
+    return params
+
+
+# ---------------------------------------------------------------------------
+# block apply (single layer; params without the L axis)
+# ---------------------------------------------------------------------------
+
+
+def _layer(gp: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: each stacked leaf indexed on its L axis."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in gp.items()}
+
+
+def _ffn(pl, h, cfg: ArchConfig):
+    f = pl["ffn"]
+    return swiglu(rmsnorm(h, pl["ln2"], cfg.norm_eps), f["wg"], f["wu"], f["wd"])
+
+
+def block_prefill(pl, x, cfg: ArchConfig, s_max: int):
+    """One layer of the prefill; also returns its decode cache."""
+    y, cache = attn.gqa_prefill(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg, s_max)
+    h = x + y
+    return h + _ffn(pl, h, cfg), cache
+
+
+def block_decode(pl, x, cache, pos: int, cfg: ArchConfig):
+    y, cache = attn.gqa_decode(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cache, pos, cfg)
+    h = x + y
+    return h + _ffn(pl, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# stacks: a loop over each group's layers
+# ---------------------------------------------------------------------------
+
+
+def forward_prefill(params, x, cfg: ArchConfig, s_max: int):
+    """Returns (final hidden, caches) — caches stacked on L per group."""
+    caches = {}
+    for gname, n, _, _ in block_groups(cfg):
+        gp = params["blocks"][gname]
+        layer_caches = []
+        for i in range(n):
+            x, cache = block_prefill(_layer(gp, i), x, cfg, s_max)
+            layer_caches.append(cache)
+        caches[gname] = {k: torch.stack([c[k] for c in layer_caches]) for k in ("k", "v")}
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches
+
+
+def forward_decode(params, x, caches, pos: int, cfg: ArchConfig):
+    """x: (B,1,E). Returns (final hidden (B,1,E), caches written in place)."""
+    for gname, n, _, _ in block_groups(cfg):
+        gp, gc = params["blocks"][gname], caches[gname]
+        for i in range(n):
+            x, _ = block_decode(_layer(gp, i), x, _layer(gc, i), pos, cfg)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches

@@ -13,6 +13,7 @@ import torch
 from repro_torch.checkpoint.serializer import _chunk_rows
 from repro_torch.kernels.colocate import colocate_match, colocate_match_plain
 from repro_torch.kernels.delta_encode import changed_blocks, changed_blocks_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +59,47 @@ def test_colocate_kernel_equals_plain_bitwise(dev, n, m):
     pi, pc = colocate_match_plain(u, los)
     assert torch.equal(ki, pi)
     assert torch.equal(kc.view(torch.int32), pc.view(torch.int32))
+
+
+# the six cases of tests/test_kernels.py's flash attention sweep
+_FLASH_CASES = [
+    # (b, h, hkv, sq, sk, d, causal, window, dtype)
+    (2, 4, 4, 128, 128, 64, True, 0, "float32"),
+    (1, 8, 2, 257, 257, 64, True, 0, "float32"),
+    (2, 4, 2, 200, 200, 128, True, 64, "float32"),
+    (1, 4, 4, 96, 160, 64, False, 0, "bfloat16"),
+    (1, 2, 1, 512, 512, 64, True, 0, "bfloat16"),
+    (1, 4, 4, 64, 64, 128, True, 32, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", _FLASH_CASES, ids=[str(c) for c in _FLASH_CASES])
+def test_flash_attention_kernel_equals_plain(dev, case):
+    b, h, hkv, sq, sk, d, causal, window, dt = case
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    rng = np.random.default_rng(sq * 7 + d)
+    dtype = getattr(torch, dt)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # float32: sums in another order (2e-5); bfloat16: one rounding of the
+    # output apart at most (2e-2), the tolerances of tests/test_kernels.py
+    tol = 2e-2 if dt == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dt == "bfloat16":
+        # and each output is the float32 answer rounded once to bf16: within
+        # 2**-8 of its magnitude, plus the float32 tolerance
+        ref32 = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                      window=window)
+        assert ((got.float() - ref32).abs() <= 2.0 ** -8 * ref32.abs() + 2e-5).all()
+    # (B, S, H, D) storage read through strides gives the same answer
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(flash_attention(qs, k, v, causal=causal, window=window), got,
+                               atol=0, rtol=0)
