@@ -6,11 +6,14 @@ one card). It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
 with nvcc and prints one JSON line per phase:
 
   env        torch / CUDA versions, the card, nvidia-smi's name and power limit
-  build      nvcc wall time and each kernel's registers and shared memory
+  build      nvcc wall time and each kernel's registers and spills from ptxas
+             (the tensor-core K3 must spill nothing)
   kernels    each kernel against its plain PyTorch version on the card, at the
              main path's shapes (K1, K2 bitwise; K3 in bf16 within one
              rounding of its float32 answer), with its time, the plain version's,
-             one PyTorch library call's and the card's lower bound
+             one PyTorch library call's and the card's lower bound; K3's bf16
+             cases at D = 64 and 128 run its tensor-core kernel, whose own
+             arithmetic (two PV products) has a 6 D floor beside the 4 D bound
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
              through a transit CMI, preempted after the match publish and
              resumed; the product equals an uninterrupted run's
@@ -22,7 +25,8 @@ with nvcc and prints one JSON line per phase:
              transcripts equal ``run_reference``'s; one request published
              (CAS) on admit and every 16 steps, its host dropped mid-
              generation and resumed by another with zero re-prefill; prefill
-             logits with K3 against the plain attention at the same weights
+             logits with K3 against the plain attention at the same weights;
+             every K3 launch of ``main`` through the tensor-core kernel
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
 made on its main path (K1 and K2: the itinerary and publish phases; K3: the
@@ -104,6 +108,24 @@ def profiled_ms(fn, kernel: str, reps: int) -> float | None:
     us = sum(getattr(e, "device_time_total", 0.0) for e in rows)
     launches = sum(e.count for e in rows)
     return us / launches / 1e3 if us > 0 and launches else None
+
+
+def ptxas_entries(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    report, by mangled entry name, and the report's warnings."""
+    out, cur = {"warnings": []}, None
+    for ln in log.splitlines():
+        if "warning" in ln.lower():
+            out["warnings"].append(ln.strip())
+        elif "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+            out[cur] = {}
+        elif cur and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[cur].update(stack_bytes=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 def nvidia_smi() -> str:
@@ -304,7 +326,10 @@ def check_flash_attention(dev) -> dict:
         dtype = getattr(torch, dt)
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
                    for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+        before = flash_attention.wgmma_launches
         got = flash_attention(q, k, v, causal=causal, window=window)
+        kernel = "wgmma" if flash_attention.wgmma_launches > before else "cuda-core"
+        assert kernel == ("wgmma" if dt == "bfloat16" and d in (64, 128) else "cuda-core")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -315,7 +340,7 @@ def check_flash_attention(dev) -> dict:
         close = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
         assert close and torch.isfinite(got).all(), (b, h, hkv, sq, sk, d, causal, window, dt, err)
         case = {"shape": f"B{b} H{h} Hkv{hkv} Sq{sq} Sk{sk} D{d}", "causal": causal,
-                "window": window, "dtype": dt, "max_abs_err": err, "tol": tol}
+                "window": window, "dtype": dt, "kernel": kernel, "max_abs_err": err, "tol": tol}
         if dt == "bfloat16":
             case.update(one_bf16_rounding(got, flash_attention_plain(
                 q.float(), k.float(), v.float(), causal=causal, window=window)))
@@ -333,7 +358,7 @@ def check_flash_attention(dev) -> dict:
                 "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), reps),
                 "kernel_only_ms": profiled_ms(
                     lambda: flash_attention(q, k, v, causal=causal, window=window),
-                    "flash_fwd_kernel", reps),
+                    "flash_fwd_kernel_wgmma" if kernel == "wgmma" else "flash_fwd_kernel", reps),
                 "plain_ms": plain_ms,
                 "library_ms": cuda_ms(library, reps),
                 "library_max_abs_err": lib_err,
@@ -341,6 +366,9 @@ def check_flash_attention(dev) -> dict:
                 "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
                 "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S
                 else "bytes",
+                # the tensor-core kernel keeps P float32 as two bf16 halves:
+                # 6 D operations per visible pair, its own floor
+                "floor_6d_ms": 6 * b * h * d * pairs / BF16_FLOPS * 1e3,
             })
             timed[sq] = case
         cases.append(case)
@@ -348,13 +376,13 @@ def check_flash_attention(dev) -> dict:
     serve = timed[2048]
     return {"name": "flash_attention", "cases": cases, "max_abs_err": serve["max_abs_err"],
             **{key: serve[key] for key in ("ms", "kernel_only_ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by")},
+                                           "bound_ms", "bound_by", "floor_6d_ms")},
             "shape": "q bf16[1,16,2048,128], k/v bf16[1,8,2048,128], causal",
             **{key: serve[key] for key in ("max_abs_err_vs_f32", "out_rms",
                                            "rounding_limit_use")},
             "at_32k": {key: timed[32768][key] for key in
                        ("ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms",
-                        "max_abs_err", "max_abs_err_vs_f32", "out_rms",
+                        "floor_6d_ms", "max_abs_err", "max_abs_err_vs_f32", "out_rms",
                         "rounding_limit_use")}}
 
 
@@ -732,11 +760,14 @@ def main() -> int:
          count=torch.cuda.device_count(), nvidia_smi=smi, python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    reports = _build.build()
+    _build.build()
     build_s = time.perf_counter() - t0
-    regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-            for name, log in reports.items()}
-    emit("build", seconds=build_s, sources=list(_build.SOURCES), ptxas=regs)
+    ptxas = {name: ptxas_entries(_build.ptxas_report(name)) for name in _build.SOURCES}
+    k3_wgmma = {entry: v for entry, v in ptxas["flash_attention"].items()
+                if "flash_fwd_kernel_wgmma" in entry}  # D = 64 and 128
+    k3_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k3_wgmma.values())
+    emit("build", seconds=build_s, sources=list(_build.SOURCES), ptxas=ptxas,
+         k3_wgmma_spill_bytes=k3_spills)
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -776,12 +807,14 @@ def main() -> int:
         delta_ops.changed_blocks.launches = 0
         colocate_ops.colocate_match.launches = 0
         flash_ops.flash_attention.launches = 0
+        flash_ops.flash_attention.wgmma_launches = 0
         metrics = launch_serve.main(SERVE_ARGV)
         torch.cuda.synchronize()
         launches["flash_attention"] = flash_ops.flash_attention.launches
         serve_launches = {"delta_encode": delta_ops.changed_blocks.launches,
                           "colocate": colocate_ops.colocate_match.launches,
-                          "flash_attention": launches["flash_attention"]}
+                          "flash_attention": launches["flash_attention"],
+                          "flash_attention_wgmma": flash_ops.flash_attention.wgmma_launches}
         served = check_serve(metrics, dev)
         cfg = served["engine"].cfg
         assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -789,7 +822,8 @@ def main() -> int:
             (28, 2048, 16, 8, 128, 6144, 151936, "bfloat16", True), cfg
         n_layers = cfg.n_layers
         assert serve_launches == {"delta_encode": 0, "colocate": 0,
-                                  "flash_attention": BATCH * n_layers}, serve_launches
+                                  "flash_attention": BATCH * n_layers,
+                                  "flash_attention_wgmma": BATCH * n_layers}, serve_launches
         engine, req = served["engine"], served["requests"][0]
         resume = run_serve_resume(work / "serve", dev, engine, req, served["reference"][req["id"]])
         in_model = check_model_kernel_vs_plain(engine, req["prompt"])
@@ -802,6 +836,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    assert len(k3_wgmma) == 2 and k3_spills == 0, k3_wgmma  # the tensor-core K3 spills nothing
     rows = []
     parity = {"delta_encode": "bitmaps equal", "colocate": "idx equal, cos bitwise equal",
               "flash_attention": "within 2e-5 (f32) / 2e-2 (bf16) of the plain version; "

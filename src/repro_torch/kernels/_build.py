@@ -6,7 +6,8 @@ plain C interface (no PyTorch headers, so a build takes seconds), under
 a hash of its source and flags, so an edited source is never served by a
 stale build. Nothing is built when a module is imported: the first CUDA
 launch builds what it needs, and :func:`build` compiles several sources at
-once, one nvcc process each.
+once, one nvcc process each. nvcc's ptxas report (registers, spills) is
+kept beside each library.
 """
 
 from __future__ import annotations
@@ -45,10 +46,10 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(names=SOURCES) -> dict[str, str]:
+def build(names=SOURCES) -> None:
     """Compile every named source that has no current build, one nvcc each,
-    all started together. Returns ``{name: ptxas report}`` for what it built;
-    raises with nvcc's output if any build fails."""
+    all started together, keeping each build's ptxas report (see
+    :func:`ptxas_report`); raises with nvcc's output if any build fails."""
     jobs = {}
     for name in names:
         out = lib_path(name)
@@ -59,18 +60,22 @@ def build(names=SOURCES) -> dict[str, str]:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True), tmp, out)
-    reports, failures = {}, []
+    failures = []
     for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failures.append(f"{name}.cu (rc={proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".ptxas.txt").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent loader sees old or new
-            reports[name] = log
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return reports
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's output for the current build of ``csrc/<name>.cu``."""
+    return lib_path(name).with_suffix(".ptxas.txt").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

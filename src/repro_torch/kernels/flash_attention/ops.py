@@ -8,10 +8,13 @@ key exactly 0, the output cast to q's dtype. Query head ``h`` reads kv
 head ``h // (H / Hkv)``.
 
 :func:`flash_attention` runs :func:`flash_attention_plain` for CPU tensors
-and the CUDA kernel ``csrc/flash_attention.cu`` for CUDA tensors. Both keep
-the probabilities in float32 for the PV product, as K3 does. The kernel
-masks the ragged edges itself, so nothing is padded, and it reads q, k and
-v through their strides: ``(B, S, H, D)`` activations transposed to the
+and a CUDA kernel of ``csrc/flash_attention.cu`` for CUDA tensors, chosen
+from dtype and head dim: bf16 at D = 64 or 128 goes to the tensor-core
+kernel (wgmma, TMA), everything else to the CUDA-core kernel. All keep the
+probabilities in float32 for the PV product, as K3 does (the tensor-core
+kernel as bf16 hi + lo halves, two PV products). The kernels mask the
+ragged edges themselves, so nothing is padded, and read q, k and v through
+their strides: ``(B, S, H, D)`` activations transposed to the
 ``(B, H, S, D)`` layout cost no copy.
 """
 
@@ -27,8 +30,9 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_Q = 512  # the plain version's tiles (the reference's defaults)
 DEFAULT_BLOCK_K = 512
-KERNEL_BLOCK_Q = 64  # the CUDA kernel's fixed q tile: one block each
+KERNEL_BLOCK_Q = 64  # the CUDA-core kernel's q tile (the tensor-core kernel's is 128)
 KERNEL_MAX_HEAD_DIM = 128
+WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims the tensor-core kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -105,12 +109,25 @@ def flash_attention_plain(
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("flash_attention").flash_attention_fwd
+def _kernel(entry: str):
+    """``flash_attention_fwd`` (takes a dtype code before the stream) or
+    ``flash_attention_fwd_wgmma`` (bf16 only)."""
+    fn = getattr(_build.load("flash_attention"), entry)
+    dtype = [ctypes.c_int] if entry == "flash_attention_fwd" else []
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + dtype + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a dense copy where the TMA cannot read it: it needs a
+    16-byte aligned base and batch, head and sequence strides in whole
+    16-byte units (a dimension of extent 1 may have any stride)."""
+    nbytes = t.element_size()
+    ok = t.numel() == 0 or (t.data_ptr() % 16 == 0 and all(
+        n == 1 or (s > 0 and s * nbytes % 16 == 0) for n, s in zip(t.shape[:3], t.stride()[:3])))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(
@@ -123,7 +140,8 @@ def flash_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """(B, H, Sq, D) in q's dtype — the plain version (512 x 512 tiles) on
-    the CPU, the kernel (64 x 64 tiles) on CUDA."""
+    the CPU; on CUDA the tensor-core kernel (128 x 64 tiles) for bf16 at
+    D = 64 or 128, the CUDA-core kernel (64 x 64 tiles) otherwise."""
     _check(q, k, v)
     window = int(window)
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
@@ -140,20 +158,29 @@ def flash_attention(
     if b * h >= 2**31 or sq > 65535 * KERNEL_BLOCK_Q or sk >= 2**31:
         raise ValueError(f"flash_attention shapes beyond the kernel's grid: "
                          f"q{tuple(q.shape)} k{tuple(k.shape)}")
-    # the kernel reads rows through strides; each row's D values must be dense
+    wgmma = q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+    # the kernels read rows through strides; each row's D values must be dense
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if wgmma:
+        q, k, v = (_tma_ready(t) for t in (q, k, v))
     out = torch.empty_like(q)  # keeps q's dense layout: (B,S,H,D) storage stays so
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if out.numel():
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, sq, sk, d,
+                *strides, scale, int(bool(causal)), window]
+        entry = "flash_attention_fwd_wgmma" if wgmma else "flash_attention_fwd"
+        if not wgmma:
+            args.append(_DTYPES[q.dtype])
         with torch.cuda.device(q.device):  # the launch goes to the current device
-            err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                            b, h, hkv, sq, sk, d, *strides, scale, int(bool(causal)), window,
-                            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            err = _kernel(entry)(*args, torch.cuda.current_stream(q.device).cuda_stream)
         if err:
             raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
         flash_attention.launches += 1
+        if wgmma:
+            flash_attention.wgmma_launches += 1
     return out
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+flash_attention.launches = 0  # kernel launches since the last reset, either kernel
+flash_attention.wgmma_launches = 0  # of those, the tensor-core kernel's

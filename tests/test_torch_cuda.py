@@ -61,7 +61,10 @@ def test_colocate_kernel_equals_plain_bitwise(dev, n, m):
     assert torch.equal(kc.view(torch.int32), pc.view(torch.int32))
 
 
-# the six cases of tests/test_kernels.py's flash attention sweep
+# the six cases of tests/test_kernels.py's flash attention sweep, then the
+# tensor-core kernel's edges (bf16 at D = 64 and 128): Sk not a multiple of
+# its 64-key tile, Sq != Sk, a window across tile edges, B = 2, rows with no
+# visible key, no key at all, and a bf16 head dim it does not take
 _FLASH_CASES = [
     # (b, h, hkv, sq, sk, d, causal, window, dtype)
     (2, 4, 4, 128, 128, 64, True, 0, "float32"),
@@ -70,7 +73,21 @@ _FLASH_CASES = [
     (1, 4, 4, 96, 160, 64, False, 0, "bfloat16"),
     (1, 2, 1, 512, 512, 64, True, 0, "bfloat16"),
     (1, 4, 4, 64, 64, 128, True, 32, "bfloat16"),
+    (1, 4, 2, 200, 200, 128, True, 0, "bfloat16"),
+    (1, 4, 2, 1000, 1000, 64, True, 0, "bfloat16"),
+    (1, 4, 4, 300, 1000, 128, False, 0, "bfloat16"),
+    (1, 2, 1, 1000, 300, 64, True, 0, "bfloat16"),
+    (1, 4, 2, 700, 700, 128, True, 300, "bfloat16"),
+    (2, 8, 4, 384, 384, 128, True, 0, "bfloat16"),
+    (1, 4, 2, 256, 64, 128, True, 32, "bfloat16"),
+    (1, 2, 1, 100, 0, 128, True, 0, "bfloat16"),
+    (1, 2, 2, 130, 130, 96, True, 0, "bfloat16"),
 ]
+
+
+def _bshd(t):
+    """The same values held as (B, S, H, D) storage: the model's layout."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
 
 
 @pytest.mark.parametrize("case", _FLASH_CASES, ids=[str(c) for c in _FLASH_CASES])
@@ -84,10 +101,13 @@ def test_flash_attention_kernel_equals_plain(dev, case):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
     q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, d)
-    before = flash_attention.launches
+    before, before_wgmma = flash_attention.launches, flash_attention.wgmma_launches
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == before + 1
+    # bf16 at D = 64 or 128 goes through the tensor-core kernel, all else not
+    wgmma = dt == "bfloat16" and d in (64, 128)
+    assert flash_attention.wgmma_launches == before_wgmma + wgmma
     assert got.dtype == dtype and got.shape == q.shape
     # float32: sums in another order (2e-5); bfloat16: one rounding of the
     # output apart at most (2e-2), the tolerances of tests/test_kernels.py
@@ -99,7 +119,15 @@ def test_flash_attention_kernel_equals_plain(dev, case):
         ref32 = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
                                       window=window)
         assert ((got.float() - ref32).abs() <= 2.0 ** -8 * ref32.abs() + 2e-5).all()
+    # a row that sees no key is exactly 0, in the kernel as in the plain version
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    seen = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        seen &= kpos <= qpos
+    if window > 0:
+        seen &= kpos > qpos - window
+    blind = ~seen.any(dim=1).to(dev)
+    assert not got[:, :, blind].any() and not want[:, :, blind].any()
     # (B, S, H, D) storage read through strides gives the same answer
-    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
-    torch.testing.assert_close(flash_attention(qs, k, v, causal=causal, window=window), got,
-                               atol=0, rtol=0)
+    torch.testing.assert_close(flash_attention(_bshd(q), _bshd(k), _bshd(v), causal=causal,
+                                               window=window), got, atol=0, rtol=0)

@@ -18,6 +18,7 @@ from repro.kernels.flash_attention import attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.models.attention import blockwise_attention
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention.ops import _tma_ready
 
 _FLASH_CASES = [
     # (b, h, hkv, sq, sk, d, causal, window, dtype): tests/test_kernels.py's six
@@ -148,6 +149,70 @@ def test_bf16_one_rounding_limit_rejects_wrong_attention():
              .bfloat16()}
     for name, out in wrong.items():
         assert _rounding_limit_use(out, ref32) > 10, name
+
+
+def _tensor_core_arithmetic(q, k, v, *, split, q_tile=128, k_tile=64):
+    """The tensor-core kernel's arithmetic in plain PyTorch, causal: float32
+    scores and online softmax over q_tile x k_tile blocks, P V as products of
+    bf16 values summed in float32 (as wgmma does) — P split into hi = bf16(P)
+    and lo = bf16(P - hi), two products (``split``), or P rounded to bf16
+    once, the textbook design."""
+    b, h, s, d = q.shape
+    kf, vf = (t.repeat_interleave(h // k.shape[1], dim=1) for t in (k, v))
+    scale = 1.0 / d ** 0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, s, q_tile):
+        qb = q[:, :, q0:q0 + q_tile]
+        m = torch.full(qb.shape[:-1] + (1,), float("-inf"))
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
+        qpos = torch.arange(q0, q0 + qb.shape[2])[:, None]
+        for k0 in range(0, min(s, q0 + q_tile), k_tile):
+            kpos = torch.arange(k0, min(s, k0 + k_tile))[None, :]
+            sc = (qb @ kf[:, :, k0:k0 + k_tile].transpose(-1, -2)) * scale
+            sc = sc.masked_fill(kpos > qpos, float("-inf"))
+            m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            corr = torch.exp(m - m_new)
+            hi = p.bfloat16().float()
+            pv = hi @ vf[:, :, k0:k0 + k_tile]
+            if split:
+                pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + k_tile]
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + pv
+            m = m_new
+        out[:, :, q0:q0 + q_tile] = acc / l
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("s,d", [(512, 64), (2048, 128)])
+def test_split_bf16_probabilities_keep_one_rounding(s, d):
+    """Why the tensor-core kernel runs two PV products: with P as bf16 hi + lo
+    halves its output stays within one bf16 rounding of the float32 answer,
+    the limit chip_smoke.py holds the kernel to; P rounded to bf16 once
+    breaks that limit more than 10x."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16().float()
+               for shape in ((1, 4, s, d), (1, 2, s, d), (1, 2, s, d)))
+    ref32 = flash_attention_plain(q, k, v)
+    assert _rounding_limit_use(_tensor_core_arithmetic(q, k, v, split=True), ref32) <= 1.0
+    assert _rounding_limit_use(_tensor_core_arithmetic(q, k, v, split=False), ref32) > 10
+
+
+def test_tma_ready_copies_only_what_the_tma_cannot_read():
+    x = torch.zeros(2, 64, 8, 128, dtype=torch.bfloat16)
+    bshd = x.transpose(1, 2)  # the model's (B, S, H, D) storage seen as (B, H, S, D)
+    assert _tma_ready(bshd) is bshd
+    one = torch.zeros(4 * 64 * 64, dtype=torch.bfloat16).as_strided((1, 4, 64, 64),
+                                                                   (5, 64 * 64, 64, 1))
+    assert _tma_ready(one) is one  # an extent-1 dimension's stride is never used
+    flat = x.view(-1)
+    bad = {"base 2 bytes off": flat[1:1 + 4 * 64 * 64].view(1, 4, 64, 64),
+           "row stride 66": flat[:4 * 64 * 66].view(1, 4, 64, 66)[..., :64]}
+    for name, t in bad.items():
+        out = _tma_ready(t)
+        assert out is not t and out.is_contiguous() and out.data_ptr() % 16 == 0, name
+        assert torch.equal(out, t), name
 
 
 def test_wrapper_checks_and_no_fallback():
