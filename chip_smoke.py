@@ -5,13 +5,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments,
 one card). It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
 with nvcc and prints one JSON line per phase:
 
-  env        torch / CUDA versions, the card, nvidia-smi's name and power limit
+  env        torch / CUDA versions, the card, nvidia-smi's name, power limit
+             and SM clocks (now and the most the card allows)
   build      nvcc wall time and each kernel's registers and spills from ptxas
-             (the tensor-core K3 must spill nothing)
+             (K2 and the tensor-core K3 must spill nothing)
   kernels    each kernel against its plain PyTorch version on the card, at the
              main path's shapes (K1, K2 bitwise; K3 in bf16 within one
              rounding of its float32 answer), with its time, the plain version's,
-             one PyTorch library call's and the card's lower bound; K3's bf16
+             one PyTorch library call's and the card's lower bound; K2 also on
+             its tie cases, with its inner loop's SASS instructions per pair
+             (cuobjdump) and a 4-instruction floor beside the bound; K3's bf16
              cases at D = 64 and 128 run its tensor-core kernel, whose own
              arithmetic (two PV products) has a 6 D floor beside the 4 D bound
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
@@ -41,6 +44,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -128,12 +132,39 @@ def ptxas_entries(log: str) -> dict:
     return out
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_inner_loop(lib: Path, kernel: str) -> dict:
+    """``kernel``'s hot loop in the built library's SASS (``cuobjdump
+    -sass``): of the backward branches, the shortest whose range holds the
+    most FMULs, and its instructions (NOPs aside) per FMUL. K2 issues one
+    FMUL a (pixel, FOV) pair (u0 * l0), so that is its instructions a pair."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:] if kernel in f.splitlines()[0])
+    ins = [(int(a, 16), op.split(".")[0], args) for a, op, args in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+    loops = []
+    for addr, op, args in ins:
+        target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            lo = int(target.group(1), 16)
+            ops = [o for a, o, _ in ins if lo <= a <= addr and o != "NOP"]
+            loops.append((ops.count("FMUL"), -len(ops), lo, addr, ops))
+    fmuls, _, lo, hi, ops = max(loops)
+    assert fmuls > 0, "no loop of FMULs in the SASS"
+    hist = {o: ops.count(o) for o in sorted(set(ops), key=lambda o: -ops.count(o))}
+    return {"loop": f"0x{lo:x}-0x{hi:x}", "instructions": len(ops), "pairs": fmuls,
+            "per_pair": len(ops) / fmuls, "opcodes": hist}
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +252,8 @@ def check_delta_encode(dev) -> dict:
 
 def check_colocate(dev, state) -> dict:
     from repro_torch.core import colocation as co
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.colocate.cases import TIE_CASES, tie_case
     from repro_torch.kernels.colocate.ops import colocate_match, colocate_match_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the library yardstick in full fp32
@@ -238,6 +271,16 @@ def check_colocate(dev, state) -> dict:
         pi, pc = colocate_match_plain(u, los)
         assert torch.equal(ki, pi) and torch.equal(kc.view(torch.int32), pc.view(torch.int32))
         cases.append({"n": n, "m": m, "idx_equal": True, "cos_bitwise": True})
+    # the tie rule under the kernel's sub-tiles, tiles and deferred rescan
+    for label, *_ in TIE_CASES:
+        u, los = (torch.from_numpy(a).to(dev) for a in tie_case(label))
+        before = colocate_match.launches
+        ki, kc = colocate_match(u, los)
+        assert colocate_match.launches == before + 1, label
+        pi, pc = colocate_match_plain(u, los)
+        assert torch.equal(ki, pi) and torch.equal(kc.view(torch.int32), pc.view(torch.int32)), label
+        cases.append({"case": label, "n": u.shape[0], "m": los.shape[0], "idx_equal": True,
+                      "cos_bitwise": True})
 
     # the main path's shapes: u from the synthetic granules' geometry
     u = co._unit(state["pos"] - state["sat_pos"][None, :]).contiguous()
@@ -263,7 +306,9 @@ def check_colocate(dev, state) -> dict:
         return arg, best
 
     la, lb = library()
-    flops = 2 * 3 * N_PIXELS * M_FOVS
+    pairs = N_PIXELS * M_FOVS
+    flops = 2 * 3 * pairs
+    sass = sass_inner_loop(_build.lib_path("colocate"), "colocate_kernel")
     timing = {
         "ms": cuda_ms(lambda: colocate_match(u, los), 5),
         "kernel_only_ms": profiled_ms(lambda: colocate_match(u, los), "colocate_kernel", 3),
@@ -271,6 +316,11 @@ def check_colocate(dev, state) -> dict:
         "library_ms": cuda_ms(library, 3),
         "bound_ms": flops / FP32_FLOPS * 1e3,
         "bound_by": "operations",
+        # an exact kernel issues 4 instructions a pair (3 of the dot, 1 max),
+        # at the FP32_FLOPS rate of 2 operations an instruction
+        "floor_4op_ms": 4 * pairs / (FP32_FLOPS / 2) * 1e3,
+        "sass_per_pair": sass["per_pair"],
+        "sass_loop": sass,
         "shape": f"u f32[{N_PIXELS},3] x los f32[{M_FOVS},3]",
         "flops": flops,
         "library_idx_agreement": float((la.to(torch.int32) == ki).float().mean()),
@@ -757,7 +807,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda, device=kind,
-         count=torch.cuda.device_count(), nvidia_smi=smi, python=sys.version.split()[0])
+         count=torch.cuda.device_count(), nvidia_smi=smi, python=sys.version.split()[0],
+         clocks_sm_and_max=nvidia_smi("clocks.sm,clocks.max.sm"))
 
     t0 = time.perf_counter()
     _build.build()
@@ -766,8 +817,10 @@ def main() -> int:
     k3_wgmma = {entry: v for entry, v in ptxas["flash_attention"].items()
                 if "flash_fwd_kernel_wgmma" in entry}  # D = 64 and 128
     k3_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k3_wgmma.values())
+    k2_entry = {entry: v for entry, v in ptxas["colocate"].items() if "colocate_kernel" in entry}
+    k2_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k2_entry.values())
     emit("build", seconds=build_s, sources=list(_build.SOURCES), ptxas=ptxas,
-         k3_wgmma_spill_bytes=k3_spills)
+         k2_spill_bytes=k2_spills, k3_wgmma_spill_bytes=k3_spills)
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -836,6 +889,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    assert len(k2_entry) == 1 and k2_spills == 0, k2_entry  # K2 spills nothing
     assert len(k3_wgmma) == 2 and k3_spills == 0, k3_wgmma  # the tensor-core K3 spills nothing
     rows = []
     parity = {"delta_encode": "bitmaps equal", "colocate": "idx equal, cos bitwise equal",
@@ -852,7 +906,8 @@ def main() -> int:
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "kernel_ms": k["ms"], "kernel_only_ms": k["kernel_only_ms"],
-                     "shape": k["shape"], "parity": parity[name]})
+                     "shape": k["shape"], "parity": parity[name],
+                     **({"sass_per_pair": k["sass_per_pair"]} if "sass_per_pair" in k else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

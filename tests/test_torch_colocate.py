@@ -1,11 +1,21 @@
 """K2 (colocate): the port's plain version against the JAX package's Pallas
-kernel in interpret mode.
+kernel in interpret mode, and the CUDA kernel's algorithm against the plain
+version.
 
 The tolerance on ``cos`` is the JAX package's own kernel test's (rtol 1e-5,
 atol 1e-6); ``idx`` must be exactly equal. Both sides compute each dot as
 the fused chain fma(u2, l2, fma(u1, l1, u0 * l0)), so on this CPU they
-also agree bitwise, which the last test pins down.
+also agree bitwise, which ``test_bitwise_equal_to_jax_on_this_cpu`` and the
+tie-heavy cases pin down.
+
+The CUDA kernel cannot run here, so its algorithm (an fmax running maximum
+over ascending sub-tiles, a strict ``>`` merge, one deferred first-index
+rescan) is emulated in plain torch and held bitwise against the plain
+version, with the sub-tile width read from the kernel's source.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,19 +25,18 @@ import torch
 from repro.kernels.colocate.ops import colocate_match as jax_colocate_match
 from repro_torch.kernels.colocate import colocate_match, colocate_match_plain
 from repro_torch.kernels.colocate.ops import fma_f32
+from repro_torch.kernels.colocate.cases import TIE_CASES, tie_case, unit_vectors
+
+CSRC = Path(__file__).resolve().parent.parent / "src/repro_torch/kernels/csrc/colocate.cu"
+SUB = int(re.search(r"constexpr int kSub = (\d+);", CSRC.read_text()).group(1))  # FOVs a sub-tile
 
 CASES = [(1000, 300), (513, 512), (100, 1), (1, 700)]
-
-
-def _unit_vectors(rng, n):
-    v = rng.standard_normal((n, 3)).astype(np.float32)
-    return v / np.linalg.norm(v, axis=1, keepdims=True)
 
 
 @pytest.mark.parametrize("n,m", CASES)
 def test_plain_matches_jax_kernel(n, m):
     rng = np.random.default_rng(n * 1000 + m)
-    u, los = _unit_vectors(rng, n), _unit_vectors(rng, m)
+    u, los = unit_vectors(rng, n), unit_vectors(rng, m)
     gi, gc = jax_colocate_match(jnp.asarray(u), jnp.asarray(los), interpret=True)
     ti, tc = colocate_match_plain(torch.from_numpy(u), torch.from_numpy(los))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(gi))
@@ -37,7 +46,7 @@ def test_plain_matches_jax_kernel(n, m):
 @pytest.mark.parametrize("n,m", CASES)
 def test_wrapper_on_cpu_is_the_plain_version(n, m):
     rng = np.random.default_rng(7 + n + m)
-    u, los = torch.from_numpy(_unit_vectors(rng, n)), torch.from_numpy(_unit_vectors(rng, m))
+    u, los = torch.from_numpy(unit_vectors(rng, n)), torch.from_numpy(unit_vectors(rng, m))
     before = colocate_match.launches
     wi, wc = colocate_match(u, los)
     pi, pc = colocate_match_plain(u, los, block_rows=64)  # blocking changes nothing
@@ -99,8 +108,76 @@ def test_fma_f32_is_correctly_rounded():
 
 def test_bitwise_equal_to_jax_on_this_cpu():
     rng = np.random.default_rng(11)
-    u, los = _unit_vectors(rng, 700), _unit_vectors(rng, 333)
+    u, los = unit_vectors(rng, 700), unit_vectors(rng, 333)
     gi, gc = jax_colocate_match(jnp.asarray(u), jnp.asarray(los), interpret=True)
     ti, tc = colocate_match_plain(torch.from_numpy(u), torch.from_numpy(los))
     assert np.array_equal(ti.numpy(), np.asarray(gi))
     assert tc.numpy().tobytes() == np.asarray(gc).tobytes()
+
+
+def emulate_kernel(u: torch.Tensor, los: torch.Tensor, sub: int):
+    """The CUDA kernel's algorithm in plain torch: an fmax running maximum
+    of each row's products over ascending sub-tiles of ``sub`` FOVs (the
+    ragged last one padded with NaN FOVs), after each sub-tile a strict
+    ``>`` against the best so far recording the sub-tile, then a rescan of
+    the winning sub-tile for the first FOV whose product equals the
+    maximum, whose product is the result."""
+    n, m = u.shape[0], los.shape[0]
+    pad = -m % sub
+    lp = torch.cat([los, torch.full((pad, 3), float("nan"))])
+    s = u[:, 0:1] * lp[:, 0]
+    s = fma_f32(u[:, 1:2], lp[:, 1], s)
+    s = fma_f32(u[:, 2:3], lp[:, 2], s)
+    run = torch.full((n,), float("-inf"))
+    best = run.clone()
+    win = torch.full((n,), -1, dtype=torch.int64)
+    for j0 in range(0, m + pad, sub):
+        for j in range(j0, j0 + sub):
+            run = torch.fmax(run, s[:, j])
+        rose = run > best
+        best = torch.where(rose, run, best)
+        win = torch.where(rose, j0, win)
+    idx = torch.zeros(n, dtype=torch.int32)
+    cos = torch.full((n,), float("-inf"))
+    rows = torch.nonzero(win >= 0).flatten()
+    if len(rows):
+        cols = win[rows, None] + torch.arange(sub)  # the winning sub-tile
+        window = s[rows[:, None], cols]  # its padding is NaN: never equal
+        first = (window == best[rows, None]).int().argmax(dim=1)
+        assert bool((window[torch.arange(len(rows)), first] == best[rows]).all())
+        idx[rows] = (win[rows] + first).to(torch.int32)
+        cos[rows] = window[torch.arange(len(rows)), first]
+    return idx, cos
+
+
+@pytest.mark.parametrize("n,m", CASES + [(300, 33), (257, 32), (64, 95), (40, 0)])
+def test_kernel_algorithm_equals_plain_bitwise(n, m):
+    rng = np.random.default_rng(31 * n + m)
+    u, los = torch.from_numpy(unit_vectors(rng, n)), torch.from_numpy(unit_vectors(rng, m))
+    ei, ec = emulate_kernel(u, los, SUB)
+    pi, pc = colocate_match_plain(u, los)
+    assert torch.equal(ei, pi)
+    assert torch.equal(ec.view(torch.int32), pc.view(torch.int32))
+
+
+@pytest.mark.parametrize("label", [c[0] for c in TIE_CASES if c[3]])
+def test_kernel_algorithm_breaks_ties_like_plain_and_jax(label):
+    """On tie-heavy inputs the emulated kernel equals the plain version
+    bitwise, and the plain version equals the Pallas kernel bitwise."""
+    u, los = tie_case(label)
+    _, n, m, dups = next(c for c in TIE_CASES if c[0] == label)
+    tu, tl = torch.from_numpy(u), torch.from_numpy(los)
+    pi, pc = colocate_match_plain(tu, tl)
+    ei, ec = emulate_kernel(tu, tl, SUB)
+    assert torch.equal(ei, pi)
+    assert torch.equal(ec.view(torch.int32), pc.view(torch.int32))
+    gi, gc = jax_colocate_match(jnp.asarray(u), jnp.asarray(los), interpret=True)
+    assert np.array_equal(pi.numpy(), np.asarray(gi))
+    assert pc.numpy().tobytes() == np.asarray(gc).tobytes()
+    # the ties are real: copied pixels land on the lower index of their pair
+    if dups == "all":
+        assert not pi.any()
+    else:
+        k = n // 3
+        want = np.resize([a for a, _ in dups], k)
+        assert np.array_equal(pi.numpy()[:k], want)

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.checkpoint.serializer import _chunk_rows
 from repro_torch.kernels.colocate import colocate_match, colocate_match_plain
+from repro_torch.kernels.colocate.cases import TIE_CASES, tie_case, unit_vectors
 from repro_torch.kernels.delta_encode import changed_blocks, changed_blocks_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
@@ -49,16 +50,27 @@ def test_delta_encode_kernel_equals_plain(dev, shape, dtype, chunk):
 @pytest.mark.parametrize("n,m", [(1000, 300), (513, 512), (100, 1), (1, 700), (3000, 2049)])
 def test_colocate_kernel_equals_plain_bitwise(dev, n, m):
     rng = np.random.default_rng(n + m)
-
-    def unit(k):
-        v = rng.standard_normal((k, 3)).astype(np.float32)
-        return torch.from_numpy(v / np.linalg.norm(v, axis=1, keepdims=True)).to(dev)
-
-    u, los = unit(n), unit(m)
+    u, los = (torch.from_numpy(unit_vectors(rng, k)).to(dev) for k in (n, m))
     ki, kc = colocate_match(u, los)
     pi, pc = colocate_match_plain(u, los)
     assert torch.equal(ki, pi)
     assert torch.equal(kc.view(torch.int32), pc.view(torch.int32))
+
+
+@pytest.mark.parametrize("label", [c[0] for c in TIE_CASES])
+def test_colocate_kernel_tie_rule(dev, label):
+    """K2's tie cases (``repro_torch.kernels.colocate.cases``), which its
+    sub-tiles, tiles, blocks and deferred rescan could get wrong: ``idx``
+    equal and ``cos`` bitwise, one launch each."""
+    u, los = (torch.from_numpy(a).to(dev) for a in tie_case(label))
+    before = colocate_match.launches
+    ki, kc = colocate_match(u, los)
+    assert colocate_match.launches == before + 1
+    pi, pc = colocate_match_plain(u, los)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kc.view(torch.int32), pc.view(torch.int32))
+    if los.shape[0] == 0:
+        assert not ki.any() and bool((kc == float("-inf")).all())
 
 
 # the six cases of tests/test_kernels.py's flash attention sweep, then the
