@@ -22,6 +22,16 @@ with nvcc and prints one JSON line per phase:
              resumed; the product equals an uninterrupted run's
   publish    the Fig. 7 form: a publish after each stage with device change
              hints (K1), its wall time and bytes written
+  fabric     the same tour across three serve-only torch worker processes
+             (``repro_torch.fabric.worker``, each its own CUDA context on
+             the card): read here, geometry inside B, the match (K2) inside
+             C, the product streamed back — every leg streamed or relayed,
+             no store fallback, ``hop_root`` empty, the product bitwise the
+             in-process tour's; again with C SIGKILLed first, respawned in
+             place and the tour resumed from its geometry publish (``fsck``
+             clean); then a delta stream hop with K1's hints that sends only
+             the changed chunk. Per-leg seconds, bytes and chunks, the tours'
+             wall times and each worker's start-up time
   serve      qwen3-1.7b at full width (28 layers, random weights from seed 0)
              through ``repro_torch.launch.serve.main``: 4 requests of 2048
              prompt tokens and 32 generated, K3 in every prefill layer;
@@ -32,8 +42,9 @@ with nvcc and prints one JSON line per phase:
              every K3 launch of ``main`` through the tensor-core kernel
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
-made on its main path (K1 and K2: the itinerary and publish phases; K3: the
-serve phase's ``main``), the nvidia-smi line, and last
+made on its main paths (K1 and K2: the itinerary, publish and fabric phases,
+the fabric's counted inside the workers too; K3: the serve phase's
+``main``), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
 card, or a directory without the rest of the repository.
@@ -601,7 +612,228 @@ def check_product(itin: dict, calm: dict, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serving qwen3-1.7b at full width
+# phase 6: the fabric — the tour across torch worker processes on the card
+# ---------------------------------------------------------------------------
+
+
+def _instrument(dhp, legs: list, spent: dict) -> None:
+    """Time every hop, relay and fetch of ``dhp`` (one row a leg: seconds,
+    and the bytes and chunks the leg's receiver counted) and every stage run
+    and publish it asks a worker for. The NBS is shared across runs: its
+    ``call`` is wrapped from the class's own each time, so one run's timer
+    replaces the last one's and never nests in it."""
+    from repro_torch.core.nbs import RemoteStateRef
+
+    hop, fetch = dhp.hop, dhp.fetch
+    call = functools.partial(type(dhp.nbs).call, dhp.nbs)
+
+    def timed_hop(state, dest, **kw):
+        src = state.node if isinstance(state, RemoteStateRef) else dhp.node
+        t0 = time.perf_counter()
+        out = hop(state, dest, **kw)
+        sec = time.perf_counter() - t0
+        rec = dhp.nbs.node(dest).last_stream_receipt
+        relay = isinstance(state, RemoteStateRef)
+        legs.append({"leg": f"{src}->{dest}", "via": "relay" if relay else out.via, "s": sec,
+                     "bytes": rec["sent_bytes"], "chunks": rec["chunks"],
+                     "data_chunks": rec["data_chunks"]})
+        return out
+
+    def timed_fetch(ref, **kw):
+        t0 = time.perf_counter()
+        out = fetch(ref, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        rec = dhp.nbs.node(ref.node).last_fetch_receipt
+        legs.append({"leg": f"{ref.node}->{dhp.home}", "via": "fetch_stream", "s": sec,
+                     "bytes": rec["bytes"], "chunks": rec["chunks"],
+                     "data_chunks": rec["data_chunks"]})
+        return out
+
+    def timed_call(node, svc, **kw):
+        t0 = time.perf_counter()
+        out = call(node, svc, **kw)
+        if svc in ("svc/run_stage", "svc/publish_resident"):
+            what = f"{svc} {node}" + (f" {kw['fn'].split(':')[-1]}" if "fn" in kw else "")
+            spent[what] = spent.get(what, 0.0) + time.perf_counter() - t0
+            for k in ("stage_s", "thread_cpu_s"):  # the stage's own times inside the worker
+                if k in out:
+                    spent[f"{what} {k}"] = spent.get(f"{what} {k}", 0.0) + out[k]
+        return out
+
+    dhp.hop, dhp.fetch, dhp.nbs.call = timed_hop, timed_fetch, timed_call
+
+
+def run_fabric(root: Path, dev, calm: dict) -> dict:
+    """Fig. 8 over three serve-only worker processes on the card: read on
+    this process's node A, geometry inside B, the match (K2) inside C, the
+    product streamed back to A — every leg streamed or relayed, nothing
+    through the store. Then the same tour with C SIGKILLed first, C
+    respawned in place and the tour resumed from its geometry publish; and
+    a delta stream hop A->B with K1's hints, relayed on to D and fetched
+    back. Every product is held bitwise against the in-process tour's."""
+    from repro_torch.checkpoint.fsck import fsck_store
+    from repro_torch.core import DHP, NBS, JobStore
+    from repro_torch.core import colocation as co
+    from repro_torch.core.delta import device_changed_hints
+    from repro_torch.core.itinerary import Itinerary, Stage
+    from repro_torch.core.jobstore import STATUS_CKPT
+    from repro_torch.fabric.proxy import wait_ready
+    from repro_torch.fabric.supervisor import FabricSupervisor
+    from repro_torch.kernels.colocate import ops as colocate_ops
+    from repro_torch.kernels.delta_encode import ops as delta_ops
+
+    workers = ("B", "C", "D")
+    sup = FabricSupervisor(str(root / "s3"), str(root / "jobs"), device=str(dev))
+    out: dict = {"startup_s": {}}
+    try:
+        pins = {n: sup.pin(n) for n in workers}
+        t0 = time.perf_counter()
+        for name in workers:  # all three start together, each its own CUDA context
+            sup.spawn(name, serve_only=True, socket_path=pins[name], wait=False)
+        for name in workers:
+            wait_ready(sup.workers[name].address)
+            out["startup_s"][name] = time.perf_counter() - t0
+        nbs = NBS(root / "s3")
+        nbs.add_node("A", device=dev)
+        for name in workers:
+            nbs.add_remote_node(name, sup.workers[name].address)
+        on_card = dev.type == "cuda"  # a dry run of the phase on the CPU runs no kernel
+        want = "cuda:0" if on_card else str(dev)
+        pings = {n: nbs.call(n, "svc/ping") for n in workers}
+        assert all(p["device"] == want for p in pings.values()), pings
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.split()
+        # a container's PID namespace may show every process as one pid:
+        # count the card's compute contexts (this process and one a worker)
+        out["workers"] = {n: {"pid": p["pid"], "device": p["device"]} for n, p in pings.items()}
+        out["nvidia_smi_compute_apps"] = apps
+        assert not on_card or len(apps) == 1 + len(workers), apps
+        store = JobStore(root / "jobs")
+        vias: list = []
+        nbs.plugins.subscribe("on_hop", lambda **kw: vias.append(kw["via"]))
+
+        def stages():
+            return [
+                Stage("A", functools.partial(co.stage_read, device=dev, seed=0, **GRANULES),
+                      "read", publish=True),
+                Stage("B", co.stage_geometry, "geometry", publish=True),
+                Stage("C", co.stage_match, "match", publish=True),
+            ]
+
+        def launches(reset: bool = False) -> dict:
+            here = {"delta_encode": delta_ops.changed_blocks.launches,
+                    "colocate": colocate_ops.colocate_match.launches}
+            if reset:
+                delta_ops.changed_blocks.launches = colocate_ops.colocate_match.launches = 0
+            there = {n: nbs.call(n, "svc/kernel_launches", reset=reset) for n in workers}
+            return {k: here[k] + sum(t[k] for t in there.values()) for k in here} | {
+                "colocate_in": {n: t["colocate"] for n, t in there.items() if t["colocate"]}}
+
+        def check(state, job) -> dict:
+            assert torch.equal(state["idx"], calm["state"]["idx"])
+            assert torch.equal(state["within"], calm["state"]["within"])
+            prod = co.stage_product(state)
+            assert np.array_equal(prod["cris_match_count"], calm["prod"]["cris_match_count"])
+            report = fsck_store(store.cmi_root(job.job_id))
+            assert report.clean, report.summary()
+            assert list(nbs.hop_root.iterdir()) == []
+            return {"idx_equal": True, "cris_match_count_equal": True,
+                    "fsck": report.summary(), "cmis": store.list_cmis(job.job_id)}
+
+        # the calm tour, on the fresh workers and again on the same ones:
+        # counts from 0 just before each, read just after
+        for run in ("calm", "calm_warm"):
+            vias.clear()
+            launches(reset=True)
+            legs, spent = [], {}
+            job = store.create_job({"app": "viirs-cris-colocation"})
+            dhp = DHP(nbs, "A", store)
+            _instrument(dhp, legs, spent)
+            t0 = time.perf_counter()
+            state = Itinerary(dhp, job.job_id).run({}, stages())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[run] = {"wall_s": wall, "legs": legs, "stage_and_publish_s": spent,
+                        "vias": list(vias), "launches": launches(), **check(state, job)}
+            assert vias == ["stream", "relay", "fetch_stream"], vias
+            assert not on_card or out[run]["launches"]["colocate_in"] == {"C": 1}, out[run]
+            assert state["idx"].device.type == dev.type
+            del state
+
+        # the interrupted tour: C is SIGKILLed before the tour moves there
+        vias.clear()
+        launches(reset=True)
+        legs, spent = [], {}
+        job = store.create_job({"app": "viirs-cris-colocation"})
+        sup.reclaim("C", notice=False)
+        nbs.node("C").client.reconnect_timeout_s = 1.0
+        dhp = DHP(nbs, "A", store)
+        _instrument(dhp, legs, spent)
+        t0 = time.perf_counter()
+        try:
+            Itinerary(dhp, job.job_id).run({}, stages())
+            raise AssertionError("the tour reached a SIGKILLed worker")
+        except OSError as e:
+            failed_s = time.perf_counter() - t0
+            error = f"{type(e).__name__}: {e}"
+        j = store.read_job(job.job_id)
+        assert j.status == STATUS_CKPT and j.step == 1, j  # the geometry publish
+        t1 = time.perf_counter()
+        sup.spawn("C", serve_only=True, socket_path=pins["C"])
+        respawn_s = time.perf_counter() - t1
+        assert nbs.call("C", "svc/ping")["device"] == want
+        vias_before = list(vias)
+        vias.clear()
+        dhp = DHP(nbs, "A", store)
+        _instrument(dhp, legs, spent)
+        it = Itinerary(dhp, job.job_id)
+        state = it.resume(stages())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert [n for n, _ in it.trace] == ["match"]
+        # resumed from the geometry CMI here, so the state streams A -> C
+        assert vias == ["stream", "fetch_stream"], vias
+        out["interrupted"] = {"wall_s": wall, "failed_tour_s": failed_s, "error": error,
+                              "respawn_s": respawn_s, "legs": legs,
+                              "stage_and_publish_s": spent, "vias_before_kill": vias_before,
+                              "vias_resumed": list(vias), "launches": launches(),
+                              "resumed_stages": [n for n, _ in it.trace], **check(state, job)}
+        assert not on_card or out["interrupted"]["launches"]["colocate_in"] == {"C": 1}
+
+        # the delta stream hop: K1's hints, counts from 0 just before
+        launches(reset=True)
+        legs = []
+        dhp = DHP(nbs, "A", chunk_bytes=CHUNK)
+        _instrument(dhp, legs, {})
+        dhp.hop(state, "B")
+        changed = {**state, "viirs_rad": state["viirs_rad"].clone()}
+        changed["viirs_rad"][:1000] += 1.0  # one leaf, one 1 MiB chunk
+        t0 = time.perf_counter()
+        hints = device_changed_hints(state, changed, chunk_bytes=CHUNK)
+        hint_s = time.perf_counter() - t0
+        n_changed = sum(int(h.sum()) for h in hints.values())
+        dhp.node = "A"  # the changed state is this process's
+        ref = dhp.hop(changed, "B", changed_hint=hints)
+        ref = dhp.hop(ref, "D")
+        back = dhp.fetch(ref)
+        for k, v in changed.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(back[k], v), k
+        delta_leg = legs[1]
+        assert n_changed == 1 and delta_leg["data_chunks"] == n_changed, (n_changed, legs)
+        out["delta"] = {"legs": legs, "hint_s": hint_s, "changed_chunks": n_changed,
+                        "hinted_leaves": len(hints), "fetched_bitwise": True,
+                        "launches": launches()}
+        assert not on_card or out["delta"]["launches"]["delta_encode"] == len(hints) > 0
+    finally:
+        sup.shutdown()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving qwen3-1.7b at full width
 # ---------------------------------------------------------------------------
 
 
@@ -856,6 +1088,23 @@ def main() -> int:
         assert launches["delta_encode"] > launches_itin["delta_encode"] >= 0
         assert launches["colocate"] > 0
 
+        # the fabric path: run_fabric sets the counts (here and in each
+        # worker) to 0 just before each of its runs and reads them just after
+        fab = run_fabric(work / "fabric", dev, calm)
+        by_path = {"itinerary+publish": dict(launches),
+                   "fabric": {k: sum(fab[run]["launches"][k]
+                                     for run in ("calm", "calm_warm", "interrupted", "delta"))
+                              for k in ("delta_encode", "colocate")}}
+        for k in ("delta_encode", "colocate"):
+            launches[k] += by_path["fabric"][k]
+        emit("fabric", workers=fab["workers"], startup_s=fab["startup_s"],
+             nvidia_smi_compute_apps=fab["nvidia_smi_compute_apps"], calm=fab["calm"],
+             calm_warm=fab["calm_warm"],
+             interrupted=fab["interrupted"], delta=fab["delta"], launches=by_path["fabric"],
+             store_hop_tour_wall_s=itin["wall_s"], live_tour_wall_s=calm["wall_s"])
+        assert by_path["fabric"]["colocate"] == 3 and by_path["fabric"]["delta_encode"] > 0
+        del fab
+
         # the serve path: counts from 0 just before, read just after
         delta_ops.changed_blocks.launches = 0
         colocate_ops.colocate_match.launches = 0
@@ -864,6 +1113,7 @@ def main() -> int:
         metrics = launch_serve.main(SERVE_ARGV)
         torch.cuda.synchronize()
         launches["flash_attention"] = flash_ops.flash_attention.launches
+        by_path["serve"] = {"flash_attention": launches["flash_attention"]}
         serve_launches = {"delta_encode": delta_ops.changed_blocks.launches,
                           "colocate": colocate_ops.colocate_match.launches,
                           "flash_attention": launches["flash_attention"],
@@ -902,7 +1152,10 @@ def main() -> int:
             (k3, "flash_attention", "src/repro/kernels/flash_attention/flash_attention.py:120")):
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": k["max_abs_err"],
+                     "launches": launches[name],
+                     "launches_by_path": {path: n[name] for path, n in by_path.items()
+                                          if name in n},
+                     "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "kernel_ms": k["ms"], "kernel_only_ms": k["kernel_only_ms"],

@@ -23,6 +23,16 @@ v3) or the content-addressed object store (``cas=True``, manifest v4).
 Chunk placement is round-robin over the written chunk index, so manifests
 are byte-deterministic and equal to the JAX package's for equal bytes.
 
+Stream half
+-----------
+:func:`state_stream_meta` describes a tree for a streaming receiver and
+:class:`StateAssembler` rebuilds it chunk by chunk (``repro_torch.fabric.
+stream``). The meta's dtype names and the chunk grid equal the JAX
+package's on the same tree, so a JAX sender and a torch receiver (and the
+other way round) speak one wire. The assembler fills host buffers and hands
+back tensors on the device it was given; chunks that refer to a baseline
+held on that device are copied there, device to device, after the upload.
+
 Restore path
 ------------
 ``load_checkpoint`` plans coalesced byte-range reads per (owner CMI, data
@@ -455,6 +465,11 @@ class StateChunk:
     store object, or an earlier chunk of the same stream), so ``data`` is
     ``None`` even though the chunk is not a positional baseline reference —
     the consumer resolves it by digest, not by (path, slice).
+
+    ``codec``/``cdata`` carry an optional compressed rendition produced on
+    the hash pool (only when it actually came out smaller); the wire sender
+    ships ``cdata`` with a per-frame codec marker while ``data`` stays the
+    raw bytes for CRC/identity purposes.
     """
 
     seq: int
@@ -466,6 +481,8 @@ class StateChunk:
     crc32: int | None
     ref: bool
     dup: bool = False
+    codec: str | None = None
+    cdata: Any = None
 
 
 def _iter_array_blocks(x: Any, chunk_bytes: int):
@@ -494,6 +511,7 @@ def iter_state_chunks(
     changed_hint: Mapping[str, np.ndarray] | None = None,
     hash_threads: int = 0,
     have_digest: Callable[[str], bool] | None = None,
+    compress: Callable[[Any], "tuple[str, Any] | None"] | None = None,
 ) -> Any:
     """Chunk + hash ``tree`` in deterministic enumeration order.
 
@@ -512,7 +530,11 @@ def iter_state_chunks(
     content the consumer *already holds under this digest* — a CAS store
     object (``ObjectStore.has``), or a chunk sent earlier in the same
     stream — are yielded with ``dup=True`` and no payload, regardless of
-    their (path, slice) position.
+    their (path, slice) position. ``compress`` runs on the hash pool right
+    after hashing (so the I/O consumer never stalls behind compression) and
+    returns ``(codec, compressed_bytes)`` or ``None`` to keep the chunk
+    raw; it is skipped for chunks the baseline or ``have_digest`` already
+    excuse from travelling.
     """
     flat, _ = flatten_with_paths(tree)
     array_paths = sorted(k for k, v in flat.items() if _is_array_leaf(v))
@@ -528,6 +550,18 @@ def iter_state_chunks(
     pending: deque = deque()  # (path, bslice, itemsize, buf|None, fut|None)
     seq = 0
 
+    def hash_task(buf, key):
+        """Pool-side work: hash + CRC, then compress unless the chunk is
+        already excused from travelling (baseline hit / consumer-held
+        digest). ``have_digest`` may race the consumer's view here — a miss
+        only costs a wasted compression, never a wrong chunk."""
+        h, crc = _hash_and_crc(buf)
+        comp = None
+        if compress is not None and baseline.get(key) != h:
+            if have_digest is None or not have_digest(h):
+                comp = compress(buf)
+        return h, crc, comp
+
     def drain_one() -> StateChunk:
         nonlocal seq
         path, bslice, itemsize, buf, fut = pending.popleft()
@@ -537,7 +571,7 @@ def iter_state_chunks(
             ch = StateChunk(seq, path, [list(s) for s in bslice], None, nbytes,
                             baseline[key], None, True)
         else:
-            h, crc = fut.result() if fut is not None else _hash_and_crc(buf)
+            h, crc, comp = fut.result() if fut is not None else hash_task(buf, key)
             if baseline.get(key) == h:
                 ch = StateChunk(seq, path, [list(s) for s in bslice], None, nbytes,
                                 h, crc, True)
@@ -547,6 +581,8 @@ def iter_state_chunks(
             else:
                 ch = StateChunk(seq, path, [list(s) for s in bslice], buf, nbytes,
                                 h, crc, False)
+                if comp is not None:
+                    ch.codec, ch.cdata = comp
         seq += 1
         return ch
 
@@ -569,7 +605,7 @@ def iter_state_chunks(
                     pending.append((apath, bslice, itemsize, None, None))
                 else:
                     buf = _byte_view(block)
-                    fut = pool.submit(_hash_and_crc, buf) if pool is not None else None
+                    fut = pool.submit(hash_task, buf, key) if pool is not None else None
                     pending.append((apath, bslice, itemsize, buf, fut))
                 while len(pending) >= window:
                     yield drain_one()
@@ -578,6 +614,199 @@ def iter_state_chunks(
     finally:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
+
+
+def state_stream_meta(tree: Any) -> dict:
+    """JSON-able description of ``tree``: structure skeleton + array table.
+
+    This is the manifest's restore-relevant core without any file/offset
+    bookkeeping — what a streaming receiver needs to preallocate arrays and
+    rebuild the tree (``repro_torch.fabric.stream`` sends it as the stream
+    header). Equal to the JAX package's for the same arrays."""
+    flat, _ = flatten_with_paths(tree)
+    array_paths = {k for k, v in flat.items() if _is_array_leaf(v)}
+    arrays = {}
+    for apath in sorted(array_paths):
+        x = flat[apath]
+        rec = _sharding_record(x)
+        arrays[apath] = {
+            "shape": [int(d) for d in x.shape],
+            "dtype": leaf_dtype(x),
+            "sharding": None if rec is None else rec.to_json(),
+        }
+    return {"structure": encode_structure(tree, array_paths), "arrays": arrays}
+
+
+class StreamStateError(RuntimeError):
+    """A streamed chunk failed validation (CRC/hash/baseline mismatch)."""
+
+
+def _box(bslice) -> tuple:
+    return tuple(slice(a, b) for a, b in bslice)
+
+
+class StateAssembler:
+    """Receiving half of the chunk engine: rebuild a tree chunk by chunk.
+
+    Constructed from :func:`state_stream_meta` output; chunks may arrive in
+    any order. Payload bytes land in host buffers of each array's storage
+    dtype: ``target_view(path, slice)`` hands out a writable memoryview of
+    the destination region when it is contiguous, so a socket receiver can
+    ``recv_into`` payload bytes with zero intermediate copies; otherwise
+    ``put`` scatters from a scratch buffer.
+
+    Chunks with no payload — references into a cached ``baseline`` tree
+    from a previous stream (delta hops) and digest-first ``dup`` chunks —
+    are recorded and copied in arrival order by :meth:`finish`, after the
+    host buffers went to ``device``: a baseline that lives on the card is
+    never read back to the host.
+    """
+
+    def __init__(
+        self,
+        meta: Mapping[str, Any],
+        *,
+        baseline: Any = None,
+        baseline_grid: Mapping[tuple, str] | None = None,
+        validate_crc: bool = True,
+        device: torch.device | str | None = None,
+    ):
+        self.structure = meta["structure"]
+        self.validate = validate_crc
+        self.device = None if device is None else torch.device(device)
+        self.arrays: dict[str, np.ndarray] = {}  # host buffers, storage dtype
+        self.dtypes: dict[str, str] = {}
+        self._filled: dict[str, int] = {}
+        self.grid: dict[tuple, str] = {}  # (path, bslice_key) -> hash
+        for apath, a in meta["arrays"].items():
+            shape = tuple(int(d) for d in a["shape"])
+            self.dtypes[apath] = a["dtype"]
+            self.arrays[apath] = np.empty(shape, dtype=storage_dtype(a["dtype"]))
+            self._filled[apath] = 0
+        self._baseline_flat: dict[str, Any] | None = None
+        if baseline is not None:
+            self._baseline_flat, _ = flatten_with_paths(baseline)
+        self._baseline_grid = dict(baseline_grid or {})
+        # digest -> ("self"|"base", path, bslice): where bytes with that
+        # hash can be copied from. Seeded with the baseline grid, grown as
+        # chunks land — resolves dup (digest-first) chunks whose content
+        # exists at a *different* (path, slice) than where it is needed.
+        self._by_digest: dict[str, tuple[str, str, tuple]] = {}
+        if self._baseline_flat is not None:
+            for (bpath, bkey), bhash in self._baseline_grid.items():
+                if bpath in self._baseline_flat:
+                    self._by_digest.setdefault(bhash, ("base", bpath, bkey))
+        # (dest path, dest bslice, "self"|"base", source path, source key,
+        # same-place ref?) — the payload-free chunks, copied by finish()
+        self._deferred: list[tuple] = []
+
+    def target_view(self, path: str, bslice) -> memoryview | None:
+        """Writable byte view of the destination region, or ``None`` when the
+        region is not contiguous (receiver must scatter via ``put``)."""
+        arr = self.arrays[path]
+        if arr.ndim != len(bslice):
+            return None
+        if not arr.flags.c_contiguous:
+            return None
+        for d in range(1, arr.ndim):
+            a, b = bslice[d]
+            if a != 0 or b != arr.shape[d]:
+                return None
+        region = arr[bslice[0][0]: bslice[0][1]] if bslice else arr
+        try:
+            return memoryview(region).cast("B")
+        except (ValueError, TypeError):
+            return memoryview(region.reshape(-1).view(np.uint8))
+
+    def put(
+        self,
+        path: str,
+        bslice,
+        data=None,
+        *,
+        hash: str | None = None,
+        crc32: int | None = None,
+        ref: bool = False,
+        inplace: bool = False,
+        dup: bool = False,
+    ) -> None:
+        """Account one chunk. ``inplace=True`` means the payload was already
+        ``recv_into``'d through :meth:`target_view` (data is that view, used
+        only for CRC validation). ``dup=True`` chunks carry no payload at
+        all: their bytes are resolved by digest from a region this stream
+        (or its baseline) already holds."""
+        arr = self.arrays[path]
+        key = (path, bslice_key(bslice))
+        if dup:
+            if hash is None or hash not in self._by_digest:
+                raise StreamStateError(f"dup chunk {key}: digest not held here")
+            where, spath, skey = self._by_digest[hash]
+            self._deferred.append((path, key[1], where, spath, skey, False))
+        elif ref:
+            if self._baseline_flat is None or path not in self._baseline_flat:
+                raise StreamStateError(f"ref chunk {key} but no baseline state")
+            if hash is not None and self._baseline_grid.get(key) not in (None, hash):
+                raise StreamStateError(f"baseline hash mismatch for {key}")
+            self._deferred.append((path, key[1], "base", path, key[1], True))
+        else:
+            if self.validate and crc32 is not None and crc32_of(data) != crc32:
+                raise StreamStateError(f"CRC mismatch in streamed chunk {key}")
+            if not inplace:
+                shape = tuple(b - a for a, b in bslice)
+                block = np.frombuffer(data, dtype=arr.dtype).reshape(shape)
+                arr[_box(bslice)] = block
+        if hash is not None:
+            self.grid[key] = hash
+            self._by_digest.setdefault(hash, ("self", path, key[1]))
+        vol = 1
+        for a, b in bslice:
+            vol *= b - a
+        self._filled[path] += vol
+
+    def finish(self) -> Any:
+        """Validate coverage and return the rebuilt tree: tensors on the
+        assembler's device (host CPU tensors when it has none)."""
+        for apath, arr in self.arrays.items():
+            expected = int(np.prod(arr.shape, dtype=np.int64)) if arr.shape else 1
+            if self._filled[apath] != expected:
+                raise StreamStateError(
+                    f"array {apath!r}: chunks cover {self._filled[apath]}/{expected} elements"
+                )
+        tensors = {}
+        for apath, arr in self.arrays.items():
+            t = storage_to_tensor(arr, self.dtypes[apath])
+            tensors[apath] = t if self.device is None else t.to(self.device)
+        for dpath, dkey, where, spath, skey, same_place in self._deferred:
+            src = (self._baseline_flat if where == "base" else tensors)[spath][_box(skey)]
+            dst = tensors[dpath]
+            if same_place:  # a baseline ref: same array, same slice
+                dst[_box(dkey)] = src.to(dst.device)
+            else:  # a dup: equal bytes, maybe another dtype and shape
+                raw = src.contiguous().reshape(-1).view(torch.uint8).to(dst.device)
+                shape = tuple(b - a for a, b in dkey)
+                dst[_box(dkey)] = raw.view(dst.dtype).reshape(shape)
+        return decode_structure(self.structure, tensors)
+
+
+def assemble_state_chunks(
+    meta: Mapping[str, Any],
+    chunks,
+    *,
+    baseline: Any = None,
+    baseline_grid: Mapping[tuple, str] | None = None,
+    validate_crc: bool = True,
+    device: torch.device | str | None = None,
+) -> tuple[Any, dict[tuple, str]]:
+    """Inverse of :func:`iter_state_chunks`: fold a chunk iterable back into
+    a tree. Returns ``(tree, hash grid)`` — the grid keys future deltas."""
+    asm = StateAssembler(
+        meta, baseline=baseline, baseline_grid=baseline_grid, validate_crc=validate_crc,
+        device=device,
+    )
+    for ch in chunks:
+        asm.put(ch.path, ch.slice, ch.data, hash=ch.hash, crc32=ch.crc32, ref=ch.ref,
+                dup=getattr(ch, "dup", False))
+    return asm.finish(), asm.grid
 
 
 def save_checkpoint(

@@ -10,10 +10,24 @@ Two utilities around checkpoint/restart:
 
     ``via="live"`` implements the paper's §Q5 future work — the state goes
     straight to the destination device (``tensor.to(dest.device)``) without
-    the intermediate disk write. ``via="auto"`` takes it for every
-    in-process node; ``via="store"`` forces the disk-mediated path.
-    ``via="stream"`` (across a process boundary) needs the fabric, which the
-    port does not have yet.
+    the intermediate disk write.
+
+    ``via="stream"`` does the same across a *process* boundary: the CMI's
+    chunks travel straight over the fabric socket
+    (``repro_torch.fabric.stream``), never touching the disk — with a delta
+    mode that resends only changed chunks when the destination still holds
+    the previous hop's state. ``via="auto"`` takes "live" for in-process
+    nodes and "stream" for stream-capable process-backed ones, and falls
+    back transparently to the store-mediated path on any stream failure;
+    ``via="store"`` forces the disk. ``publish`` never streams (durability
+    needs the disk).
+
+    ``hop`` also accepts a :class:`RemoteStateRef` receipt — the state then
+    moves worker-to-worker (``svc/relay``, streamed, per-hop store
+    fallback) without ever visiting this process; ``fetch(ref)`` brings a
+    resident state home (streamed, store fallback) and ``publish_ref``
+    checkpoints one disk-durably in place. Together these are what let
+    itineraries tour process-backed nodes (``core/itinerary.py``).
 
 ``publish(job_id, status, ...)``  (Fig. 6)
     status == "ckpt":     checkpoint, upload CMI, svc/publish_job("ckpt")
@@ -38,10 +52,8 @@ from repro_torch.checkpoint.serializer import SaveOptions
 from repro_torch.core.cmi import restore_cmi, save_cmi, snapshot_to_host
 from repro_torch.core.delta import DeltaPolicy, DeltaTracker
 from repro_torch.core.jobstore import STATUS_CKPT, STATUS_FINISHED, JobStore
-from repro_torch.core.nbs import NBS
-from repro_torch.utils import logger, tree_map
-
-_NEEDS_FABRIC = "needs the fabric, which repro_torch does not port yet"
+from repro_torch.core.nbs import NBS, RemoteStateRef
+from repro_torch.utils import logger, resolve_device, tree_map
 
 
 class Preempted(RuntimeError):
@@ -63,6 +75,7 @@ class DHP:
     ):
         self.nbs = nbs
         self.node = node
+        self.home = node  # where fetched states land (see fetch)
         self.jobstore = jobstore
         self.delta = DeltaTracker(delta or DeltaPolicy())
         self.async_publish = async_publish
@@ -87,21 +100,68 @@ class DHP:
         *,
         via: str = "auto",
         step: int = 0,
+        changed_hint: dict | None = None,
     ) -> Any:
-        """Migrate ``state`` to node ``dest``; returns the state living there."""
+        """Migrate ``state`` to node ``dest``; returns the state living there
+        (a :class:`RemoteStateRef` receipt when ``dest`` is process-backed).
+
+        ``changed_hint`` (per-array chunk bitmaps from
+        ``core/delta.device_changed_hints``, K1 on the card) lets a streamed
+        repeat hop skip copying and hashing chunks the device already proved
+        unchanged.
+
+        ``state`` may itself be a :class:`RemoteStateRef` receipt from an
+        earlier hop: the resident state is then moved onward — worker to
+        worker (``svc/relay``, streamed, with per-hop store fallback) or
+        back into this process when ``dest`` is in-process.
+        """
+        if isinstance(state, RemoteStateRef):
+            return self._hop_remote(state, dest, via=via, step=step)
         src = self.node
         dest_node = self.nbs.node(dest)  # raises if dest was reclaimed
+        requested = via
         if via == "auto":
-            via = "live"
-        if via not in ("live", "store"):
-            raise NotImplementedError(f"hop(via={via!r}) {_NEEDS_FABRIC}")
+            if dest_node.device is not None:  # in-process: straight to its device
+                via = "live"
+            elif getattr(dest_node, "supports_hop_stream", False):
+                via = "stream"
+            else:
+                via = "store"
         self.nbs.plugins.emit("on_hop", src=src, dest=dest, via=via, cmi=None)
         if via == "live":
             # §Q5: the state goes straight onto the destination device
+            if dest_node.device is None:
+                raise ValueError(f"hop(via='live') needs an in-process node; {dest!r} "
+                                 "is served by another process")
             out = _to_device_tree(state, dest_node.device)
             self.node = dest
             logger.info("hop(live) %s -> %s", src, dest)
             return out
+        if via == "stream":
+            # §Q5 across a process boundary: chunks go straight down the
+            # socket. Any failure falls back to the store-mediated path, so
+            # hop semantics (and preemption guarantees) are unchanged.
+            if not getattr(dest_node, "supports_hop_stream", False):
+                raise ValueError(f"hop(via='stream') needs a process-backed node; "
+                                 f"{dest!r} is in this process")
+            try:
+                out = dest_node.hop_stream(
+                    state, step=step, chunk_bytes=self.chunk_bytes,
+                    changed_hint=changed_hint, src=src,
+                )
+                self.node = dest
+                logger.info("hop(stream) %s -> %s", src, dest)
+                return out
+            except Exception as e:
+                if requested == "stream":
+                    # forced transport: surface the failure (matching
+                    # fetch/receipt-hop semantics); only "auto" downgrades
+                    raise
+                logger.warning(
+                    "hop(stream) %s -> %s failed (%s); falling back to store path",
+                    src, dest, e,
+                )
+                self.nbs.plugins.emit("on_hop", src=src, dest=dest, via="store", cmi=None)
         # store-mediated (Fig. 3): checkpoint -> S3 -> svc/hop(dest)
         name = f"hop-{uuid.uuid4().hex[:12]}"
         self.nbs.plugins.emit("on_checkpoint", node=src, cmi=name, step=step)
@@ -134,11 +194,170 @@ class DHP:
         logger.info("hop(store) %s -> %s via %s", src, dest, name)
         return out
 
-    def fetch(self, ref: Any, *, via: str = "auto") -> Any:
-        raise NotImplementedError(f"fetch of a remote-resident state {_NEEDS_FABRIC}")
+    # ------------------------------------------------------------------
+    # receipt-aware hops: the state lives in another process
+    # ------------------------------------------------------------------
+    def _landing_device(self, device: torch.device | str | None = None) -> torch.device:
+        """Where a state brought into this process lands: ``device``, else
+        the device of the node this DHP was made on, else (that node being
+        served by another process) the card, raising where there is none."""
+        if device is not None:
+            return torch.device(device)
+        home = self.nbs.nodes.get(self.home)
+        dev = getattr(home, "device", None)
+        return resolve_device(None) if dev is None else dev
 
-    def publish_ref(self, job_id: str, ref: Any, **kwargs) -> str:
-        raise NotImplementedError(f"publish of a remote-resident state {_NEEDS_FABRIC}")
+    def _hop_remote(self, ref: RemoteStateRef, dest: str, *, via: str = "auto",
+                    step: int = 0) -> Any:
+        """Move a remote-resident state onward — Fig. 8's chained tour.
+
+        Happy path for a process-backed ``dest``: ``svc/relay`` on the
+        holder, a worker-initiated ``svc/hop_stream`` straight to ``dest``
+        (no driver, no disk in the data path). Any relay failure falls back
+        *per hop* to the store path (``svc/fetch`` on the holder →
+        ``svc/hop`` on ``dest``), so the durability guarantees are
+        unchanged. An in-process ``dest`` pulls the state back here
+        (streamed fetch, store fallback) onto its device.
+        """
+        src = ref.node
+        if src == dest:
+            self.node = dest
+            return ref
+        src_node = self.nbs.node(src)
+        dest_node = self.nbs.node(dest)
+        dest_client = getattr(dest_node, "client", None)
+        if dest_client is None:
+            # destination lives in THIS process: the tour comes home
+            self.nbs.plugins.emit("on_hop", src=src, dest=dest, via="fetch", cmi=None)
+            state = self.fetch(ref, via=via, device=dest_node.device)
+            self.node = dest
+            logger.info("hop(fetch) %s -> %s", src, dest)
+            return state
+        if via in ("auto", "stream") and getattr(dest_node, "supports_hop_stream", False):
+            self.nbs.plugins.emit("on_hop", src=src, dest=dest, via="relay", cmi=None)
+            try:
+                # drop=False: the holder keeps its copy until the receipt is
+                # safely HERE — if the receipt frame is lost after a relay
+                # that actually succeeded, the fallback below still has a
+                # live source to fetch from instead of a stranded dest copy
+                kwargs = dict(token=ref.token, dest=list(dest_client.address),
+                              step=step, chunk_bytes=self.chunk_bytes, drop=False)
+                fail_after = getattr(dest_node, "_stream_fail_after", None)
+                if fail_after is not None:  # fault injection (tests)
+                    kwargs["fail_after_chunks"] = fail_after
+                receipt = src_node.invoke("svc/relay", **kwargs)
+            except Exception as e:
+                if via == "stream":
+                    raise
+                logger.warning(
+                    "hop(relay) %s -> %s failed (%s); per-hop store fallback",
+                    src, dest, e,
+                )
+            else:
+                try:
+                    src_node.invoke("svc/drop", token=ref.token)  # confirmed
+                except Exception as e:
+                    logger.warning("post-relay drop of %s on %s failed: %s",
+                                   ref.token, src, e)
+                self.node = dest
+                # the stream into dest: its delta accounting, as for hop_stream
+                dest_node.last_stream_receipt = receipt
+                logger.info("hop(relay) %s -> %s", src, dest)
+                return RemoteStateRef(
+                    node=receipt.get("node", dest),
+                    token=receipt["token"],
+                    step=int(receipt.get("step", step)),
+                    leaves=int(receipt.get("leaves", 0)),
+                    via="stream",
+                )
+        # per-hop store fallback (or via="store"): the holder re-publishes
+        # the state as a transit CMI, dest restores it (Fig. 3 with the
+        # holding worker as the source). The holder KEEPS its resident copy
+        # until the destination restore is confirmed — if the restore fails
+        # too (dest dead), the state survives on the holder and only the
+        # transit CMI is cleaned up.
+        self.nbs.plugins.emit("on_hop", src=src, dest=dest, via="store", cmi=None)
+        name = f"hop-{uuid.uuid4().hex[:12]}"
+        src_node.invoke("svc/fetch", token=ref.token, name=name, drop=False)
+        out = self._restore_transit(src, dest, name)
+        try:
+            src_node.invoke("svc/drop", token=ref.token)  # (4) "exit", confirmed
+        except Exception as e:
+            logger.warning("post-hop drop of %s on %s failed: %s", ref.token, src, e)
+        return out
+
+    def fetch(self, ref: RemoteStateRef, *, via: str = "auto",
+              device: torch.device | str | None = None) -> Any:
+        """Bring a remote-resident state back into THIS process, onto
+        ``device`` (default: the device of the node this DHP was made on;
+        the card when that node is process-backed).
+
+        ``via="auto"`` streams it over the fabric socket (bulk frames, no
+        store write — paper §Q5 on the return leg) and falls back to the
+        store-mediated ``svc/fetch`` + restore on any stream failure;
+        ``"stream"``/``"store"`` force one path. The worker drops its
+        resident copy once the state is safely here.
+        """
+        dev = self._landing_device(device)
+        node = self.nbs.node(ref.node)
+        if via in ("auto", "stream") and getattr(node, "supports_fetch_stream", False):
+            try:
+                state, _step = node.fetch_stream(ref.token, chunk_bytes=self.chunk_bytes,
+                                                 device=dev)
+                self.nbs.plugins.emit("on_hop", src=ref.node, dest=self.node,
+                                      via="fetch_stream", cmi=None)
+                logger.info("fetch(stream) %s from %s", ref.token, ref.node)
+                return state
+            except Exception as e:
+                if via == "stream":
+                    raise
+                logger.warning("fetch(stream) of %s failed (%s); store fallback",
+                               ref.token, e)
+        # observable (plugins) so smoke harnesses can catch a silent
+        # streamed-fetch regression falling back to the disk
+        self.nbs.plugins.emit("on_hop", src=ref.node, dest=self.node,
+                              via="fetch_store", cmi=None)
+        fetched = node.invoke("svc/fetch", token=ref.token)
+        state, _ = restore_cmi(self.nbs.hop_root, fetched["cmi"], device=dev,
+                               io_threads=self.io_threads)
+        # transit baggage, not a published product: GC once the state is live
+        shutil.rmtree(self.nbs.hop_root / fetched["cmi"], ignore_errors=True)
+        logger.info("fetch(store) %s from %s via %s", ref.token, ref.node, fetched["cmi"])
+        return state
+
+    def publish_ref(self, job_id: str, ref: RemoteStateRef, *, step: int = 0,
+                    extra: dict | None = None, meta: dict | None = None) -> str:
+        """Publish a checkpoint of a REMOTE-resident state, disk-durably.
+
+        The holding worker saves the CMI straight into the job's cmi_root on
+        the shared store (``svc/publish_resident`` — the resident copy is
+        untouched), then the job record is updated here. Mid-tour publishes
+        therefore keep exactly the durability of local ones; ``extra``
+        carries bookkeeping keys (e.g. ``itinerary_stage``) into the saved
+        copy only.
+        """
+        if self.jobstore is None:
+            raise RuntimeError("publish requires a JobStore")
+        name = f"cmi-{step:010d}-{uuid.uuid4().hex[:8]}"
+        # Delta-chain mid-tour publishes too: the holding worker saves v4
+        # against the previous stage's manifest, so a tour stage that only
+        # touched part of the state writes only the changed objects.
+        parent = self.delta.parent_for(job_id, self.jobstore)
+        self.nbs.plugins.emit("on_checkpoint", node=ref.node, cmi=name, step=step)
+        self.nbs.call(
+            ref.node, "svc/publish_resident",
+            token=ref.token, store_root=str(self.jobstore.cmi_root(job_id)),
+            name=name, step=step, extra=extra or {}, meta=meta or {},
+            chunk_bytes=self.chunk_bytes, writers=self.writers or 1,
+            parent=parent, cas=True,
+        )
+        self.jobstore.svc_publish_job(
+            job_id, STATUS_CKPT, cmi=name, step=step,
+            keep_last=self.delta.policy.keep_last,
+        )
+        self.delta.record_published(job_id, name)
+        self.nbs.plugins.emit("on_publish", job_id=job_id, status=STATUS_CKPT, name=name)
+        return name
 
     # ------------------------------------------------------------------
     # publish (Fig. 6)
@@ -222,15 +441,19 @@ class DHP:
     # ------------------------------------------------------------------
     def restart(self, job_id: str, *, node: str | None = None) -> tuple[Any, int]:
         """Resume a "ckpt" job from its most recent published CMI, onto the
-        node's device."""
+        node's device (for a process-backed node, where :meth:`fetch` would
+        land it)."""
         if self.jobstore is None:
             raise RuntimeError("restart requires a JobStore")
         node = node or self.node
         job = self.jobstore.read_job(job_id)
         if job.cmi is None:
             raise ValueError(f"job {job_id} has no published CMI")
+        # a process-backed node has no device here: the state lands as a
+        # fetched one does
         state, manifest = restore_cmi(
-            self.jobstore.cmi_root(job_id), job.cmi, device=self.nbs.node(node).device,
+            self.jobstore.cmi_root(job_id), job.cmi,
+            device=self.nbs.node(node).device or self._landing_device(),
             io_threads=self.io_threads,
         )
         self.nbs.plugins.emit("on_restart", node=node, cmi=job.cmi, step=manifest.step)

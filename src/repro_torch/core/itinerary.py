@@ -7,10 +7,24 @@ after stages the application marks worthwhile — Figure 8's
 
     hop(other); read; hop(other); compute; hop(other); write
 
-Stages run where the state lives: on the port's in-process nodes the stage
-function is simply called on the state, which sits on that node's device.
-(Tours across process-backed nodes, where the stage travels to the state,
-need the fabric, which the port does not have yet.)
+Stages run **where the state lives**. On an in-process node the stage
+function is simply called on the state, which sits on that node's device; on
+a process-backed node (``RemoteNode``) the hop left only a
+:class:`RemoteStateRef` receipt behind, so the runner sends the stage *to
+the state* instead: ``svc/run_stage`` executes the function — addressed by
+its module-qualified name, which the worker imports — on the resident state
+inside the worker, on the worker's device. Node-to-node moves between
+remote stages are worker-initiated streamed relays (``svc/relay``), and the
+tour's final product streams back over ``svc/fetch_stream`` — on the happy
+path a remote tour never touches the shared store. Every streamed leg falls
+back per-hop to the store-mediated path on failure, and mid-tour publishes
+(``svc/publish_resident``) are always disk-durable, so the preemption
+guarantees are exactly those of local itineraries.
+
+Stage functions that cannot be imported by a worker (lambdas, closures,
+partials, ``__main__`` locals) degrade gracefully: the state is fetched back
+and the stage runs in the driver — the tour completes, just without the
+ship-the-computation win for that stage.
 
 A :class:`MobilePipeline` runs several itineraries over a stream of work
 items in software-pipelined order (ref [7]): item *i* executes stage *s* at
@@ -26,14 +40,15 @@ from typing import Any, Callable
 
 from repro_torch.core.dhp import DHP
 from repro_torch.core.jobstore import STATUS_CKPT
+from repro_torch.core.nbs import RemoteStateRef
 from repro_torch.utils import logger
 
 
 def ref_obstacle(mod: str | None, qual: str | None, *, bound: bool = False,
                  partial: bool = False) -> str | None:
     """Why a ``(module, qualname)`` pair is NOT worker-addressable, or
-    ``None`` when it is (the JAX package's rules, kept so that tours written
-    for the port are ready for process-backed nodes)."""
+    ``None`` when it is (the JAX package's rules: what ``svc/run_stage``
+    would refuse, or silently localize, at runtime)."""
     if bound:
         return "bound method — the worker would misbind the state as `self`"
     if partial:
@@ -101,12 +116,55 @@ def validate_stages(stages: list["Stage"], nbs=None) -> list[str]:
     return problems
 
 
+def _exec_stage(dhp: DHP, st: Stage, state: Any, *, step: int = 0,
+                via: str = "auto") -> Any:
+    """Run one stage function where the state lives.
+
+    Remote-resident state (a receipt) dispatches ``svc/run_stage`` to the
+    holding worker; an unaddressable fn localizes the state first.
+    """
+    if isinstance(state, RemoteStateRef):
+        ref = st.fn_ref or stage_ref(st.fn)
+        if ref is None:
+            logger.info(
+                "stage %r is not addressable remotely; localizing state from %s",
+                st.name or st.fn, state.node,
+            )
+            state = dhp.fetch(state, via=via)
+        else:
+            try:
+                r = dhp.nbs.call(state.node, "svc/run_stage",
+                                 token=state.token, fn=ref, step=step)
+            except Exception as e:
+                # the worker could not RESOLVE the reference (module not on
+                # its path): degrade like an unaddressable fn — fetch and run
+                # here. Failures from the stage body itself still surface.
+                if "StageResolutionError" not in str(e):
+                    raise
+                logger.warning(
+                    "stage ref %r unresolvable on %s (%s); localizing",
+                    ref, state.node, e,
+                )
+                state = dhp.fetch(state, via=via)
+                return st.fn(state)
+            return RemoteStateRef(
+                node=r.get("node", state.node),
+                token=r["token"],
+                step=int(r.get("step", step)),
+                leaves=int(r.get("leaves", 0)),
+                via=state.via,
+            )
+    return st.fn(state)
+
+
 class Itinerary:
     """Run a list of :class:`Stage` as one migrating computation.
 
-    ``via`` selects the hop transport for every move in the tour: ``"auto"``
-    (default) moves the state device to device; ``"store"`` forces the
-    disk-mediated path (a transit CMI per hop).
+    ``via`` selects the transport preference for every hop/relay/fetch in
+    the tour: ``"auto"`` (default) moves the state device to device between
+    in-process nodes and streams wherever a process boundary lies, with
+    transparent store fallback; ``"store"`` forces the disk-mediated path (a
+    transit CMI per hop).
     """
 
     def __init__(self, dhp: DHP, job_id: str | None = None, *, via: str = "auto"):
@@ -116,27 +174,39 @@ class Itinerary:
         self.trace: list[tuple[str, str]] = []  # (stage, node) execution log
 
     def run(self, state: Any, stages: list[Stage], *, start_stage: int = 0,
-            step0: int = 0) -> Any:
+            step0: int = 0, localize: bool = True) -> Any:
         """Execute stages sequentially, hopping the state between nodes.
 
         Publishing stages checkpoint after running (``step0 + i`` numbers
-        the CMIs, so resumed tours keep monotone steps).
+        the CMIs, so resumed tours keep monotone steps). With ``localize``
+        (default) a tour ending on a process-backed node streams its final
+        product back to the caller (``dhp.fetch``: onto the device of the
+        node the DHP was made on).
         """
         if start_stage == 0:
             for problem in validate_stages(stages, self.dhp.nbs):
                 logger.warning("itinerary pre-flight: %s", problem)
         for i in range(start_stage, len(stages)):
             st = stages[i]
-            if self.dhp.node != st.dest:
+            src = state.node if isinstance(state, RemoteStateRef) else self.dhp.node
+            if src != st.dest:
                 state = self.dhp.hop(state, st.dest, step=step0 + i, via=self.via)
-            state = st.fn(state)
+            state = _exec_stage(self.dhp, st, state, step=step0 + i, via=self.via)
             self.trace.append((st.name or f"stage{i}", self.dhp.node))
             if st.publish and self.job_id is not None:
                 self._publish_stage(state, i, step0)
+        if localize and isinstance(state, RemoteStateRef):
+            state = self.dhp.fetch(state, via=self.via)
         return state
 
     def _publish_stage(self, state: Any, i: int, step0: int) -> None:
         # record which stage completed so restart skips finished work
+        if isinstance(state, RemoteStateRef):
+            # the worker holding the state saves the CMI into the job's
+            # cmi_root on the shared store — disk-durable, resident untouched
+            self.dhp.publish_ref(self.job_id, state, step=step0 + i,
+                                 extra={"itinerary_stage": i + 1})
+            return
         if isinstance(state, dict):
             pub_state = {**state, "itinerary_stage": i + 1}
         else:
@@ -173,7 +243,13 @@ class Itinerary:
 
 @dataclass
 class MobilePipeline:
-    """Software-pipelined execution of one itinerary over many work items."""
+    """Software-pipelined execution of one itinerary over many work items.
+
+    Remote stages work exactly as in :class:`Itinerary`: work items whose
+    state is resident in a worker are advanced via ``svc/run_stage`` and
+    relayed node-to-node; finished items are streamed back before being
+    returned.
+    """
 
     dhp: DHP
     stages: list[Stage]
@@ -194,11 +270,14 @@ class MobilePipeline:
                     cur = states.pop(item_idx, None)
                     if cur is None:
                         cur = items[item_idx]
-                    if self.dhp.node != st.dest:
+                    src = cur.node if isinstance(cur, RemoteStateRef) else self.dhp.node
+                    if src != st.dest:
                         cur = self.dhp.hop(cur, st.dest, step=tick, via=self.via)
-                    cur = st.fn(cur)
+                    cur = _exec_stage(self.dhp, st, cur, step=tick, via=self.via)
                     active.append((item_idx, st.name or f"stage{stage_idx}"))
                     if stage_idx == s - 1:
+                        if isinstance(cur, RemoteStateRef):
+                            cur = self.dhp.fetch(cur, via=self.via)
                         done[item_idx] = cur
                     else:
                         states[item_idx] = cur

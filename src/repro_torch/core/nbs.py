@@ -12,8 +12,8 @@ where step (2) is deterministic reconstruction: re-binding the state tree to
 the destination device.
 
 Everything is in-process but service-shaped: handlers take/return plain data
-so fronting them with RPC is mechanical. Process-backed nodes need the
-fabric, which comes to the port in a later slice.
+so fronting them with RPC is mechanical — ``add_remote_node`` does exactly
+that for a node served by a worker process (``repro_torch.fabric``).
 """
 
 from __future__ import annotations
@@ -33,20 +33,61 @@ from repro_torch.utils import logger, resolve_device
 HOP_NAMESPACE = "hops"
 
 
+@dataclass(frozen=True)
+class RemoteStateRef:
+    """Receipt for state resident in another process after a remote hop.
+
+    Lives in core (not ``repro_torch.fabric``) so state-consuming layers like
+    itineraries can recognize "your state went somewhere you cannot touch
+    it" without importing the fabric. ``via`` records which transport landed
+    the state: ``"store"`` (disk-mediated Fig. 3/4) or ``"stream"`` (the
+    §Q5 socket pipeline).
+
+    Receipts are chainable: ``dhp.hop(ref, dest)`` relays the resident state
+    worker-to-worker (``svc/relay``), ``dhp.fetch(ref)`` brings it back, and
+    ``nbs.call(ref.node, "svc/run_stage", token=ref.token, fn=...)`` runs a
+    stage function on it in place — which is how itineraries tour
+    process-backed nodes without the state ever visiting the driver.
+    """
+
+    node: str
+    token: str
+    step: int
+    leaves: int
+    via: str = "store"
+
+
 @dataclass
 class Node:
-    """A compute node: a named torch device + services (a Cloud instance)."""
+    """A compute node: a named torch device + services (a Cloud instance).
+
+    A process-backed node (``repro_torch.fabric.proxy.RemoteNode``) has no
+    device in this process (``device`` is ``None``): its worker names its
+    own in ``svc/ping``.
+    """
 
     name: str
-    device: torch.device
+    device: torch.device | None
     services: dict[str, Callable] = field(default_factory=dict)
     meta: dict[str, Any] = field(default_factory=dict)
+
+    # Process-backed subclasses that can receive a state stream over their
+    # socket (``repro_torch.fabric.proxy.RemoteNode``) flip these; ``dhp.hop``
+    # / ``dhp.fetch`` use them to prefer the §Q5 streaming transports over
+    # store-mediation (hop_stream: state in; fetch_stream: state back out).
+    supports_hop_stream = False
+    supports_fetch_stream = False
 
     def register(self, svc_name: str, handler: Callable) -> None:
         self.services[svc_name] = handler
 
     def invoke(self, svc_name: str, /, **kwargs) -> Any:
-        """Dispatch a service call on this node."""
+        """Dispatch a service call on this node.
+
+        Subclasses (``repro_torch.fabric.proxy.RemoteNode``) override this to
+        carry the call across a process boundary; ``NBS.call`` goes through
+        here so callers never care which backend a node runs on.
+        """
         try:
             handler = self.services[svc_name]
         except KeyError:
@@ -75,15 +116,29 @@ class NBS:
         return node
 
     def add_remote_node(self, name: str, address, *, resolver=None, **meta) -> Node:
-        """Process-backed nodes need the fabric (``repro.fabric`` in the JAX
-        package), which the port does not have yet."""
-        raise NotImplementedError(
-            "remote nodes need the fabric, which repro_torch does not port yet"
-        )
+        """Register a node served by another process (see ``repro_torch.fabric``).
+
+        ``address`` is a fabric address tuple — ``("unix", path)`` or
+        ``("tcp", host, port)``. Calls through ``nbs.call`` are carried over
+        the socket; store-mediated hops work unchanged because the store is a
+        shared filesystem. ``resolver`` (no-arg callable -> fresh address or
+        None, e.g. :func:`repro_torch.fabric.registry.node_resolver`) lets the
+        proxy re-resolve the node by name after a respawn moved it.
+        """
+        from repro_torch.fabric.proxy import RemoteNode  # lazy: core stays fabric-free
+
+        if name in self.nodes:
+            raise ValueError(f"node {name!r} already registered")
+        node = RemoteNode.connect(name, address, meta=meta, resolver=resolver)
+        self.nodes[name] = node
+        return node
 
     def remove_node(self, name: str) -> None:
         """A spot reclaim: the node vanishes; in-flight work must re-hop."""
-        self.nodes.pop(name, None)
+        node = self.nodes.pop(name, None)
+        close = getattr(node, "close", None)
+        if callable(close):
+            close()
         logger.info("node %s reclaimed", name)
 
     def node(self, name: str) -> Node:

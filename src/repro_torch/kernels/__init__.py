@@ -11,3 +11,21 @@ kernel for CUDA tensors; a kernel that cannot build or launch raises. The
 CUDA sources are in ``csrc/``; ``_build`` compiles them with nvcc at the
 first CUDA launch (never at import).
 """
+
+
+def launch_counts(reset: bool = False) -> dict[str, int]:
+    """Launch counts of this process's kernel wrappers (0 where none ran);
+    ``reset`` sets them to 0 after reading."""
+    from repro_torch.kernels.colocate import ops as colocate_ops
+    from repro_torch.kernels.delta_encode import ops as delta_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    counters = {"delta_encode": delta_ops.changed_blocks,
+                "colocate": colocate_ops.colocate_match,
+                "flash_attention": flash_ops.flash_attention}
+    out = {name: int(fn.launches) for name, fn in counters.items()}
+    if reset:
+        for fn in counters.values():
+            fn.launches = 0
+        flash_ops.flash_attention.wgmma_launches = 0
+    return out

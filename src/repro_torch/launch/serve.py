@@ -12,8 +12,8 @@ The model runs on the CUDA card unless ``--device cpu`` is given; asking
 for the card where there is none raises. Reports per-phase throughput:
 prefill tok/s (prompt tokens / prefill wall time) and decode tok/s
 (generated tokens past the first / decode wall time). ``main`` returns the
-metrics dict. Routing over fabric workers (``--workers N``) needs the
-fabric, which is not ported yet (ROADMAP queue 1, item 8).
+metrics dict. Routing over serving workers (``--workers N``) comes with
+the serving fleet, which is not ported yet (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -98,8 +98,8 @@ def main(argv=None) -> dict:
 
     if args.workers > 0:
         raise NotImplementedError(
-            "--workers > 0 routes over fabric workers, which are not ported yet "
-            "(ROADMAP queue 1, item 8)")
+            "--workers > 0 routes over serving workers, which are not ported yet "
+            "(ROADMAP queue 1, item 10)")
     device = resolve_device(args.device)
     spec, vocab = _engine_spec(args)
     requests = build_requests(vocab, batch=args.batch,

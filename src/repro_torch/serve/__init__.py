@@ -9,8 +9,8 @@ package's (``repro.serve``), so a request crosses between the two.
     repro_torch.serve.engine   per-request decode state (toy + torch model engines)
     repro_torch.serve.worker   ServeHost: the in-process rolling batch
 
-The router, the fleet scenarios and live migration need the fabric, which
-is not ported yet (ROADMAP queue 1, item 8).
+The router, the fleet scenarios and live migration over the fabric
+(``repro_torch.fabric``) are not ported yet (ROADMAP queue 1, item 10).
 """
 
 from repro_torch.serve.engine import (  # noqa: F401

@@ -16,9 +16,9 @@ re-prefill; the CMI format is shared, so a request published by the JAX
 package's host resumes here.
 
 Live migration (``warm``/``handoff``/``adopt``/``drain``), the service
-registration on a fabric node and the worker process need the fabric,
-which is not ported yet: they raise ``NotImplementedError`` (ROADMAP
-queue 1, item 8).
+registration on a fabric node and the serving worker process are the
+serving fleet's, which is not ported yet: they raise
+``NotImplementedError`` (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ from repro_torch.core.jobstore import STATUS_CKPT, STATUS_FINISHED
 from repro_torch.serve.engine import is_done, transcript
 from repro_torch.utils import tree_map
 
-_NEEDS_FABRIC = "needs the fabric, which is not ported yet (ROADMAP queue 1, item 8)"
+_NEEDS_FABRIC = ("needs the serving fleet over the fabric, which is not ported yet "
+                 "(ROADMAP queue 1, item 10)")
 
 
 def _host_array(x) -> np.ndarray:

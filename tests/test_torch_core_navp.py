@@ -56,14 +56,19 @@ def test_hop(cluster, via):
 
 
 def test_hop_paths_that_need_the_fabric_raise(cluster):
+    """The fabric's paths exist now (tests/test_torch_fabric.py drives them);
+    without a worker process behind them they raise errors that name the
+    problem."""
+    from repro_torch.core.nbs import RemoteStateRef
+
     nbs, store = cluster
     dhp = DHP(nbs, "A", store)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process-backed"):
         dhp.hop({"x": torch.ones(2)}, "B", via="stream")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(OSError):
         nbs.add_remote_node("W", ("unix", "/nonexistent"))
-    with pytest.raises(NotImplementedError):
-        dhp.fetch(object())
+    with pytest.raises(KeyError, match="no such node"):
+        dhp.fetch(RemoteStateRef(node="W", token="res-0", step=0, leaves=1))
 
 
 def test_hop_to_reclaimed_node_raises(cluster):

@@ -143,3 +143,72 @@ def test_flash_attention_kernel_equals_plain(dev, case):
     # (B, S, H, D) storage read through strides gives the same answer
     torch.testing.assert_close(flash_attention(_bshd(q), _bshd(k), _bshd(v), causal=causal,
                                                window=window), got, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the fabric on the card: torch workers with their own CUDA contexts
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_worker_holds_resident_state_on_the_card(dev, tmp_path):
+    """A worker spawned on ``cuda`` reports ``cuda:0`` and the state streamed
+    to it lands there: a stage run on it in place launches K2 in the worker."""
+    from repro_torch.core import DHP, NBS
+    from repro_torch.core import colocation as co
+    from repro_torch.fabric.supervisor import FabricSupervisor
+
+    sup = FabricSupervisor(str(tmp_path / "s3"), device="cuda")
+    try:
+        h = sup.spawn("W", serve_only=True)
+        nbs = NBS(tmp_path / "s3")
+        nbs.add_node("A", device=dev)
+        nbs.add_remote_node("W", h.address)
+        assert nbs.call("W", "svc/ping")["device"] == "cuda:0"
+        dhp = DHP(nbs, "A", chunk_bytes=1 << 16)
+        state = co.stage_geometry(co.stage_read({}, device=dev, seed=0, n_scans=2,
+                                                viirs_lines_per_scan=4,
+                                                viirs_pixels_per_scan=400))
+        ref = dhp.hop(state, "W")
+        assert ref.via == "stream"
+        nbs.call("W", "svc/kernel_launches", reset=True)
+        r = nbs.call("W", "svc/run_stage", token=ref.token,
+                     fn="repro_torch.core.colocation:stage_match")
+        assert nbs.call("W", "svc/kernel_launches")["colocate"] == 1
+        back, _ = nbs.node("W").fetch_stream(r["token"], device=dev)
+        assert back["idx"].device.type == "cuda"
+        want = co.stage_match(state)
+        assert torch.equal(back["idx"], want["idx"])
+    finally:
+        sup.shutdown()
+
+
+def test_delta_stream_hop_with_k1_hints_sends_only_changed_chunks(dev, tmp_path):
+    from repro_torch.core import DHP, NBS
+    from repro_torch.core.delta import device_changed_hints
+    from repro_torch.fabric.supervisor import FabricSupervisor
+    from repro_torch.kernels.delta_encode import ops as delta_ops
+
+    sup = FabricSupervisor(str(tmp_path / "s3"), device="cuda")
+    try:
+        h = sup.spawn("W", serve_only=True)
+        nbs = NBS(tmp_path / "s3")
+        nbs.add_node("A", device=dev)
+        wnode = nbs.add_remote_node("W", h.address)
+        dhp = DHP(nbs, "A", chunk_bytes=1 << 16)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        src = {"x": torch.randn(4096, 64, device=dev, generator=gen),
+               "y": torch.randn(1000, device=dev, generator=gen)}
+        dhp.hop(src, "W")
+        full = dict(wnode.last_stream_receipt)
+        new = {**src, "x": src["x"].clone()}
+        new["x"][1000] += 1.0  # one row: one chunk of 256 rows
+        before = delta_ops.changed_blocks.launches
+        hints = device_changed_hints(src, new, chunk_bytes=1 << 16)
+        assert delta_ops.changed_blocks.launches == before + 2  # K1, one a leaf
+        ref = dhp.hop(new, "W", changed_hint=hints)
+        delta = wnode.last_stream_receipt
+        assert delta["chunks"] == full["chunks"] and delta["data_chunks"] == 1
+        back, _ = wnode.fetch_stream(ref.token, device=dev)
+        assert torch.equal(back["x"], new["x"]) and torch.equal(back["y"], new["y"])
+    finally:
+        sup.shutdown()

@@ -227,7 +227,7 @@ def test_fabric_half_raises():
     for call in (lambda: host.warm("r", ("unix", "x")), lambda: host.handoff("r", ("unix", "x")),
                  lambda: host.adopt("r", "tok"), lambda: host.drain(("unix", "x")),
                  lambda: host.register(None)):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             call()
 
 
@@ -248,7 +248,7 @@ def test_cli_smoke_on_cpu_is_deterministic(capsys):
 
 
 def test_cli_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         launch_serve.main(["--device", "cpu", "--workers", "2"])
     if torch.cuda.is_available():
         return  # the default device is there: nothing to refuse
