@@ -40,11 +40,26 @@ with nvcc and prints one JSON line per phase:
              generation and resumed by another with zero re-prefill; prefill
              logits with K3 against the plain attention at the same weights;
              every K3 launch of ``main`` through the tensor-core kernel
+  serve_fleet  the same model and requests through two serving worker
+             processes (``repro_torch.serve.worker``, each its own CUDA
+             context) under a ``ServeRouter`` in this process: one request
+             warmed to the other worker, decoded 4 more rounds, handed off
+             (streamed, zero re-prefill), the first worker SIGKILLed at
+             round 20 and its requests resumed on the survivor from their
+             last CMIs; every transcript equal to the serve phase's, K3
+             counted inside the workers (4 x 28 launches, none on resume or
+             adopt), ``fsck`` clean, ``hop_root`` empty. TTFT, routed
+             prefill and decode tok/s beside the in-process ones, the warm
+             and handoff legs, the recovery, each worker's memory; and
+             ``launch.serve.main(--workers 2)`` against ``--workers 0``
+  chaos      three cells of ``repro_torch.chaos.matrix`` with cuda workers
+             (a ``hop.*`` kill, a relay kill, a SIGKILL at stream accept):
+             each product bitwise the calm run's, ``hop_root`` empty
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
 made on its main paths (K1 and K2: the itinerary, publish and fabric phases,
 the fabric's counted inside the workers too; K3: the serve phase's
-``main``), the nvidia-smi line, and last
+``main`` and the serving workers' prefills), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
 card, or a directory without the rest of the repository.
@@ -57,6 +72,8 @@ import json
 import math
 import re
 import shutil
+import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -88,6 +105,11 @@ SERVE_ARGV = ["--arch", "qwen3-1.7b", "--prompt-len", str(PROMPT_LEN), "--gen", 
               "--batch", str(BATCH), "--seed", "0", "--device", "cuda"]
 PUBLISH_EVERY = 16
 DROP_AT_DONE = 24  # the first host is dropped here; its last publish is at done 17
+# the serving fleet: two workers, a live migration after 8 rounds, a SIGKILL at 20
+FLEET_PUBLISH_EVERY, WARM_AT_ROUND, HANDOFF_AFTER, KILL_AT_ROUND = 8, 8, 4, 20
+# the chaos phase: a hop.* kill, a relay kill and a SIGKILL at stream accept
+CHAOS_CELLS = ("hop.before_restore:sigkill", "relay.mid_stream:kill_conn",
+               "hop_stream.accept:sigkill")
 
 
 def emit(phase: str, **fields) -> None:
@@ -149,6 +171,14 @@ def nvidia_smi(fields: str = "name,power.limit") -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def compute_apps() -> list[str]:
+    """``pid, used_memory`` of every compute context on the card, one line
+    each (a container's PID namespace may show each process as one pid)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
 
 
 def sass_inner_loop(lib: Path, kernel: str) -> dict:
@@ -702,9 +732,7 @@ def run_fabric(root: Path, dev, calm: dict) -> dict:
         want = "cuda:0" if on_card else str(dev)
         pings = {n: nbs.call(n, "svc/ping") for n in workers}
         assert all(p["device"] == want for p in pings.values()), pings
-        apps = subprocess.run(
-            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True).stdout.split()
+        apps = compute_apps()
         # a container's PID namespace may show every process as one pid:
         # count the card's compute contexts (this process and one a worker)
         out["workers"] = {n: {"pid": p["pid"], "device": p["device"]} for n, p in pings.items()}
@@ -1025,6 +1053,191 @@ def profile_serve(engine, prompt: list[int], steps: int = 8) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving fleet — qwen3-1.7b across two serving worker processes
+# ---------------------------------------------------------------------------
+
+
+def run_serve_fleet(root: Path, dev, local: dict) -> dict:
+    """The serve phase's four requests through two serving workers on the
+    card under a router here: one request warmed to s1 after 8 rounds,
+    decoded 4 more rounds on s0 and handed off; s0 SIGKILLed at round 20
+    and its requests resumed on s1. ``local`` is the serve phase's
+    in-process metrics: every transcript must equal its."""
+    from repro_torch.checkpoint.fsck import fsck_store
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import NBS, JobStore
+    from repro_torch.core.jobstore import STATUS_FINISHED
+    from repro_torch.fabric.proxy import wait_ready
+    from repro_torch.fabric.supervisor import FabricSupervisor
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import ServeRouter, spawn_serve_worker
+
+    names = ("s0", "s1")
+    _, arch, size = SERVE_SPEC.split(":")[:3]
+    cfg = get_smoke_config(arch) if size == "smoke" else get_config(arch)
+    requests = launch_serve.build_requests(cfg.vocab, batch=BATCH, prompt_len=PROMPT_LEN,
+                                           gen=GEN, seed=0)
+    sup = FabricSupervisor(str(root / "s3"), str(root / "jobs"), device=str(dev))
+    store = JobStore(root / "jobs")
+    router = ServeRouter(jobstore=store)
+    out: dict = {"startup_s": {}}
+
+    def k3(name: str, reset: bool = False) -> dict:
+        return router.call(name, "svc/kernel_launches", reset=reset)
+
+    def status(name: str) -> dict:
+        return router.call(name, "svc/serve_status")
+
+    try:
+        t0 = time.perf_counter()
+        for name in names:  # both start together, each its own CUDA context
+            spawn_serve_worker(sup, name, engine_spec=SERVE_SPEC,
+                               publish_every=FLEET_PUBLISH_EVERY, wait=False, device=str(dev))
+        for name in names:
+            wait_ready(sup.workers[name].address, timeout=300)
+            out["startup_s"][name] = time.perf_counter() - t0
+            router.add_worker(name, sup.workers[name].address)
+        for name in names:  # the main path: counts from 0 just before
+            k3(name, reset=True)
+        t0 = time.perf_counter()
+        for req in requests:
+            router.admit(req["prompt"], req["max_new"], req_id=req["id"])
+        prefill_s = time.perf_counter() - t0
+        after_admit = {n: k3(n) for n in names}
+        window_t0 = time.perf_counter()  # the decode window: to the last token
+        step_s, rounds = 0.0, 0
+
+        def decode(n: int) -> None:
+            nonlocal step_s, rounds
+            for _ in range(n):
+                t = time.perf_counter()
+                router.step()
+                step_s += time.perf_counter() - t
+                rounds += 1
+
+        decode(WARM_AT_ROUND)
+        victim = next(r for r in sorted(router.pending()) if router.assignment[r] == "s0")
+        prefills_s1 = status("s1")["counters"]["prefills"]
+        t = time.perf_counter()
+        warm = router.warm(victim, "s1")
+        warm_s = time.perf_counter() - t
+        decode(HANDOFF_AFTER)
+        t = time.perf_counter()
+        event = router.migrate(victim, "s1", warm=False)
+        handoff_s = time.perf_counter() - t
+        s1 = status("s1")["counters"]
+        assert event["mode"] == "stream" and event["warm"], event
+        assert s1["prefills"] == prefills_s1 and s1["migrations_in"] == 1, s1
+        memory = compute_apps()
+        decode(KILL_AT_ROUND - rounds)
+        before_kill = {n: k3(n) for n in names}
+        s0_at_kill = status("s0")  # nothing runs on s0 between this read and the kill
+        rc = sup.reclaim("s0", notice=False)
+        assert rc == -signal.SIGKILL, rc
+        t = time.perf_counter()
+        resumed = router.recover("s0", "s1")
+        recover_s = time.perf_counter() - t
+        assert resumed, "nothing was stranded on s0"
+        while router.pending():
+            decode(1)
+        window_s = time.perf_counter() - window_t0
+        s1_at_end = status("s1")
+        s1 = s1_at_end["counters"]
+        end = k3("s1")
+        transcripts = {req["id"]: router.transcript(req["id"]) for req in requests}
+        mismatched = {r: t for r, t in transcripts.items() if t != local["transcripts"][r]}
+        assert not mismatched, (mismatched, local["transcripts"])
+        launches = {k: sum(c[k] for c in after_admit.values())
+                    for k in ("flash_attention", "flash_attention_wgmma")}
+        on_card = dev.type == "cuda"  # a dry run of the phase on the CPU runs no kernel
+        assert not on_card or launches == {"flash_attention": BATCH * cfg.n_layers,
+                                           "flash_attention_wgmma": BATCH * cfg.n_layers}, \
+            after_admit
+        # decode, the adopt and the resumes launched no K3
+        assert before_kill == after_admit and end == after_admit["s1"], (before_kill, end)
+        assert s1["resumes"] == len(resumed) and s1["migrations_in"] == 1, s1
+        fsck = {}
+        for req_id, job_id in router.jobs.items():
+            job = store.read_job(job_id)
+            assert job.status == STATUS_FINISHED and job.lease_owner is None, job
+            report = fsck_store(store.cmi_root(job_id))
+            assert report.clean, report.summary()
+            fsck[req_id] = report.summary()
+        assert list(NBS(root / "s3").hop_root.iterdir()) == []
+        # over the whole decode window (warm, handoff, kill and recover in
+        # it): the tokens that reached the router once each, and every token
+        # the workers decoded, those s1 decoded again after the resume too
+        delivered = BATCH * (GEN - 1)
+        produced = s0_at_kill["counters"]["decode_steps"] + s1["decode_steps"]
+        worker_s = {"s0": s0_at_kill["seconds"], "s1": s1_at_end["seconds"]}
+        out.update(
+            requests={"batch": BATCH, "prompt_len": PROMPT_LEN, "gen": GEN},
+            ttft_p50_s=statistics.median(router.ttft_s.values()),
+            ttft_max_s=max(router.ttft_s.values()), ttft_s=router.ttft_s,
+            prefill_s=prefill_s, prefill_tok_s=BATCH * PROMPT_LEN / prefill_s,
+            decode_window_s=window_s, decode_delivered=delivered, decode_produced=produced,
+            decode_delivered_tok_s=delivered / window_s,
+            decode_produced_tok_s=produced / window_s,
+            decode_rounds=rounds,
+            # where the window went, on the driver's clock; "other" is the
+            # kill, the reads above and the router's own work
+            decode_window_split_s={
+                "router_steps": step_s, "warm": warm_s, "handoff": handoff_s,
+                "recover": recover_s,
+                "other": window_s - step_s - warm_s - handoff_s - recover_s},
+            # inside the workers' steps and admits: decode to each token's
+            # read, and the CMI publishes (s0 up to its kill)
+            worker_seconds=worker_s,
+            publishes={"s0": s0_at_kill["counters"]["publishes"], "s1": s1["publishes"]},
+            in_process={"prefill_tok_s": local["prefill_tok_s"],
+                        "decode_tok_s": local["decode_tok_s"]},
+            victim=victim,
+            warm={"s": warm_s, **{k: warm[k] for k in ("chunks", "data_chunks", "ref_chunks",
+                                                       "sent_bytes", "done")}},
+            handoff={"s": handoff_s, **{k: event[k] for k in ("mode", "chunks", "data_chunks",
+                                                              "ref_chunks", "sent_bytes")}},
+            reprefills_on_migration=s1["prefills"] - prefills_s1,
+            killed_at_round=KILL_AT_ROUND, kill_rc=rc, recover_s=recover_s, resumed=resumed,
+            resumed_at_done={e["req"]: e["done"] for e in router.events
+                             if e["kind"] == "resume"},
+            counters_s1=s1, launches=launches, launches_by_worker=after_admit,
+            nvidia_smi_compute_apps=memory, transcripts_equal_in_process=True, fsck=fsck,
+            hop_root_empty=True)
+    finally:
+        router.close()
+        sup.shutdown()
+
+    # the CLI's routed mode: the same transcripts as --workers 0
+    t0 = time.perf_counter()
+    routed = launch_serve.main(SERVE_ARGV + ["--workers", "2"])
+    routed_s = time.perf_counter() - t0
+    assert routed["transcripts"] == local["transcripts"]
+    out["cli_workers_2"] = {k: routed[k] for k in ("mode", "prefill_tok_s", "decode_tok_s",
+                                                    "ttft_p50_s", "ttft_max_s")}
+    out["cli_workers_2"].update(wall_s=routed_s, transcripts_equal_workers_0=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the chaos matrix's tour cells against cuda workers
+# ---------------------------------------------------------------------------
+
+
+def run_chaos(dev) -> dict:
+    """Three tour cells of the port's chaos matrix on workers on the card;
+    a cell that breaks an invariant raises."""
+    from repro_torch.chaos import matrix
+
+    cells = {}
+    for cell_id in CHAOS_CELLS:
+        cell = next(c for c in matrix.CELLS if c["id"] == cell_id)
+        t0 = time.perf_counter()
+        matrix.run_cell(cell, device=str(dev))
+        cells[cell_id] = {"s": time.perf_counter() - t0, "verdict": "ok"}
+    return {"cells": cells, "device": str(dev)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card here; nothing was run", file=sys.stderr)
@@ -1136,6 +1349,15 @@ def main() -> int:
              launches=serve_launches, k3_launches_per_prefill=n_layers,
              peak_memory_bytes=torch.cuda.max_memory_allocated())
         del served, engine
+
+        # the serving fleet: each worker's counts set to 0 just before its
+        # admits and read just after (K3 runs only inside the workers)
+        fleet = run_serve_fleet(work / "fleet", dev, metrics)
+        launches["flash_attention"] += fleet["launches"]["flash_attention"]
+        by_path["serve_fleet"] = {"flash_attention": fleet["launches"]["flash_attention"]}
+        emit("serve_fleet", **fleet)
+        del fleet
+        emit("chaos", **run_chaos(dev))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

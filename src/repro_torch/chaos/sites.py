@@ -2,10 +2,10 @@
 
 A copy of the JAX package's registry (``repro/chaos/sites.py``), so that
 the port's ``faults.fire`` sites and ``faults.arm`` validate against the
-same point names. The chaos matrix and the coverage checker that hold the
-registry 1:1 against fire sites, matrix cells and ``docs/fabric.md`` live
-in the JAX package; the port's fabric (``repro_torch.fabric``) fires the
-same points, and its own matrix comes with the chaos slice.
+same point names. The port fires every point in the registry, and its chaos
+matrix (``repro_torch.chaos.matrix``) holds a cell for each; the JAX
+package's coverage checker, pointed at this package's tree, holds the
+registry 1:1 against those fire sites, matrix cells and ``docs/fabric.md``.
 
 ``faults.arm`` validates dotted points against this registry; single-token
 points (``"p"``) stay unvalidated so unit tests can use ad-hoc points.

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.colocate.ops import colocate_match, colocate_match_plain, fma_f32
-from repro_torch.utils import numpy_to_tensor, resolve_device
+from repro_torch.utils import numpy_to_tensor, resolve_device, warm_cpu_math
 
 # WGS-84
 _A = 6378137.0  # semi-major axis, m
@@ -48,6 +48,7 @@ def geodetic_to_ecef(lat_deg: torch.Tensor, lon_deg: torch.Tensor, alt_m: float 
     """WGS-84 geodetic coordinates (float32) → ECEF, shape [..., 3] (meters)."""
     lat = lat_deg * _DEG2RAD
     lon = lon_deg * _DEG2RAD
+    warm_cpu_math(lat)
     sin_lat, cos_lat = torch.sin(lat), torch.cos(lat)
     # a true division: ``scalar / tensor`` would multiply by the reciprocal
     n = torch.full_like(sin_lat, _A) / _sqrt_f32(1.0 - _E2 * (sin_lat * sin_lat))
@@ -165,6 +166,7 @@ def viirs_pos_ecef(viirs_lat, viirs_lon) -> torch.Tensor:
 
 def _cos_threshold(half_angle_deg: float, device) -> torch.Tensor:
     half = torch.tensor(half_angle_deg, dtype=torch.float32, device=device)
+    warm_cpu_math(half)
     return torch.cos(half * _DEG2RAD)
 
 

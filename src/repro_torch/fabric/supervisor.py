@@ -193,8 +193,10 @@ class FabricSupervisor:
         address is a respawn-in-place, and clients reconnect transparently.
         On tcp without a pin the worker binds an ephemeral port; the real
         address comes back through the ready-file (and the registry, when
-        one is configured). ``module`` selects the worker entrypoint.
-        ``device`` (default: the supervisor's) is the worker's ``--device``."""
+        one is configured). ``module`` selects the worker entrypoint —
+        ``repro_torch.serve.worker`` provisions a serving worker (same flag
+        surface; ``extra_args`` carries its ``--engine`` spec). ``device``
+        (default: the supervisor's) is the worker's ``--device``."""
         os.makedirs(self.socket_dir, exist_ok=True)
         ready = os.path.join(self.socket_dir, f"{name}-{uuid.uuid4().hex[:6]}.ready")
         if self.transport == "tcp":

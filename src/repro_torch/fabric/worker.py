@@ -39,8 +39,9 @@ import signal
 import sys
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -52,7 +53,7 @@ from repro_torch.core.nbs import NBS
 from repro_torch.core.preemption import PreemptionNotice
 from repro_torch.fabric.server import NodeServer
 from repro_torch.kernels import launch_counts
-from repro_torch.utils import logger, resolve_device
+from repro_torch.utils import logger, resolve_device, warm_cpu_math
 
 EXIT_FINISHED = 0
 EXIT_PREEMPTED = 43  # graceful: notice honored, CMI published before exit
@@ -72,6 +73,7 @@ def init_state(job_input: dict, device: torch.device | str = "cpu") -> dict[str,
 
 def job_step(state: dict[str, Any]) -> dict[str, Any]:
     w, t = state["w"], int(state["t"])
+    warm_cpu_math(w)
     w = w * 1.000001 + torch.sin(w) * 1e-3 + (t % 7) * 1e-6
     return {"w": w, "t": t + 1}
 
@@ -94,6 +96,7 @@ def tour_read(state: dict[str, Any]) -> dict[str, Any]:
 
 def tour_compute(state: dict[str, Any]) -> dict[str, Any]:
     x = state["x"].to(torch.float64)
+    warm_cpu_math(x)
     return {**state, "x": torch.sin(x) * 2.0 + x * 0.5}
 
 
@@ -224,6 +227,18 @@ def _run_claimed_job(
 # ---------------------------------------------------------------------------
 
 
+def open_device(spec: str) -> torch.device:
+    """The worker's device, with this process's CUDA context made before it
+    serves; raises (a non-zero exit, before serving) where the card asked
+    for is absent."""
+    device = resolve_device(spec)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.zeros(1, device=device)
+    return device
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.fabric.worker")
     ap.add_argument("--name", required=True, help="node name")
@@ -250,8 +265,36 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+@dataclass
+class NodeProcess:
+    """What a worker process serves with: its node on the shared store, the
+    server answering for it, and the termination notice."""
+
+    name: str
+    device: torch.device
+    nbs: NBS
+    node: Any
+    jobstore: JobStore | None
+    server: NodeServer
+    notice: PreemptionNotice
+
+
+def run_node_process(
+    args: argparse.Namespace,
+    body: Callable[[NodeProcess], int],
+    *,
+    setup: Callable[[NodeProcess], None] | None = None,
+) -> int:
+    """The process protocol every worker keeps (the supervisor and the
+    agents rely on it), around ``body(proc)``: open ``--device``, bind the
+    node ``--name``'s server on ``--socket`` or ``--tcp`` with
+    ``svc/kernel_launches`` on it, let ``setup(proc)`` add the worker's own
+    services, and only then serve — a caller that reaches the address
+    during a slow setup (a model built on the card) waits instead of
+    finding a node without them — and announce the worker: SIGTERM as the
+    notice, the ready-file, the registry's registration and heartbeat.
+    Returns ``body``'s exit code; the heartbeat and the server stop after
+    it."""
     if args.tcp:
         host, _, port = args.tcp.rpartition(":")
         address = ("tcp", host or "127.0.0.1", int(port or 0))
@@ -261,64 +304,49 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("worker needs --socket or --tcp")
 
     faults.set_role("worker", node=args.name)  # scope inherited fault plans
-    # raises (non-zero exit, before serving) where the card asked for is absent
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        torch.zeros(1, device=device)  # this process's CUDA context, before serving
+    device = open_device(args.device)
     nbs = NBS(args.store)
-    # svc/kernel_launches: how a driver sees the kernels a stage ran in here
-    nbs.add_node(args.name, device=device).register("svc/kernel_launches", launch_counts)
+    node = nbs.add_node(args.name, device=device)
+    # svc/kernel_launches: how a driver sees the kernels run in here
+    node.register("svc/kernel_launches", launch_counts)
     jobstore = JobStore(args.jobstore) if args.jobstore else None
-    server = NodeServer(nbs, args.name, address, jobstore=jobstore).start()
-
-    notice = PreemptionNotice()
-    if os.environ.get("REPRO_CHAOS_IGNORE_SIGTERM"):
-        # chaos: a worker that ignores the termination notice (hung signal
-        # handler) — supervisor escalation paths are tested against this
-        signal.signal(signal.SIGTERM, signal.SIG_IGN)
-    else:
-        notice.install_sigterm(args.grace_s)
-
-    if args.ready_file:
-        tmp = Path(args.ready_file + ".tmp")
-        tmp.write_text(json.dumps({"pid": os.getpid(), "address": list(server.address)}))
-        os.replace(tmp, args.ready_file)
-
+    server = NodeServer(nbs, args.name, address, jobstore=jobstore)
+    proc = NodeProcess(args.name, device, nbs, node, jobstore, server, PreemptionNotice())
     heartbeat_stop: threading.Event | None = None
-    if args.registry:
-        # announce this incarnation: name -> resolved (host, port). A respawn
-        # re-registers under a NEW generation (and usually a new ephemeral
-        # port) — that is the cache-invalidation signal drivers resolve
-        # against. Registration failure is fatal on purpose: an unreachable
-        # registry means nobody can find this worker, and a crash here is a
-        # respawn the agent knows how to retry.
-        from repro_torch.fabric.registry import RegistryClient, tcp_address
-
-        registry = RegistryClient(tcp_address(args.registry))
-        generation = registry.register(
-            args.name, server.address, pid=os.getpid(), kind="worker"
-        )
-        heartbeat_stop = registry.start_heartbeat(
-            args.name, generation, interval_s=args.heartbeat_s
-        )
-
-    run_jobs = bool(args.job_id or args.claim) and jobstore is not None
     try:
-        if args.serve_only or not run_jobs:
-            server.serve_forever(until=notice.imminent)
-            return EXIT_PREEMPTED if notice.imminent() else EXIT_FINISHED
-        dhp = DHP(nbs, args.name, jobstore, writers=args.writers)
-        return run_job_loop(
-            dhp, jobstore, notice,
-            job_id=args.job_id or None,
-            worker_name=args.name,
-            steps=args.steps,
-            publish_every=args.publish_every,
-            step_ms=args.step_ms,
-            lease_s=args.lease_s,
-        )
+        if setup is not None:
+            setup(proc)
+        server.start()
+        if os.environ.get("REPRO_CHAOS_IGNORE_SIGTERM"):
+            # chaos: a worker that ignores the termination notice (hung
+            # signal handler) — supervisor escalation paths are tested
+            # against this
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        else:
+            proc.notice.install_sigterm(args.grace_s)
+
+        if args.ready_file:
+            tmp = Path(args.ready_file + ".tmp")
+            tmp.write_text(json.dumps({"pid": os.getpid(), "address": list(server.address)}))
+            os.replace(tmp, args.ready_file)
+
+        if args.registry:
+            # announce this incarnation: name -> resolved (host, port). A
+            # respawn re-registers under a NEW generation (and usually a new
+            # ephemeral port) — that is the cache-invalidation signal drivers
+            # resolve against. Registration failure is fatal on purpose: an
+            # unreachable registry means nobody can find this worker, and a
+            # crash here is a respawn the agent knows how to retry.
+            from repro_torch.fabric.registry import RegistryClient, tcp_address
+
+            registry = RegistryClient(tcp_address(args.registry))
+            generation = registry.register(
+                args.name, server.address, pid=os.getpid(), kind="worker"
+            )
+            heartbeat_stop = registry.start_heartbeat(
+                args.name, generation, interval_s=args.heartbeat_s
+            )
+        return body(proc)
     finally:
         if heartbeat_stop is not None:
             # stop beating but keep the record: the registry (not this
@@ -326,6 +354,27 @@ def main(argv: list[str] | None = None) -> int:
             # or the heartbeat gap marks it DEAD with the exit preserved
             heartbeat_stop.set()
         server.stop()
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+
+    def body(proc: NodeProcess) -> int:
+        if args.serve_only or not (args.job_id or args.claim) or proc.jobstore is None:
+            proc.server.serve_forever(until=proc.notice.imminent)
+            return EXIT_PREEMPTED if proc.notice.imminent() else EXIT_FINISHED
+        dhp = DHP(proc.nbs, args.name, proc.jobstore, writers=args.writers)
+        return run_job_loop(
+            dhp, proc.jobstore, proc.notice,
+            job_id=args.job_id or None,
+            worker_name=args.name,
+            steps=args.steps,
+            publish_every=args.publish_every,
+            step_ms=args.step_ms,
+            lease_s=args.lease_s,
+        )
+
+    return run_node_process(args, body)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,9 @@ first CUDA launch (never at import).
 
 
 def launch_counts(reset: bool = False) -> dict[str, int]:
-    """Launch counts of this process's kernel wrappers (0 where none ran);
-    ``reset`` sets them to 0 after reading."""
+    """Launch counts of this process's kernel wrappers (0 where none ran),
+    with K3's launches of its tensor-core kernel as
+    ``flash_attention_wgmma``; ``reset`` sets them to 0 after reading."""
     from repro_torch.kernels.colocate import ops as colocate_ops
     from repro_torch.kernels.delta_encode import ops as delta_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -24,6 +25,7 @@ def launch_counts(reset: bool = False) -> dict[str, int]:
                 "colocate": colocate_ops.colocate_match,
                 "flash_attention": flash_ops.flash_attention}
     out = {name: int(fn.launches) for name, fn in counters.items()}
+    out["flash_attention_wgmma"] = int(flash_ops.flash_attention.wgmma_launches)
     if reset:
         for fn in counters.values():
             fn.launches = 0

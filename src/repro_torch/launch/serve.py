@@ -1,24 +1,30 @@
-"""Serving CLI: continuous batching over repro_torch.serve, in process.
+"""Serving CLI: continuous batching over repro_torch.serve, in-process or fabric.
 
-Port of the JAX package's ``repro/launch/serve.py``. One
-:class:`~repro_torch.serve.worker.ServeHost` answers the requests, so the
+Port of the JAX package's ``repro/launch/serve.py``. The same
+:class:`~repro_torch.serve.worker.ServeHost` loop answers every mode, so the
 printed transcripts are a pure function of ``(--arch/--seed, --prompt-len,
---gen, --batch)`` on one machine:
+--gen, --batch)`` on one machine — identical whether the batch runs in this
+process (``--workers 0``) or is spread over N serving worker processes
+(``repro_torch.serve.worker``) under a router, on either transport:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --workers 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --device cpu
 
-The model runs on the CUDA card unless ``--device cpu`` is given; asking
-for the card where there is none raises. Reports per-phase throughput:
+The model runs on the CUDA card unless ``--device cpu`` is given, in this
+process or in every worker; asking for the card where there is none raises
+(a worker exits non-zero before it serves). Reports per-phase throughput:
 prefill tok/s (prompt tokens / prefill wall time) and decode tok/s
-(generated tokens past the first / decode wall time). ``main`` returns the
-metrics dict. Routing over serving workers (``--workers N``) comes with
-the serving fleet, which is not ported yet (ROADMAP queue 1, item 10).
+(generated tokens past the first / decode wall time), plus TTFT p50/max
+when routing over workers. ``main`` returns the metrics dict.
 """
 
 from __future__ import annotations
 
 import argparse
+import shutil
+import statistics
+import tempfile
 import time
 
 import numpy as np
@@ -78,6 +84,49 @@ def run_local(spec: str, requests: list[dict], device: torch.device) -> dict:
     }
 
 
+def run_routed(spec: str, requests: list[dict], *, workers: int, transport: str,
+               publish_every: int, device: str) -> dict:
+    """``--workers N``: real serving worker processes on ``device`` + the
+    router, either wire."""
+    from repro_torch.core.jobstore import JobStore
+    from repro_torch.fabric.supervisor import FabricSupervisor
+    from repro_torch.serve.router import ServeRouter
+    from repro_torch.serve.scenarios import spawn_serve_worker
+
+    root = tempfile.mkdtemp(prefix="navp-serve-cli-")
+    sup = FabricSupervisor(store_root=root + "/store", jobstore_root=root + "/jobs",
+                           transport=transport, device=device)
+    router = ServeRouter(jobstore=JobStore(root + "/jobs"))
+    try:
+        for i in range(workers):
+            handle = spawn_serve_worker(sup, f"s{i}", engine_spec=spec,
+                                        publish_every=publish_every)
+            router.add_worker(f"s{i}", handle.address)
+        t0 = time.perf_counter()
+        for req in requests:
+            router.admit(req["prompt"], req["max_new"], req_id=req["id"])
+        prefill_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        router.run_to_completion()
+        decode_s = time.perf_counter() - t1
+        transcripts = {req["id"]: router.transcript(req["id"])
+                       for req in requests}
+        ttft = list(router.ttft_s.values())
+        return {
+            "mode": f"routed:{workers}x{transport}",
+            "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "decoded": sum(len(t) - 1 for t in transcripts.values()),
+            "transcripts": transcripts,
+            "ttft_p50_s": statistics.median(ttft),
+            "ttft_max_s": max(ttft),
+        }
+    finally:
+        router.close()
+        sup.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
@@ -93,19 +142,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model (default: the CUDA card)")
     ap.add_argument("--workers", type=int, default=0,
-                    help="fabric worker processes (0 = in-process host)")
+                    help="serving worker processes (0 = in-process host)")
+    ap.add_argument("--transport", choices=("unix", "tcp"), default="unix")
+    ap.add_argument("--publish-every", type=int, default=8,
+                    help="CMI publish cadence in decode steps (workers mode)")
     args = ap.parse_args(argv)
 
-    if args.workers > 0:
-        raise NotImplementedError(
-            "--workers > 0 routes over serving workers, which are not ported yet "
-            "(ROADMAP queue 1, item 10)")
-    device = resolve_device(args.device)
     spec, vocab = _engine_spec(args)
     requests = build_requests(vocab, batch=args.batch,
                               prompt_len=args.prompt_len, gen=args.gen,
                               seed=args.seed)
-    metrics = run_local(spec, requests, device)
+    if args.workers > 0:
+        metrics = run_routed(spec, requests, workers=args.workers,
+                             transport=args.transport,
+                             publish_every=args.publish_every, device=args.device)
+    else:
+        metrics = run_local(spec, requests, resolve_device(args.device))
 
     prompt_toks = args.batch * args.prompt_len
     decode_toks = metrics["decoded"]
@@ -117,6 +169,9 @@ def main(argv=None) -> dict:
         metrics["prefill_tok_s"], decode_toks, metrics["decode_s"],
         metrics["decode_tok_s"],
     )
+    if "ttft_p50_s" in metrics:
+        logger.info("TTFT p50 %.1fms max %.1fms",
+                    metrics["ttft_p50_s"] * 1e3, metrics["ttft_max_s"] * 1e3)
     for req in requests:
         print(f"{req['id']}: {metrics['transcripts'][req['id']]}")
     return metrics

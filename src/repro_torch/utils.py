@@ -50,6 +50,22 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     return dev
 
 
+_cpu_math_warm = False
+
+
+def warm_cpu_math(x: torch.Tensor) -> None:
+    """Make this process's first call into PyTorch's CPU vector math (sin,
+    cos, ...) on a throwaway tensor, before one on ``x``. A process's first
+    such call can return other bits in whole 2048-element chunks when
+    several processes start at once (a first-use race in the library; every
+    later call agrees), and the stages that use these functions are held
+    bitwise across processes. A no-op off the CPU and after the first call."""
+    global _cpu_math_warm
+    if x.device.type == "cpu" and not _cpu_math_warm:
+        torch.sin(torch.zeros(1 << 15, dtype=torch.float64))
+        _cpu_math_warm = True
+
+
 # ---------------------------------------------------------------------------
 # tree <-> flat dict keyed by "/"-joined path strings
 # ---------------------------------------------------------------------------

@@ -212,3 +212,69 @@ def test_delta_stream_hop_with_k1_hints_sends_only_changed_chunks(dev, tmp_path)
         assert torch.equal(back["x"], new["x"]) and torch.equal(back["y"], new["y"])
     finally:
         sup.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet and the chaos matrix on the card
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_serving_workers_migrate_and_resume_with_k3_inside(dev, tmp_path):
+    """Two serving workers on ``cuda`` (a smoke-width model): K3 runs once a
+    layer of every admit inside the workers and never on adopt or resume; a
+    warmed-then-handed-off request keeps its transcript with zero
+    re-prefill, and so do the requests of a SIGKILLed worker resumed on the
+    survivor — all equal to an in-process engine's on the same card."""
+    from repro_torch.core.jobstore import JobStore
+    from repro_torch.fabric.supervisor import FabricSupervisor
+    from repro_torch.serve import ServeRouter, make_engine, run_reference, spawn_serve_worker
+
+    spec = "model:qwen3-1.7b:smoke:seed=0"
+    engine = make_engine(spec, device=dev)
+    reqs = [{"id": f"c{i}", "prompt": [int(t) for t in np.random.default_rng(i).integers(
+        0, engine.vocab, 40)], "max_new": 16} for i in range(4)]
+    want = run_reference(engine, reqs)
+    sup = FabricSupervisor(str(tmp_path / "s3"), str(tmp_path / "jobs"), device="cuda")
+    router = ServeRouter(jobstore=JobStore(tmp_path / "jobs"))
+    try:
+        for name in ("s0", "s1"):
+            h = spawn_serve_worker(sup, name, engine_spec=spec, publish_every=4)
+            router.add_worker(name, h.address)
+            router.call(name, "svc/kernel_launches", reset=True)
+        for req in reqs:
+            router.admit(req["prompt"], req["max_new"], req_id=req["id"])
+        counts = {n: router.call(n, "svc/kernel_launches") for n in ("s0", "s1")}
+        layers = engine.cfg.n_layers
+        assert {n: c["flash_attention"] for n, c in counts.items()} == {
+            "s0": 2 * layers, "s1": 2 * layers}
+        # the tensor-core kernel serves head dims 64 and 128 (the smoke config's is 16)
+        wgmma = engine.cfg.resolved_head_dim in (64, 128)
+        assert all(c["flash_attention_wgmma"] == (c["flash_attention"] if wgmma else 0)
+                   for c in counts.values())
+        for _ in range(3):
+            router.step()
+        victim = next(r for r in sorted(router.pending()) if router.assignment[r] == "s0")
+        router.warm(victim, "s1")
+        router.step()
+        event = router.migrate(victim, "s1", warm=False)
+        assert event["mode"] == "stream" and event["warm"]
+        for _ in range(3):
+            router.step()
+        assert sup.reclaim("s0", notice=False) < 0
+        assert router.recover("s0", "s1")
+        router.run_to_completion()
+        assert {r["id"]: router.transcript(r["id"]) for r in reqs} == want
+        status = router.call("s1", "svc/serve_status")["counters"]
+        assert status["prefills"] == 2 and status["migrations_in"] == 1
+        assert router.call("s1", "svc/kernel_launches") == counts["s1"]
+    finally:
+        router.close()
+        sup.shutdown()
+
+
+@pytest.mark.parametrize("cell_id", ["hop.before_restore:sigkill", "relay.mid_stream:kill_conn",
+                                     "hop_stream.accept:sigkill"])
+def test_chaos_tour_cell_on_cuda_workers(dev, cell_id):
+    from repro_torch.chaos import matrix
+
+    matrix.run_cell(next(c for c in matrix.CELLS if c["id"] == cell_id), device="cuda")

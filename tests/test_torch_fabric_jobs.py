@@ -4,8 +4,9 @@ Ported from ``tests/test_fabric.py``: a worker SIGKILLed mid-job is replaced
 and the job resumes from its last committed CMI to a product bit-identical
 to an uninterrupted run; the supervisor replaces a worker killed from
 outside; a lease held by a SIGKILLed worker expires on its own and a rival
-finishes the job bit-identically. The demo job is float64 tensors on the
-worker's device.
+finishes the job bit-identically; a worker that ignores SIGTERM is
+SIGKILLed when the supervisor's shutdown window runs out. The demo job is
+float64 tensors on the worker's device.
 """
 
 import os
@@ -17,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.chaos import faults
 from repro_torch.core.cmi import restore_cmi
 from repro_torch.core.jobstore import STATUS_CKPT, STATUS_FINISHED, JobStore
 from repro_torch.core.preemption import SpotSchedule
 from repro_torch.fabric import worker as fw
+from repro_torch.fabric.proxy import FabricClient
 from repro_torch.fabric.supervisor import FabricSupervisor
 from repro_torch.fabric.worker import EXIT_FINISHED
 
@@ -113,6 +116,62 @@ def test_supervisor_respawns_on_crash(fab):
     t.join(timeout=10)
     assert out["incarnations"] >= 2
     assert _product(js, job.job_id) == _in_process_product()
+
+
+def test_shutdown_escalates_on_sigterm_ignorers(fab, monkeypatch):
+    """shutdown() SIGTERMs the fleet, waits a bounded window, then SIGKILLs
+    the stragglers: a worker that ignores SIGTERM (REPRO_CHAOS_IGNORE_SIGTERM)
+    cannot wedge teardown, and a polite one exits cleanly."""
+    sup, js = fab
+    sup.spawn("polite", serve_only=True)
+    monkeypatch.setenv("REPRO_CHAOS_IGNORE_SIGTERM", "1")
+    sup.spawn("hung", serve_only=True)
+    procs = {n: h.proc for n, h in sup.workers.items()}
+    t0 = time.monotonic()
+    sup.shutdown(wait_s=1.5)
+    assert time.monotonic() - t0 < 60.0
+    assert sup.workers == {}
+    for proc in procs.values():
+        assert proc.poll() is not None  # everyone is dead and reaped
+    assert procs["hung"].returncode == -signal.SIGKILL
+
+
+def test_a_worker_serves_only_once_its_setup_has_registered(tmp_path, monkeypatch):
+    """run_node_process binds the address first but answers no call until
+    ``setup`` is done: a caller that connects while a worker still builds
+    (a model on the card takes seconds) reaches the worker's own services,
+    not a node without them."""
+    monkeypatch.setattr(faults, "_role", faults._role)  # set_role is undone
+    monkeypatch.setattr(faults, "_node", faults._node)
+    sock = str(tmp_path / "w.sock")
+    args = fw.build_parser().parse_args(
+        ["--name", "W", "--store", str(tmp_path / "s3"), "--socket", sock, "--device", "cpu"])
+    connected, answers = threading.Event(), []
+
+    def caller():
+        with FabricClient(("unix", sock)) as client:
+            connected.set()
+            answers.append(client.request("svc/probe"))
+
+    def setup(proc):
+        threading.Thread(target=caller, daemon=True).start()
+        assert connected.wait(30)  # the caller is in before the service is
+        time.sleep(0.3)
+        proc.node.register("svc/probe", lambda: {"node": proc.name})
+
+    def body(proc):
+        deadline = time.monotonic() + 30
+        while not answers and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return EXIT_FINISHED
+
+    old_sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        assert fw.run_node_process(args, body, setup=setup) == EXIT_FINISHED
+    finally:
+        signal.signal(signal.SIGTERM, old_sigterm)
+    assert answers == [{"node": "W"}]
+    assert not os.path.exists(sock)  # the server stopped after the body
 
 
 def test_lease_expiry_steal_after_holder_sigkill(fab):

@@ -25,6 +25,7 @@ from repro.serve.worker import ServeHost as JServeHost
 from repro_torch.checkpoint.fsck import fsck_store
 from repro_torch.core import DHP, NBS, JobStore
 from repro_torch.core.jobstore import STATUS_FINISHED
+from repro_torch.fabric.stream import StreamHopError
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import Model, params_from_numpy
 from repro_torch.serve import ServeHost, ToyEngine, make_engine, run_reference
@@ -222,13 +223,26 @@ def test_bf16_cmi_published_by_jax_host_resumes_here(tmp_path):
     assert len(got["x1"]) == req["max_new"] and got["x1"][:5] == jax_transcript(state)
 
 
-def test_fabric_half_raises():
+def test_fabric_half_raises(tmp_path):
+    """The migration services raise, and leave the request where it was,
+    when there is no request, no NodeServer or no destination; the fleet
+    itself is in test_torch_serve_fleet.py."""
+    node = NBS(tmp_path / "store").add_node("s0", device="cpu")
     host = ServeHost(make_engine(TOY))
-    for call in (lambda: host.warm("r", ("unix", "x")), lambda: host.handoff("r", ("unix", "x")),
-                 lambda: host.adopt("r", "tok"), lambda: host.drain(("unix", "x")),
-                 lambda: host.register(None)):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    host.register(node)
+    assert {svc for svc in node.services if svc.startswith("svc/serve_")} == {
+        f"svc/serve_{s}" for s in ("admit", "step", "status", "publish", "warm", "handoff",
+                                   "adopt", "resume", "drop", "drain")}
+    nowhere = ("unix", str(tmp_path / "nobody.sock"))
+    for call in (lambda: host.warm("r", nowhere), lambda: host.handoff("r", nowhere)):
+        with pytest.raises(KeyError, match="no active request"):
             call()
+    with pytest.raises(RuntimeError, match="NodeServer"):
+        host.adopt("r", "tok")
+    host.admit("r", [1, 2, 3], 4)
+    with pytest.raises(StreamHopError):
+        host.drain(nowhere)
+    assert "r" in host.active and host.counters["migrations_out"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -248,9 +262,10 @@ def test_cli_smoke_on_cpu_is_deterministic(capsys):
 
 
 def test_cli_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        launch_serve.main(["--device", "cpu", "--workers", "2"])
     if torch.cuda.is_available():
         return  # the default device is there: nothing to refuse
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--arch", "qwen3-1.7b", "--smoke"])
+    # a serving worker asked for the card where there is none exits non-zero
+    with pytest.raises(RuntimeError, match="died during startup"):
+        launch_serve.main(["--workers", "1", "--gen", "2", "--batch", "1"])
