@@ -55,11 +55,28 @@ with nvcc and prints one JSON line per phase:
   chaos      three cells of ``repro_torch.chaos.matrix`` with cuda workers
              (a ``hop.*`` kill, a relay kill, a SIGKILL at stream accept):
              each product bitwise the calm run's, ``hop_root`` empty
+  train      qwen3-1.7b trained at full width by the Fig. 7 launcher
+             (``python -m repro_torch.launch.train``, one process a run, so
+             its deterministic settings precede its first CUDA call): run B
+             reclaimed after step 2, resumed from its CMI in a new
+             incarnation and finished at step 4; run A the same 4 steps
+             uninterrupted, on the same job store. B's step-4 CMI has every
+             chunk digest equal to A's, and published into A's job (the
+             content-addressed store) writes 0 new bytes; step losses equal
+             step for step; jobs finished with 2 and 1 incarnations; K3 with
+             its lse in every layer's forward and remat recompute, all
+             tensor-core launches. Step seconds, tokens/s, model TFLOP/s,
+             publish and restart seconds and bytes, peak memory, free disk;
+             one profiled step in this process split by kernel group; K3
+             with lse against its plain version and against SDPA, the plain
+             attention backward timed, and a 2-layer float32 model's
+             gradients with K3 against plain attention under autograd
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
 made on its main paths (K1 and K2: the itinerary, publish and fabric phases,
 the fabric's counted inside the workers too; K3: the serve phase's
-``main`` and the serving workers' prefills), the nvidia-smi line, and last
+``main``, the serving workers' prefills and the two training runs, each
+counted inside its launcher process), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
 card, or a directory without the rest of the repository.
@@ -68,8 +85,10 @@ card, or a directory without the rest of the repository.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
+import os
 import re
 import shutil
 import signal
@@ -110,6 +129,22 @@ FLEET_PUBLISH_EVERY, WARM_AT_ROUND, HANDOFF_AFTER, KILL_AT_ROUND = 8, 8, 4, 20
 # the chaos phase: a hop.* kill, a relay kill and a SIGKILL at stream accept
 CHAOS_CELLS = ("hop.before_restore:sigkill", "relay.mid_stream:kill_conn",
                "hop_stream.accept:sigkill")
+# the train phase: qwen3-1.7b through the launcher, 4 steps of 4 x 2048
+# tokens, run B reclaimed after step 2 (8,192 tokens a step; the train state
+# is ~24.1 GB, so each publish writes that much)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_PREEMPT_AT = "qwen3-1.7b", 4, 2048, 4, 2
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
+              "--batch", str(TRAIN_BATCH), "--publish-every", str(TRAIN_STEPS), "--seed", "0",
+              "--device", "cuda", "--log-every", "1"]
+# The chip machine's disk takes at most 45 GiB of writes a call, deleted or
+# not; the earlier phases and the image take part of it, and the three
+# train-state CMIs of the two runs (~24.1 GB each at 28 layers) would take
+# 67 GiB. So the runs cut depth (never width) to the most layers whose three
+# CMIs fit this budget; the profiled step and the K3 checks, which write
+# nothing, run at full depth.
+TRAIN_WRITE_BUDGET = 24 * 2**30
+GRAD_TOL = 1e-4  # tests/test_torch_train.py's float32 gradient tolerance (of each max)
+LSE_TOL = 1e-4  # tests/test_torch_cuda.py's lse tolerance
 
 
 def emit(phase: str, **fields) -> None:
@@ -1238,6 +1273,346 @@ def run_chaos(dev) -> dict:
     return {"cells": cells, "device": str(dev)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training — the Fig. 7 launcher on qwen3-1.7b, preempted and resumed
+# ---------------------------------------------------------------------------
+
+
+def state_bytes(cfg) -> int:
+    """Bytes of the train state of ``cfg`` (params, master, moments)."""
+    from repro_torch.distributed.steps import state_specs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils import flatten_with_paths
+
+    flat, _ = flatten_with_paths(state_specs(cfg, AdamWConfig(moment_dtype=cfg.opt_moment_dtype)))
+    return sum(math.prod(s.shape) * torch.empty((), dtype=s.dtype).element_size()
+               for s in flat.values())
+
+
+def train_depth(cfg, free_bytes: int) -> int:
+    """The config's depth, or the most layers whose three train-state CMIs
+    (B's two, A's one) fit :data:`TRAIN_WRITE_BUDGET`, two of them (the
+    phase keeps two at a time) in ``free_bytes`` with 10 % to spare: a cut
+    of depth, never of width."""
+    for layers in range(cfg.n_layers, 0, -1):
+        nbytes = state_bytes(cfg.with_(n_layers=layers))
+        if 3 * nbytes <= TRAIN_WRITE_BUDGET and 2.2 * nbytes <= free_bytes:
+            return layers
+    raise RuntimeError(f"no depth of {cfg.name} fits {free_bytes} free bytes and "
+                       f"{TRAIN_WRITE_BUDGET} bytes of writes")
+
+
+
+def _launch_train(root: Path, name: str, store: Path, extra: list[str]) -> list[dict]:
+    """One launcher process on the card; its --metrics records."""
+    metrics, log = root / f"{name}.jsonl", root / f"{name}.log"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
+    with open(log, "w") as out:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
+                               *extra, "--store", str(store), "--metrics", str(metrics)],
+                              stdout=out, stderr=subprocess.STDOUT, env=env, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"train run {name} exited {proc.returncode}:\n"
+                           + log.read_text()[-4000:])
+    return [json.loads(ln) for ln in metrics.read_text().splitlines()]
+
+
+def _digests(man) -> dict:
+    return {path: [c.hash for c in entry.chunks] for path, entry in man.arrays.items()}
+
+
+def train_step_flops(cfg) -> int:
+    """Model FLOPs of one step: 6 N T, plus attention's 4 B H D pairs a
+    layer forward and twice that backward (12 in all)."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.window)
+    attn = 12 * TRAIN_BATCH * cfg.n_heads * cfg.resolved_head_dim * pairs
+    return 6 * cfg.param_count() * tokens + attn * cfg.n_layers
+
+
+def run_train(root: Path) -> dict:
+    """Run B (reclaimed at step 2, resumed) then run A (uninterrupted), one
+    launcher process each on one job store; B's step-2 CMI is dropped once
+    B has finished, so the disk holds two train states at a time."""
+    from repro_torch.checkpoint import SaveOptions, load_checkpoint, load_manifest, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import JobStore
+
+    root.mkdir(parents=True, exist_ok=True)
+    cfg = get_config(TRAIN_ARCH)
+    free = shutil.disk_usage(root).free
+    layers = train_depth(cfg, free)
+    extra = [] if layers == cfg.n_layers else ["--layers", str(layers)]
+    cfg = cfg.with_(n_layers=layers)
+    store = root / "jobs"
+    gc.collect()
+    torch.cuda.empty_cache()  # the launchers need the card's memory
+
+    t0 = time.perf_counter()
+    rec = {"B": _launch_train(root, "B", store, extra + ["--preempt-at", str(TRAIN_PREEMPT_AT)])}
+    wall = {"B": time.perf_counter() - t0}
+    js = JobStore(store)
+    end = {"B": rec["B"][-1]}
+    job = {"B": js.read_job(end["B"]["job_id"])}
+    stats = {cmi: load_manifest(js.cmi_root(job["B"].job_id), cmi).extra["stats"]
+             for cmi in (r["cmi"] for r in rec["B"] if r["event"] == "publish")}
+    js.gc_cmis(job["B"].job_id, keep_last=1)
+    t0 = time.perf_counter()
+    rec["A"] = _launch_train(root, "A", store, extra)
+    wall["A"] = time.perf_counter() - t0
+    end["A"] = rec["A"][-1]
+    job["A"] = js.read_job(end["A"]["job_id"])
+    man = {k: load_manifest(js.cmi_root(job[k].job_id), job[k].cmi) for k in "AB"}
+    stats.update({r["cmi"]: load_manifest(js.cmi_root(job["A"].job_id), r["cmi"]).extra["stats"]
+                  for r in rec["A"] if r["event"] == "publish"})
+
+    # B's final state, bitwise A's: equal chunk digests, and published into
+    # A's job it finds every chunk there
+    assert man["A"].step == man["B"].step == TRAIN_STEPS
+    assert _digests(man["A"]) == _digests(man["B"]), "resumed state differs from uninterrupted"
+    assert man["A"].arrays["rng"].dtype == "uint32"
+    t0 = time.perf_counter()
+    b_state, _ = load_checkpoint(js.cmi_root(job["B"].job_id), job["B"].cmi)
+    republished = save_checkpoint(js.cmi_root(job["A"].job_id), "republish-b", b_state,
+                                  step=TRAIN_STEPS, options=SaveOptions(cas=True))
+    republish_s = time.perf_counter() - t0
+    del b_state
+    assert republished.extra["stats"]["written_bytes"] == 0, republished.extra["stats"]
+
+    leases = {k: [h["event"] for h in job[k].history if h["event"].startswith("leased:")]
+              for k in "AB"}
+    assert job["A"].status == job["B"].status == "finished"
+    assert (len(leases["A"]), len(leases["B"])) == (1, 2), leases
+    assert end["A"]["incarnations"] == 1 and end["B"]["incarnations"] == 2
+    steps = {k: [(r["step"], r["loss"]) for r in rec[k] if r["event"] == "step"] for k in "AB"}
+    assert steps["A"] == steps["B"] and len(steps["A"]) == TRAIN_STEPS, steps
+    assert all(math.isfinite(loss) for _, loss in steps["A"])
+    starts = [(r["resumed"], r["step"]) for r in rec["B"] if r["event"] == "start"]
+    assert starts == [(False, 0), (True, TRAIN_PREEMPT_AT)], starts
+    per_run = 2 * TRAIN_STEPS * cfg.n_layers  # forward + remat recompute, every layer
+    for k in "AB":
+        launched = end[k]["launches"]
+        assert launched == {"flash_attention": per_run, "flash_attention_wgmma": per_run,
+                            "flash_attention_lse": per_run}, (k, launched)
+
+    step_s = {k: [r["s"] for r in rec[k] if r["event"] == "step"] for k in "AB"}
+    median_s = statistics.median(step_s["A"][1:])  # steps 2-4: step 1 warms up
+    flops = train_step_flops(cfg)
+    publish = {k: [{"step": r["step"], "s": r["s"], "cmi": r["cmi"],
+                    "written_bytes": stats[r["cmi"]]["written_bytes"],
+                    "objects_written": stats[r["cmi"]]["objects_written"]}
+                   for r in rec[k] if r["event"] == "publish"] for k in "AB"}
+    restart = next(r for r in rec["B"] if r["event"] == "start" and r["resumed"])
+    state_nbytes = sum(e.nbytes for e in man["B"].arrays.values())
+    return {
+        "config": {"arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+                   "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+                   "remat": cfg.remat, "loss_chunk": cfg.loss_chunk,
+                   "params": cfg.param_count(), "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+                   "steps": TRAIN_STEPS, "preempt_at": TRAIN_PREEMPT_AT},
+        "depth_cut": None if not extra else {"layers": layers, "of": get_config(TRAIN_ARCH).n_layers},
+        "disk_free_before_bytes": free, "state_bytes": state_nbytes,
+        "write_budget_bytes": TRAIN_WRITE_BUDGET,
+        "bitwise_equal": True, "losses": [loss for _, loss in steps["A"]],
+        "step_s": step_s, "step_s_median_2_4": median_s,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_s,
+        "model_flops_per_step": flops, "model_tflops": flops / median_s / 1e12,
+        "model_flops_share_of_bf16_peak": flops / median_s / BF16_FLOPS,
+        "publish": publish, "restart_s": restart["s"], "restart_bytes": state_nbytes,
+        "republish_b_into_a": {"written_bytes": 0, "s": republish_s,
+                               "chunks": republished.extra["stats"]["chunks"]},
+        "wall_s": wall, "peak_memory_bytes": {k: end[k]["peak_memory_bytes"] for k in "AB"},
+        "incarnations": {k: end[k]["incarnations"] for k in "AB"}, "leases": leases,
+        "launches": {k: end[k]["launches"] for k in "AB"},
+    }
+
+
+def profile_train(dev, layers: int) -> dict:
+    """Train steps at the phase's shape in this process (not deterministic
+    mode; nothing published): one to warm up, three timed (their median,
+    tokens/s, model TFLOP/s, peak memory), then one profiled: device time by
+    kernel group (kernels launched inside K3's backward and AdamW's named
+    ranges counted as those), the device's idle share, K3 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.steps import batch_to_device, make_init_fn, make_train_step
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config(TRAIN_ARCH).with_(n_layers=layers)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
+    state = make_init_fn(cfg, opt_cfg, seed=0, device=dev)()
+    step = make_train_step(cfg, opt_cfg, peak_lr=3e-3, warmup=5, total_steps=TRAIN_STEPS)
+    pipe = TokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = batch_to_device(pipe.batch_at({"data_step": 0, "seed": 0})[0], dev)
+    unprofiled = []
+    for _ in range(4):  # the first warms up
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        unprofiled.append(time.perf_counter() - t0)
+    before = flash_attention.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    k3_launches = flash_attention.launches - before
+    assert k3_launches == 2 * layers, k3_launches  # forward + remat recompute, every layer
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranges = {"flash_attention_backward": "attention backward (plain torch)",
+              "adamw_update": "optimizer (AdamW)"}
+    events = prof.events()
+    device = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.elapsed_us() for e in device)
+    k3_us = sum(e.time_range.elapsed_us() for e in device if "flash_fwd_kernel" in e.name)
+    k3_kernels = sum("flash_fwd_kernel" in e.name for e in device)
+    k3_wgmma = sum("flash_fwd_kernel_wgmma" in e.name for e in device)
+    assert k3_wgmma == k3_kernels > 0, (k3_wgmma, k3_kernels)  # all on the tensor cores
+    groups: dict[str, float] = {}
+    for e in events:
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        owner, anc = None, e
+        while anc is not None and owner is None:
+            owner, anc = ranges.get(anc.name), anc.cpu_parent
+        for kern in e.kernels:
+            group = owner or _kernel_group(kern.name)
+            groups[group] = groups.get(group, 0.0) + kern.duration
+    if groups.get("K3 flash_attention", 0.0) == 0.0:  # its ctypes launches have no op
+        groups["K3 flash_attention"] = k3_us
+    by_name: dict[str, float] = {}
+    for e in device:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+    rest = busy - sum(groups.values())
+    if abs(rest) > 1.0:
+        groups["not attributed"] = rest
+    step_s = statistics.median(unprofiled[1:])
+    flops = train_step_flops(cfg)
+    return {"n_layers": cfg.n_layers, "unprofiled_step_s": unprofiled,
+            "step_s_median_2_4": step_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "model_flops_per_step": flops, "model_tflops": flops / step_s / 1e12,
+            "model_flops_share_of_bf16_peak": flops / step_s / BF16_FLOPS,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3, "device_idle_share": 1 - busy / wall_us,
+            "kernel_launches": len(device), "k3_launches": k3_launches,
+            "k3_kernels_in_trace": k3_kernels, "k3_wgmma_kernels_in_trace": k3_wgmma,
+            "groups_ms": {k: v / 1e3 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": {k: v / 1e3 for k, v in
+                               sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}}
+
+
+def check_k3_training(dev) -> dict:
+    """K3 with lse against its plain version at the training shape; its
+    time with and without lse, SDPA's forward (saving its lse for a
+    backward) and backward, and the plain attention backward, at the serve
+    and the training shapes; then a 2-layer float32 model's gradients with
+    K3 against plain attention under autograd."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+    from repro_torch.utils import flatten_with_paths
+
+    cfg = get_config(TRAIN_ARCH)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    out = {}
+    for label, b in (("serve_shape", 1), ("train_shape", TRAIN_BATCH)):
+        rng = np.random.default_rng(b)
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            dev, torch.bfloat16) for shape in ((b, h, TRAIN_SEQ, d), (b, hkv, TRAIN_SEQ, d),
+                                              (b, hkv, TRAIN_SEQ, d), (b, h, TRAIN_SEQ, d)))
+        got, lse = flash_ops._forward(q, k, v, True, 0, None, True)
+        assert torch.equal(got, flash_ops.flash_attention(q, k, v, causal=True))
+        t0 = time.perf_counter()
+        want, want_lse = flash_ops.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        lse_err = float((lse - want_lse).abs().max())
+        assert lse_err <= LSE_TOL, lse_err
+        one_bf16_rounding(got, flash_ops.flash_attention_plain(q.float(), k.float(), v.float()))
+        t0 = time.perf_counter()
+        grads = flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout)
+        torch.cuda.synchronize()
+        bwd_first_ms = (time.perf_counter() - t0) * 1e3
+        assert all(torch.isfinite(g).all() for g in grads)
+        del grads
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+        pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, 0)
+        fwd_flops, bwd_flops = 4 * b * h * d * pairs, 10 * b * h * d * pairs
+        nbytes = (2 * b * h + 2 * b * hkv) * TRAIN_SEQ * d * 2
+        out[label] = {
+            "shape": f"q bf16[{b},{h},{TRAIN_SEQ},{d}], k/v bf16[{b},{hkv},{TRAIN_SEQ},{d}], causal",
+            "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+            "ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, 0, None, False), 20),
+            "lse_ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, 0, None, True), 20),
+            "plain_ms": plain_ms,
+            "library_sdpa_forward_with_lse_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True),
+                20),
+            "library_sdpa_backward_ms": cuda_ms(
+                lambda: torch.autograd.grad(sdpa, leaves, dout, retain_graph=True), 10),
+            "attention_backward_plain_ms": cuda_ms(
+                lambda: flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout), 3),
+            "attention_backward_plain_first_ms": bwd_first_ms,
+            "forward_bound_ms": max(fwd_flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "backward_bound_ms": max(bwd_flops / BF16_FLOPS,
+                                     (nbytes * 2 + b * h * TRAIN_SEQ * (d * 2 + 4))
+                                     / HBM_BYTES_PER_S) * 1e3,
+            "backward_bound_by": "operations",
+        }
+        del q, k, v, dout, got, lse, want, want_lse, leaves, sdpa
+        torch.cuda.empty_cache()
+
+    # the model's gradients with K3 (float32: the CUDA-core kernel) against
+    # plain attention differentiated by autograd, same weights and batch
+    small = cfg.with_(n_layers=2, dtype="float32")
+    model = Model(small)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, small.vocab, (1, TRAIN_SEQ + 1))).to(dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    def loss_and_grads():
+        flat, treedef = flatten_with_paths(params)
+        leaves = {key: t.detach().requires_grad_(True) for key, t in flat.items()}
+        loss = model.loss(treedef.unflatten(leaves), batch)
+        return loss, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    before = flash_ops.flash_attention.lse_launches
+    loss, grads = loss_and_grads()
+    k3_runs = flash_ops.flash_attention.lse_launches - before
+    assert k3_runs == 2 * small.n_layers, k3_runs
+    kernel = attn.flash_attention
+    attn.flash_attention = flash_ops.flash_attention_plain  # autograd through plain torch
+    try:
+        want_loss, want = loss_and_grads()
+    finally:
+        attn.flash_attention = kernel
+    worst = {key: float((g - want[key]).abs().max() / want[key].abs().max().clamp(min=1e-30))
+             for key, g in grads.items()}
+    assert max(worst.values()) <= GRAD_TOL, worst
+    out["model_gradients"] = {
+        "config": "qwen3-1.7b widths, 2 layers, float32, B1 S2048", "loss": float(loss.detach()),
+        "loss_plain_attention": float(want_loss.detach()), "k3_launches": k3_runs,
+        "max_rel_err": max(worst.values()), "worst_leaf": max(worst, key=worst.get),
+        "tol": f"{GRAD_TOL} of each gradient's max"}
+    del params, grads, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card here; nothing was run", file=sys.stderr)
@@ -1358,6 +1733,21 @@ def main() -> int:
         emit("serve_fleet", **fleet)
         del fleet
         emit("chaos", **run_chaos(dev))
+
+        # the training path: each launcher process counts its own K3
+        # launches from 0 and reports them at its end
+        train = run_train(work / "train")
+        for run in ("A", "B"):
+            launches["flash_attention"] += train["launches"][run]["flash_attention"]
+        by_path["train"] = {"flash_attention": sum(train["launches"][run]["flash_attention"]
+                                                   for run in ("A", "B"))}
+        from repro_torch.configs import get_config
+
+        n_layers = get_config(TRAIN_ARCH).n_layers  # full depth: these write nothing
+        torch.cuda.reset_peak_memory_stats(dev)
+        train["full_depth_step"] = profile_train(dev, n_layers)
+        train["k3"] = check_k3_training(dev)
+        emit("train", **train)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1382,7 +1772,8 @@ def main() -> int:
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "kernel_ms": k["ms"], "kernel_only_ms": k["kernel_only_ms"],
                      "shape": k["shape"], "parity": parity[name],
-                     **({"sass_per_pair": k["sass_per_pair"]} if "sass_per_pair" in k else {})})
+                     **({"sass_per_pair": k["sass_per_pair"]} if "sass_per_pair" in k else {}),
+                     **({"training": train["k3"]} if name == "flash_attention" else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,6 +27,7 @@ from repro_torch.checkpoint.cas import (  # noqa: F401
 from repro_torch.checkpoint.fsck import fsck_store  # noqa: F401
 from repro_torch.checkpoint.serializer import (  # noqa: F401
     SaveOptions,
+    load_arrays,
     load_checkpoint,
     load_manifest,
     save_checkpoint,

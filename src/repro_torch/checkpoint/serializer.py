@@ -1246,3 +1246,31 @@ def load_checkpoint(
         return decode_structure(manifest.structure, arrays), manifest
     finally:
         reader.close()
+
+
+def load_arrays(
+    store_root: str | os.PathLike,
+    name: str,
+    paths: list[str] | None = None,
+    *,
+    device: torch.device | str | None = None,
+    shardings: Any = None,
+    validate_crc: bool = True,
+    io_threads: int = 0,
+) -> dict[str, torch.Tensor]:
+    """Partial restore: just the named arrays (all, for ``paths=None``) as a
+    flat ``{path: tensor}`` dict, on ``device`` (None: host CPU tensors).
+    Only the chunks of the named arrays are read. ``shardings`` (the
+    reference's sharded restore) comes with the multi-card slice."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "sharded partial restore is not ported yet: it comes with the multi-card "
+            "slice (ROADMAP queue 1, item 11: distributed/*); pass device=")
+    store_root = Path(store_root)
+    manifest = load_manifest(store_root, name)
+    reader = _ChunkReader(store_root, name, validate_crc, io_threads)
+    try:
+        return {apath: _materialize(manifest.arrays[apath], reader, device)
+                for apath in (paths if paths is not None else list(manifest.arrays))}
+    finally:
+        reader.close()

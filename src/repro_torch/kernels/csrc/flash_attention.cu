@@ -7,7 +7,12 @@
 // the PV product in float32; keys at positions >= Sk masked, causal
 // kpos <= qpos and window kpos > qpos - window on absolute positions from 0
 // (top-left aligned when Sq != Sk); a row with no visible key is exactly 0;
-// the output in q's dtype.
+// the output in q's dtype. Where the caller asks (the training forward),
+// each kernel also writes the float32 log-sum-exp of each row's scaled
+// scores, lse = m + log l (+inf for a row with no visible key), (B, H, Sq)
+// dense: the statistics the Pallas kernel keeps as its m and l outputs, and
+// what the backward pass needs to rebuild P = exp(s - lse). A null lse
+// pointer skips the store, so the serve path's work is unchanged.
 //
 // What bounds it on this card: arithmetic. Over the visible (q, k) pairs the
 // function does 4 * D operations each (QK^T and PV); at the serve path's
@@ -92,6 +97,7 @@ struct Params {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   float scale;
   int causal, window;
+  float* lse;  // (B, H, Sq) float32, or null
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -245,6 +251,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.sq) continue;
+    // m and l are the whole row's in each of its 16 lanes
+    if (p.lse != nullptr && tx == 0)
+      p.lse[static_cast<long long>(bh) * p.sq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(0x7f800000);
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -280,6 +290,7 @@ constexpr int kConsumers = 256;     // threads that release each k and v tile
 struct WgmmaArgs {
   int h, hkv, sq, sk, causal, window;
   float scale_log2;  // softmax scale * log2(e): exp(x * scale) = exp2(x * scale_log2)
+  float* lse;        // (B, H, Sq) float32, or null
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -633,6 +644,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    if (a.lse != nullptr && (lane & 3) == 0) {
+      // m is in log2 units of the scaled score: lse = ln 2 * (m + log2 l)
+      float* const lse_bh = a.lse + static_cast<long long>(bh) * a.sq;
+      const float inf = __int_as_float(0x7f800000);
+      if (qpos0 < a.sq) lse_bh[qpos0] = l0 > 0.f ? (m0 + log2f(l0)) * 0.6931471805599453f : inf;
+      if (qpos1 < a.sq) lse_bh[qpos1] = l1 > 0.f ? (m1 + log2f(l1)) * 0.6931471805599453f : inf;
+    }
     // staged in this warpgroup's own q boxes (its QK^T reads are done), in
     // the swizzled layout the output map's boxes have
     uint8_t* const stage = gbase + wg * QW_BYTES;
@@ -725,19 +743,21 @@ int launch_wgmma(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap
 }  // namespace
 
 // q, k, v, o: element strides (batch, head, seq) each, the last dimension
-// dense. dtype 0 = float32, 1 = bfloat16. Returns cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments the kernel does not take).
+// dense. dtype 0 = float32, 1 = bfloat16. lse: a dense float32 (B, H, Sq)
+// output for each row's log-sum-exp, or null. Returns cudaGetLastError()
+// (or cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int b,
                                    int h, int hkv, int sq, int sk, int d, long long q_sb,
                                    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
                                    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
                                    long long o_sb, long long o_sh, long long o_ss, float scale,
-                                   int causal, int window, int dtype, void* stream) {
+                                   int causal, int window, int dtype, float* lse,
+                                   void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return 0;
   if (hkv <= 0 || h % hkv || d <= 0 || d > 128 || sk < 0 || (sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, o, b, h, hkv, sq, sk, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
-                 v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, window};
+                 v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, window, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return d <= 64 ? launch<float, 64>(p, s) : launch<float, 128>(p, s);
   if (dtype == 1) return d <= 64 ? launch<__nv_bfloat16, 64>(p, s) : launch<__nv_bfloat16, 128>(p, s);
@@ -754,7 +774,7 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
                                          long long k_sb, long long k_sh, long long k_ss,
                                          long long v_sb, long long v_sh, long long v_ss,
                                          long long o_sb, long long o_sh, long long o_ss, float scale,
-                                         int causal, int window, void* stream) {
+                                         int causal, int window, float* lse, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return 0;
   if (hkv <= 0 || h % hkv || (d != 64 && d != 128) || sk < 0 || (sq + kWBQ - 1) / kWBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -770,7 +790,7 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const WgmmaArgs args{h, hkv, sq, sk, causal, window,
-                       static_cast<float>(static_cast<double>(scale) * 1.4426950408889634)};
+                       static_cast<float>(static_cast<double>(scale) * 1.4426950408889634), lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return d == 64 ? launch_wgmma<64>(mq, mk, mv, mo, args, b, sq, s)
                  : launch_wgmma<128>(mq, mk, mv, mo, args, b, sq, s);

@@ -1,4 +1,6 @@
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    FlashAttention,
     flash_attention,
+    flash_attention_backward_plain,
     flash_attention_plain,
 )

@@ -1,4 +1,4 @@
-"""K3: forward GQA flash attention, causal and/or sliding window.
+"""K3: GQA flash attention, causal and/or sliding window, and its gradient.
 
 Port of the Pallas kernel ``repro/kernels/flash_attention`` (wrapper
 ``ops.flash_attention``, kernel ``flash_attention_padded``, oracle
@@ -16,6 +16,14 @@ kernel as bf16 hi + lo halves, two PV products). The kernels mask the
 ragged edges themselves, so nothing is padded, and read q, k and v through
 their strides: ``(B, S, H, D)`` activations transposed to the
 ``(B, H, S, D)`` layout cost no copy.
+
+Under autograd (an input that requires grad, grad mode on) the call goes
+through :class:`FlashAttention`: the forward is the same kernel, asked also
+for each row's float32 log-sum-exp (the statistics the Pallas kernel keeps
+as its m and l outputs), and the backward is
+:func:`flash_attention_backward_plain`, plain PyTorch in float32. The JAX
+package has no backward kernel either: it differentiates its plain
+``blockwise_attention``.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_Q = 512  # the plain version's tiles (the reference's defaults)
 DEFAULT_BLOCK_K = 512
+# float32 values in one group of the backward's (G, Sq, Sk) score blocks:
+# 512 MiB, so at qwen3-1.7b's training shape (B 4, 8 kv heads of G 2, S
+# 2048) the backward runs in two groups
+BACKWARD_BLOCK_ELEMENTS = 1 << 27
 KERNEL_BLOCK_Q = 64  # the CUDA-core kernel's q tile (the tensor-core kernel's is 128)
 KERNEL_MAX_HEAD_DIM = 128
 WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims the tensor-core kernel takes
@@ -50,6 +62,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
 
 
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32, or float64 for float64 inputs (``gradcheck``'s)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _visible(sq: int, sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: the (q, k) pairs the mask keeps."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def flash_attention_plain(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
@@ -60,26 +89,33 @@ def flash_attention_plain(
     scale: float | None = None,
     block_q: int = DEFAULT_BLOCK_Q,
     block_k: int = DEFAULT_BLOCK_K,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """K3's arithmetic in PyTorch: float32 online softmax over
     ``block_q`` x ``block_k`` tiles, fully masked tiles skipped. Never
-    holds more than one score tile, so it runs at Sq = Sk = 32768."""
+    holds more than one score tile, so it runs at Sq = Sk = 32768.
+
+    With ``return_lse`` also each row's log-sum-exp of its scaled scores,
+    (B, H, Sq) float32 (+inf for a row with no visible key): returns
+    ``(out, lse)``. float64 inputs compute in float64."""
     _check(q, k, v)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = h // hkv
+    ct = _compute_dtype(q.dtype)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     block_q = min(block_q, max(16, sq))
     block_k = min(block_k, max(16, sk))
-    qf = q.reshape(b, hkv, g, sq, d).float()
-    kf, vf = k.float(), v.float()
-    out = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=q.device)
+    qf = q.reshape(b, hkv, g, sq, d).to(ct)
+    kf, vf = k.to(ct), v.to(ct)
+    out = torch.empty((b, hkv, g, sq, d), dtype=ct, device=q.device)
+    lse = torch.empty((b, hkv, g, sq, 1), dtype=ct, device=q.device) if return_lse else None
     for q0 in range(0, sq, block_q):
         q1 = min(sq, q0 + block_q)
         qb = qf[:, :, :, q0:q1]  # (B, Hkv, G, tq, D)
-        m = torch.full(qb.shape[:-1] + (1,), float("-inf"), device=q.device)
+        m = torch.full(qb.shape[:-1] + (1,), float("-inf"), dtype=ct, device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
+        acc = torch.zeros(qb.shape, dtype=ct, device=q.device)
         qpos = torch.arange(q0, q1, device=q.device)[:, None]
         for k0 in range(0, sk, block_k):
             # tile skip, as the Pallas kernel's (tiles of the padded grid)
@@ -105,7 +141,61 @@ def flash_attention_plain(
             acc = acc * corr + torch.matmul(p, vf[:, :, None, k0:k1])
             m = m_new
         out[:, :, :, q0:q1] = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(b, h, sq, d).to(q.dtype)
+        if return_lse:
+            lse[:, :, :, q0:q1] = torch.where(l > 0, m + torch.log(l), float("inf"))
+    out = out.reshape(b, h, sq, d).to(q.dtype)
+    return (out, lse.reshape(b, h, sq)) if return_lse else out
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,
+    o: torch.Tensor,  # (B, H, Sq, D): the forward's output
+    lse: torch.Tensor,  # (B, H, Sq): the forward's row log-sum-exp
+    do: torch.Tensor,  # (B, H, Sq, D): the output's gradient
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of K3 in float32 (float64 for float64 inputs), in the
+    inputs' dtypes. P = exp(scale q k^T - lse) under the mask, dV = P^T dO,
+    dS = P * (dO V^T - rowsum(dO * O)), dQ = scale dS K, dK = scale dS^T Q;
+    a kv head's dK and dV sum over its G query heads. Runs over groups of
+    (batch, kv head) pairs whose (G, Sq, Sk) score blocks together hold at
+    most :data:`BACKWARD_BLOCK_ELEMENTS` values (two such blocks live at a
+    time)."""
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    ct = _compute_dtype(q.dtype)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    n = b * hkv
+    qf, of, dof = (t.reshape(n, g, sq, d) for t in (q, o, do))
+    kf, vf = (t.reshape(n, sk, d) for t in (k, v))
+    lsef = lse.reshape(n, g, sq, 1)
+    hidden = ~_visible(sq, sk, causal, window, q.device)
+    dq = torch.empty((n, g, sq, d), dtype=ct, device=q.device)
+    dk = torch.empty((n, sk, d), dtype=ct, device=q.device)
+    dv = torch.empty((n, sk, d), dtype=ct, device=q.device)
+    step = max(1, BACKWARD_BLOCK_ELEMENTS // max(1, g * sq * sk))
+    for i0 in range(0, n, step):
+        sl = slice(i0, i0 + step)
+        qc, oc, doc = (t[sl].to(ct) for t in (qf, of, dof))
+        kc, vc = (t[sl].to(ct)[:, None] for t in (kf, vf))  # (n', 1, Sk, D)
+        p = torch.matmul(qc, kc.transpose(-1, -2))  # (n', G, Sq, Sk)
+        p.mul_(scale).sub_(lsef[sl].to(ct)).exp_().masked_fill_(hidden, 0.0)
+        dv[sl] = torch.matmul(p.transpose(-1, -2), doc).sum(1)
+        ds = torch.matmul(doc, vc.transpose(-1, -2))  # dP
+        ds.sub_((doc * oc).sum(-1, keepdim=True)).mul_(p)
+        del p
+        dq[sl] = torch.matmul(ds, kc).mul_(scale)
+        dk[sl] = torch.matmul(ds.transpose(-1, -2), qc).mul_(scale).sum(1)
+        del ds
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.reshape(b, hkv, sk, d).to(k.dtype),
+            dv.reshape(b, hkv, sk, d).to(v.dtype))
 
 
 @functools.cache
@@ -115,7 +205,8 @@ def _kernel(entry: str):
     fn = getattr(_build.load("flash_attention"), entry)
     dtype = [ctypes.c_int] if entry == "flash_attention_fwd" else []
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + dtype + [ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + dtype
+                   + [ctypes.c_void_p, ctypes.c_void_p])  # lse (or None), stream
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,22 +221,13 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def flash_attention(
-    q: torch.Tensor,  # (B, H, Sq, D)
-    k: torch.Tensor,  # (B, Hkv, Sk, D)
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: int = 0,
-    scale: float | None = None,
-) -> torch.Tensor:
-    """(B, H, Sq, D) in q's dtype — the plain version (512 x 512 tiles) on
-    the CPU; on CUDA the tensor-core kernel (128 x 64 tiles) for bf16 at
-    D = 64 or 128, the CUDA-core kernel (64 x 64 tiles) otherwise."""
-    _check(q, k, v)
-    window = int(window)
+def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
+    """``(out, lse or None)``: the plain version for CPU tensors, else the
+    CUDA kernel (raising on what it does not take)."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+        res = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
+                                    return_lse=with_lse)
+        return res if with_lse else (res, None)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention needs q, k, v on one CUDA device or on the CPU, "
                          f"got {q.device} {k.device} {v.device}")
@@ -164,6 +246,7 @@ def flash_attention(
     if wgmma:
         q, k, v = (_tma_ready(t) for t in (q, k, v))
     out = torch.empty_like(q)  # keeps q's dense layout: (B,S,H,D) storage stays so
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if out.numel():
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
@@ -172,6 +255,7 @@ def flash_attention(
         entry = "flash_attention_fwd_wgmma" if wgmma else "flash_attention_fwd"
         if not wgmma:
             args.append(_DTYPES[q.dtype])
+        args.append(lse.data_ptr() if with_lse else None)
         with torch.cuda.device(q.device):  # the launch goes to the current device
             err = _kernel(entry)(*args, torch.cuda.current_stream(q.device).cuda_stream)
         if err:
@@ -179,8 +263,52 @@ def flash_attention(
         flash_attention.launches += 1
         if wgmma:
             flash_attention.wgmma_launches += 1
-    return out
+        if with_lse:
+            flash_attention.lse_launches += 1
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 under autograd: the forward kernel with ``lse``, the backward
+    :func:`flash_attention_backward_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale):
+        out, lse = _forward(q, k, v, causal, window, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # a named range, so a profile can attribute the backward's kernels
+        with torch.profiler.record_function("flash_attention_backward"):
+            dq, dk, dv = flash_attention_backward_plain(
+                q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """(B, H, Sq, D) in q's dtype — the plain version (512 x 512 tiles) on
+    the CPU; on CUDA the tensor-core kernel (128 x 64 tiles) for bf16 at
+    D = 64 or 128, the CUDA-core kernel (64 x 64 tiles) otherwise. Where an
+    input requires grad (and grad mode is on), through :class:`FlashAttention`."""
+    _check(q, k, v)
+    window = int(window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bool(causal), window, scale)
+    return _forward(q, k, v, causal, window, scale, False)[0]
 
 
 flash_attention.launches = 0  # kernel launches since the last reset, either kernel
 flash_attention.wgmma_launches = 0  # of those, the tensor-core kernel's
+flash_attention.lse_launches = 0  # of those, the ones that also wrote lse (training)

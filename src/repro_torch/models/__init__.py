@@ -2,8 +2,8 @@
 
 Params are plain nested dicts with layers stacked on a leading ``L`` axis,
 with the JAX package's paths and shapes (``repro/models``), so the serve
-CMIs of both packages are interchangeable. Prefill attention runs K3
-(``repro_torch.kernels.flash_attention``).
+CMIs of both packages are interchangeable. Prefill and training attention
+run K3 (``repro_torch.kernels.flash_attention``).
 """
 
-from repro_torch.models.model import Model, params_from_numpy  # noqa: F401
+from repro_torch.models.model import Model, TensorSpec, input_specs, params_from_numpy  # noqa: F401

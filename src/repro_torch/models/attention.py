@@ -116,7 +116,8 @@ def _cache_from(k: torch.Tensor, v: torch.Tensor, s: int, s_max: int, cfg: ArchC
 
 def gqa_train(p, x, cfg: ArchConfig, *, causal: bool = True, use_rope: bool = True):
     """Self-attention (B, S, E) -> (B, S, E) through K3: the training
-    forward's attention (``forward_train`` comes with the training slice)."""
+    forward's attention. Under autograd K3 also writes its row statistics
+    and its gradient is the plain backward (``FlashAttention``)."""
     q, k, v = _rope_qkv(p, x, cfg, use_rope)
     return _attend(p, q, k, v, cfg, causal)
 

@@ -3,8 +3,9 @@
 Port of the JAX package's ``repro/models/layers.py`` with its float32
 upcasts kept: norms and RoPE compute in float32 and round once to the
 activation dtype, and the unembedding returns float32 logits from bf16
-operands. ``softmax_xent_chunked``, ``layernorm`` and ``gelu_mlp`` come
-with the training and encoder slices.
+operands. ``softmax_xent_chunked`` keeps the reference's float32 logits
+per sequence chunk, each chunk recomputed in the backward pass.
+``layernorm`` and ``gelu_mlp`` come with the encoder slice.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -84,7 +86,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    return emb[tokens]
+    """Rows of ``emb``; the backward sums each token's gradient into its row
+    in a fixed order (deterministic on the card)."""
+    return F.embedding(tokens, emb)
 
 
 def unembed_logits(h: torch.Tensor, emb_out: torch.Tensor) -> torch.Tensor:
@@ -103,6 +107,43 @@ def unembed_logits(h: torch.Tensor, emb_out: torch.Tensor) -> torch.Tensor:
         blk = emb_out[r0:r0 + UNEMBED_BLOCK_ROWS].float()
         out[..., r0:r0 + blk.shape[0]] = torch.matmul(hf, blk.T)
     return out
+
+
+def _xent_chunk(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor):
+    """(sum of -log p(label), count) over one chunk's valid labels, from
+    float32 logits: the bf16 operands widened exactly and multiplied in
+    float32 (the reference's ``preferred_element_type=float32``)."""
+    logits = torch.matmul(h.float(), emb_out.float().T)  # (B, chunk, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.clamp(labels, 0, logits.shape[-1] - 1)
+    gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+    valid = (labels >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def softmax_xent_chunked(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
+                         chunk: int) -> torch.Tensor:
+    """Mean next-token loss with float32 logits made only per S-chunk.
+
+    h (B, S, E) final hidden states, emb_out (V, E), labels (B, S) with -1
+    ignored. S is padded to a multiple of the chunk with ignored labels;
+    each chunk runs under ``torch.utils.checkpoint``, as the reference's
+    under ``jax.checkpoint``, so the backward recomputes one chunk's
+    (B, chunk, V) logits at a time instead of keeping all of them.
+    """
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = cnt = None
+    for i in range(nc):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t, c = checkpoint(_xent_chunk, h[:, sl], emb_out, labels[:, sl], use_reentrant=False)
+        tot, cnt = (t, c) if tot is None else (tot + t, cnt + c)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -4,6 +4,7 @@ Port of the JAX package's ``repro/models/model.py``::
 
     model = Model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
+    loss = model.loss(params, batch)                        # 0-d float32
     logits, caches = model.prefill(params, batch, s_max)    # (B, V) float32
     logits, caches = model.decode(params, caches, tok, pos) # (B, 1, V) float32
     caches = model.init_cache(batch, s_ctx, device)         # zeros
@@ -13,8 +14,9 @@ Parameters are a plain nested dict with the reference's paths and shapes
 q_norm, k_norm}, ffn/{wg, wu, wd}}``, stacked on L), and the caches are
 ``{"g0": {"k", "v"}: (L, B, S, KV, Dh)}``, so the serve CMI of a request
 published by one package resumes in the other. :func:`params_from_numpy`
-carries the JAX package's parameters across. ``loss`` and ``input_specs``
-come with the training slice.
+carries the JAX package's parameters across. :func:`input_specs` gives the
+inputs of a shape as :class:`TensorSpec` stand-ins (the reference's
+``ShapeDtypeStruct``).
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import embed, pdtype, unembed_logits
+from repro_torch.models.layers import embed, pdtype, softmax_xent_chunked, unembed_logits
 from repro_torch.utils import flatten_with_paths, numpy_to_tensor
 
 
@@ -59,6 +61,15 @@ class Model:
     def _unembed(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
 
+    # -- train --------------------------------------------------------------
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
+        (B, S) int; label -1 ignored), a 0-d float32 tensor."""
+        cfg = self.cfg
+        x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
+        h = tf.forward_train(params, x, cfg)
+        return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk)
+
     # -- serve --------------------------------------------------------------
     def prefill(self, params, batch, s_max: int):
         """Returns (last-position logits (B, V) float32, caches)."""
@@ -89,14 +100,34 @@ class Model:
             {k: torch.zeros(s.shape, dtype=s.dtype, device=device) for k, s in flat.items()})
 
 
-def params_from_numpy(tree: Any, cfg: ArchConfig, device) -> dict[str, Any]:
-    """The JAX package's parameter tree (numpy leaves; bf16 as ml_dtypes
-    arrays) as the port's parameters on ``device``. Every path, shape and
-    dtype is checked against the port's own ``init``."""
+def input_specs(cfg: ArchConfig, shape: InputShape) -> dict[str, Any]:
+    """Model inputs for (cfg, shape) as TensorSpecs, nothing allocated.
+
+    train:   tokens/labels (B, S)
+    prefill: tokens (B, S)
+    decode:  tokens (B, 1), pos scalar, caches for a seq_len context
+    """
+    tf.check_supported(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        return {"tokens": TensorSpec((b, s), i32), "labels": TensorSpec((b, s), i32)}
+    if shape.kind == "prefill":
+        return {"tokens": TensorSpec((b, s), i32)}
+    if shape.kind == "decode":
+        return {"tokens": TensorSpec((b, 1), i32), "pos": TensorSpec((), i32),
+                "caches": Model(cfg).cache_struct(b, s)}
+    raise ValueError(shape.kind)
+
+
+def tree_from_numpy(tree: Any, specs: Any, device) -> Any:
+    """A tree of the JAX package's (numpy leaves; bf16 as ml_dtypes arrays)
+    as tensors on ``device``, with every path, shape and dtype checked
+    against ``specs`` (a TensorSpec tree)."""
     flat, _ = flatten_with_paths(tree)
-    want, treedef = flatten_with_paths(Model(cfg).param_specs())
+    want, treedef = flatten_with_paths(specs)
     if sorted(flat) != sorted(want):
-        raise ValueError(f"parameter paths differ: only given {sorted(set(flat) - set(want))}, "
+        raise ValueError(f"tree paths differ: only given {sorted(set(flat) - set(want))}, "
                          f"only expected {sorted(set(want) - set(flat))}")
     out = {}
     for path, spec in want.items():
@@ -106,3 +137,9 @@ def params_from_numpy(tree: Any, cfg: ArchConfig, device) -> dict[str, Any]:
                              f"expected {spec.shape} {spec.dtype}")
         out[path] = t
     return treedef.unflatten(out)
+
+
+def params_from_numpy(tree: Any, cfg: ArchConfig, device) -> dict[str, Any]:
+    """The JAX package's parameter tree as the port's parameters on
+    ``device``, checked against the port's own ``init``."""
+    return tree_from_numpy(tree, Model(cfg).param_specs(), device)

@@ -6,19 +6,27 @@ a leading ``L`` axis, as in the reference; each ``lax.scan`` over that axis
 is a Python loop over its slices here. ``block_groups`` is the reference's
 grouping, so parameter paths and cache paths are the same in both
 packages. The other mixers (mla, hybrid, mlstm) and the MoE FFN raise
-``NotImplementedError`` (ROADMAP queue 1, item 11); ``forward_train``
-comes with the training slice.
+``NotImplementedError`` (ROADMAP queue 1, item 11).
+
+The training forward's layer-scan remat maps onto ``torch.utils.checkpoint``
+per layer, after the reference's ``_REMAT_POLICIES``: ``nothing`` keeps no
+activation of a layer and recomputes it in the backward pass, ``dots``
+keeps the matrix products' outputs and recomputes the rest, ``full`` keeps
+everything (no checkpoint).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import init_dense, init_embedding, pdtype, rmsnorm, swiglu
+from repro_torch.utils import flatten_with_paths
 
 _LATER = "is not ported yet (ROADMAP queue 1, item 11: models and training)"
 
@@ -103,6 +111,12 @@ def _ffn(pl, h, cfg: ArchConfig):
     return swiglu(rmsnorm(h, pl["ln2"], cfg.norm_eps), f["wg"], f["wu"], f["wd"])
 
 
+def block_train(pl, x, cfg: ArchConfig):
+    """One layer of the training forward."""
+    h = x + attn.gqa_train(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg)
+    return h + _ffn(pl, h, cfg)
+
+
 def block_prefill(pl, x, cfg: ArchConfig, s_max: int):
     """One layer of the prefill; also returns its decode cache."""
     y, cache = attn.gqa_prefill(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg, s_max)
@@ -119,6 +133,52 @@ def block_decode(pl, x, cache, pos: int, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 # stacks: a loop over each group's layers
 # ---------------------------------------------------------------------------
+
+
+# the outputs the "dots" policy keeps: matrix products (torch.matmul lowers
+# to these), as jax.checkpoint_policies.checkpoint_dots keeps dot_generals
+_DOT_OPS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if any(op is getattr(torch.ops.aten, name).default for name in _DOT_OPS):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under ``cfg.remat``'s policy (see the module docstring)."""
+    if cfg.remat == "full":
+        return fn
+    if cfg.remat == "nothing":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
+def _unbind_layers(gp: dict, n: int) -> list[dict]:
+    """Each layer's parameters as views of the stacked leaves, from one
+    ``unbind`` per leaf: the backward stacks the layers' gradients once,
+    where indexing each layer would add L full-size gradients."""
+    flat, treedef = flatten_with_paths(gp)
+    cols = {path: torch.unbind(leaf, 0) for path, leaf in flat.items()}
+    return [treedef.unflatten({path: col[i] for path, col in cols.items()}) for i in range(n)]
+
+
+def forward_train(params, x, cfg: ArchConfig):
+    """x: (B, S, E) embedded inputs -> final hidden (B, S, E)."""
+    body = _remat(functools.partial(block_train, cfg=cfg), cfg)
+    for gname, n, _, _ in block_groups(cfg):
+        for pl in _unbind_layers(params["blocks"][gname], n):
+            x = body(pl, x)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
 def forward_prefill(params, x, cfg: ArchConfig, s_max: int):

@@ -100,46 +100,53 @@ class TreeDef:
         return len(self.paths)
 
     def unflatten(self, flat: dict[str, Any]) -> Any:
-        def rec(node: Any, path: str) -> Any:
-            if node is None:
-                return None
-            kids = _children(node)
-            if kids is None:
-                key = path or "."
-                if key not in flat:
-                    raise KeyError(f"missing leaf {key!r} during unflatten")
-                return flat[key]
-            built = {k: rec(v, f"{path}/{k}" if path else k) for k, v in kids}
-            if isinstance(node, dict):
-                return type(node)((k, built[str(k)]) for k in node)
-            if _is_namedtuple(node):
-                return type(node)(*(built[f] for f in node._fields))
-            items = [built[str(i)] for i in range(len(node))]
-            return tuple(items) if isinstance(node, tuple) else items
+        return _unflatten(self._tree, "", flat)
 
-        return rec(self._tree, "")
+
+# The walks are module-level functions, not closures that call themselves: a
+# self-referencing closure is a reference cycle, and it would keep the
+# leaves it holds (a train state's tensors on the card) alive until the
+# garbage collector runs.
+
+
+def _unflatten(node: Any, path: str, flat: dict[str, Any]) -> Any:
+    if node is None:
+        return None
+    kids = _children(node)
+    if kids is None:
+        key = path or "."
+        if key not in flat:
+            raise KeyError(f"missing leaf {key!r} during unflatten")
+        return flat[key]
+    built = {k: _unflatten(v, f"{path}/{k}" if path else k, flat) for k, v in kids}
+    if isinstance(node, dict):
+        return type(node)((k, built[str(k)]) for k in node)
+    if _is_namedtuple(node):
+        return type(node)(*(built[f] for f in node._fields))
+    items = [built[str(i)] for i in range(len(node))]
+    return tuple(items) if isinstance(node, tuple) else items
+
+
+def _flatten_into(node: Any, path: str, flat: dict[str, Any], paths: list[str]) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        key = path or "."
+        if key in flat:
+            raise ValueError(f"duplicate flattened key {key!r}")
+        flat[key] = node
+        paths.append(key)
+        return
+    for k, v in kids:
+        _flatten_into(v, f"{path}/{k}" if path else k, flat, paths)
 
 
 def flatten_with_paths(tree: Any) -> tuple[dict[str, Any], TreeDef]:
     """Flatten ``tree`` to ``{path: leaf}`` plus the treedef for unflattening."""
     treedef = TreeDef(tree)
     flat: dict[str, Any] = {}
-
-    def rec(node: Any, path: str) -> None:
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            key = path or "."
-            if key in flat:
-                raise ValueError(f"duplicate flattened key {key!r}")
-            flat[key] = node
-            treedef.paths.append(key)
-            return
-        for k, v in kids:
-            rec(v, f"{path}/{k}" if path else k)
-
-    rec(tree, "")
+    _flatten_into(tree, "", flat, treedef.paths)
     return flat, treedef
 
 

@@ -17,7 +17,13 @@ import torch
 from repro.checkpoint import serializer as jser
 from repro.checkpoint.fsck import fsck_store as jax_fsck
 from repro.core import cmi as jcmi
-from repro_torch.checkpoint import SaveOptions, load_checkpoint, load_manifest, save_checkpoint
+from repro_torch.checkpoint import (
+    SaveOptions,
+    load_arrays,
+    load_checkpoint,
+    load_manifest,
+    save_checkpoint,
+)
 from repro_torch.checkpoint.fsck import fsck_store
 from repro_torch.core import cmi as tcmi
 from repro_torch.utils import from_numpy_tree
@@ -87,6 +93,32 @@ def test_jax_cmi_restores_bit_identical_in_port(tmp_path, cas):
     assert man.step == 2
     assert got["bf16"].dtype == torch.bfloat16 and got["mask"].dtype == torch.bool
     _assert_same_tree(got, want)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("cas", [False, True], ids=["v3", "v4"])
+def test_partial_restore_equals_reference(tmp_path, writer, cas):
+    """``load_arrays`` on a store written by either package: the named
+    arrays only, each bitwise the reference's ``load_arrays``, serial and
+    with four read threads; all arrays for ``paths=None``."""
+    want = _numpy_state(3)
+    if writer == "jax":
+        jcmi.save_cmi(tmp_path, "c", want, options=jser.SaveOptions(chunk_bytes=64, cas=cas))
+    else:
+        tcmi.save_cmi(tmp_path, "c", from_numpy_tree(want, "cpu"),
+                      options=SaveOptions(chunk_bytes=64, writers=2, cas=cas))
+    paths = ["bf16", "nested/0/w", "i32", "scalar0d"]
+    ref = jser.load_arrays(tmp_path, "c", paths=paths)
+    for threads in (1, 4):
+        got = load_arrays(tmp_path, "c", paths=paths, io_threads=threads, device="cpu")
+        assert list(got) == paths
+        for k in paths:
+            assert _as_bytes(got[k]) == _as_bytes(ref[k]), k
+    every = load_arrays(tmp_path, "c")
+    assert sorted(every) == sorted(jser.load_arrays(tmp_path, "c"))
+    assert all(t.device.type == "cpu" for t in every.values())
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        load_arrays(tmp_path, "c", paths=["i32"], shardings={"i32": None})
 
 
 def test_jax_sharded_cmi_restores_onto_one_device(tmp_path):

@@ -14,7 +14,12 @@ from repro_torch.checkpoint.serializer import _chunk_rows
 from repro_torch.kernels.colocate import colocate_match, colocate_match_plain
 from repro_torch.kernels.colocate.cases import TIE_CASES, tie_case, unit_vectors
 from repro_torch.kernels.delta_encode import changed_blocks, changed_blocks_plain
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_backward_plain,
+    flash_attention_plain,
+)
+from repro_torch.kernels.flash_attention.ops import _forward as flash_attention_forward
 
 pytestmark = pytest.mark.cuda
 
@@ -143,6 +148,89 @@ def test_flash_attention_kernel_equals_plain(dev, case):
     # (B, S, H, D) storage read through strides gives the same answer
     torch.testing.assert_close(flash_attention(_bshd(q), _bshd(k), _bshd(v), causal=causal,
                                                window=window), got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", _FLASH_CASES, ids=[str(c) for c in _FLASH_CASES])
+def test_flash_attention_kernel_lse_equals_plain(dev, case):
+    """K3 asked for its row log-sum-exp (the training forward): the same
+    output bits as without it, one more ``lse_launches``, and lse within
+    1e-4 of the plain version's (scores summed in another order; the
+    tensor-core kernel works in exp2/log2). A row that sees no key has +inf
+    in both."""
+    b, h, hkv, sq, sk, d, causal, window, dt = case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(sq * 7 + d)
+    dtype = getattr(torch, dt)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, d)
+    before = flash_attention.lse_launches
+    got, lse = flash_attention_forward(q, k, v, causal, window, None, True)
+    assert flash_attention.lse_launches == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                           return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+
+
+def _attention_f32(q, k, v, causal, window):
+    """Plain float32 attention under autograd: the gradient's yardstick."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, h // hkv, sq, d)
+    s = torch.matmul(qf, k.float()[:, :, None].transpose(-1, -2)) / d ** 0.5
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    p = torch.softmax(torch.where(mask, s, float("-inf")), dim=-1)
+    return torch.matmul(p, v.float()[:, :, None]).reshape(b, h, sq, d)
+
+
+@pytest.mark.parametrize("case", [c for c in _FLASH_CASES if c[4] >= c[3] and c[4] > 0],
+                         ids=[str(c) for c in _FLASH_CASES if c[4] >= c[3] and c[4] > 0])
+def test_flash_attention_gradient_on_the_card(dev, case):
+    """K3 under autograd on the card (the kernel's forward with lse, the
+    plain backward) against float32 autograd of plain attention on the same
+    values: 1e-4 in float32 (sums in another order); in bf16, where the
+    output and the gradients round to bf16 once, 2e-2 of each gradient's
+    largest magnitude. The backward matches :func:`flash_attention_backward_plain`
+    fed the plain version's output and lse."""
+    b, h, hkv, sq, sk, d, causal, window, dt = case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(sq * 11 + d)
+    dtype = getattr(torch, dt)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, d)
+    dout = rand(b, h, sq, d)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention.lse_launches
+    out = flash_attention(*leaves, causal=causal, window=window)
+    assert flash_attention.lse_launches == before + 1
+    got = torch.autograd.grad(out, leaves, dout)
+    ref = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(_attention_f32(*ref, causal, window), ref, dout.float())
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        if dt == "float32":
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        else:
+            assert float((g.float() - w).abs().max()) <= 2e-2 * float(w.abs().max())
+    po, plse = flash_attention_plain(q, k, v, causal=causal, window=window, return_lse=True)
+    plain = flash_attention_backward_plain(q, k, v, po, plse, dout, causal=causal, window=window)
+    for g, w in zip(got, plain):
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-2 if dt == "bfloat16" else 1e-4,
+                                   rtol=1e-2 if dt == "bfloat16" else 1e-4)
 
 
 # ---------------------------------------------------------------------------
