@@ -9,6 +9,9 @@ with nvcc and prints one JSON line per phase:
              and SM clocks (now and the most the card allows)
   build      nvcc wall time and each kernel's registers and spills from ptxas
              (K2 and the tensor-core K3 must spill nothing)
+  navlint    ``python -m repro_torch.analysis --check --coverage`` over the
+             port exits 0 with no finding; every ``tests/lint_fixtures`` file
+             gives exactly the findings its ``# EXPECT:`` comments name
   kernels    each kernel against its plain PyTorch version on the card, at the
              main path's shapes (K1, K2 bitwise; K3 in bf16 within one
              rounding of its float32 answer), with its time, the plain version's,
@@ -16,7 +19,8 @@ with nvcc and prints one JSON line per phase:
              its tie cases, with its inner loop's SASS instructions per pair
              (cuobjdump) and a 4-instruction floor beside the bound; K3's bf16
              cases at D = 64 and 128 run its tensor-core kernel, whose own
-             arithmetic (two PV products) has a 6 D floor beside the 4 D bound
+             arithmetic (two PV products) has a 6 D floor beside the 4 D bound;
+             granite-moe-1b-a400m's prefill shape (head dim 64) among them
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
              through a transit CMI, preempted after the match publish and
              resumed; the product equals an uninterrupted run's
@@ -40,6 +44,10 @@ with nvcc and prints one JSON line per phase:
              generation and resumed by another with zero re-prefill; prefill
              logits with K3 against the plain attention at the same weights;
              every K3 launch of ``main`` through the tensor-core kernel
+  serve_moe  the same for granite-moe-1b-a400m at full width (24 layers, 32
+             experts top 8, head dim 64): 4 x 24 K3 launches, all tensor-core;
+             where the time goes with the MoE dispatch, expert GEMMs and
+             combine as groups of their own
   serve_fleet  the same model and requests through two serving worker
              processes (``repro_torch.serve.worker``, each its own CUDA
              context) under a ``ServeRouter`` in this process: one request
@@ -71,12 +79,19 @@ with nvcc and prints one JSON line per phase:
              with lse against its plain version and against SDPA, the plain
              attention backward timed, and a 2-layer float32 model's
              gradients with K3 against plain attention under autograd
+  train_moe  the same two launcher runs for granite-moe-1b-a400m (the runs
+             keep 4 of 24 layers, widths kept), its full-depth step timed
+             and profiled in this process, K3 with lse at head dim 64
+  disk       the bytes each phase wrote (``/proc/self/io`` where the kernel
+             counts them, else the files left), held under 40 GiB: the chip
+             machine takes at most 45 GiB of writes a call
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
 made on its main paths (K1 and K2: the itinerary, publish and fabric phases,
-the fabric's counted inside the workers too; K3: the serve phase's
-``main``, the serving workers' prefills and the two training runs, each
-counted inside its launcher process), the nvidia-smi line, and last
+the fabric's counted inside the workers too; K3: the serve and serve_moe
+phases' ``main``, the serving workers' prefills and the training runs of
+both models, each counted inside its launcher process), the nvidia-smi
+line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
 card, or a directory without the rest of the repository.
@@ -84,8 +99,10 @@ card, or a directory without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -117,11 +134,19 @@ F32_TOL = 2e-5  # float32 sums in another order: tests/test_kernels.py's float32
 BF16_TOL = 2e-2  # tests/test_kernels.py's bfloat16 tolerance
 BF16_ROUNDING = 2.0 ** -8  # one round to nearest bf16 moves x by at most 2**-8 |x|
 # the serve phase: qwen3-1.7b at full width, the CLI's requests, and the
-# request published and resumed
+# request published and resumed; serve_moe the same for granite-moe-1b-a400m
 SERVE_SPEC = "model:qwen3-1.7b:full:seed=0"
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_SERVE_SPEC = f"model:{MOE_ARCH}:full:seed=0"
 PROMPT_LEN, GEN, BATCH = 2048, 32, 4
-SERVE_ARGV = ["--arch", "qwen3-1.7b", "--prompt-len", str(PROMPT_LEN), "--gen", str(GEN),
-              "--batch", str(BATCH), "--seed", "0", "--device", "cuda"]
+
+
+def serve_argv(arch: str) -> list[str]:
+    return ["--arch", arch, "--prompt-len", str(PROMPT_LEN), "--gen", str(GEN),
+            "--batch", str(BATCH), "--seed", "0", "--device", "cuda"]
+
+
+SERVE_ARGV = serve_argv("qwen3-1.7b")
 PUBLISH_EVERY = 16
 DROP_AT_DONE = 24  # the first host is dropped here; its last publish is at done 17
 # the serving fleet: two workers, a live migration after 8 rounds, a SIGKILL at 20
@@ -133,16 +158,33 @@ CHAOS_CELLS = ("hop.before_restore:sigkill", "relay.mid_stream:kill_conn",
 # tokens, run B reclaimed after step 2 (8,192 tokens a step; the train state
 # is ~24.1 GB, so each publish writes that much)
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_PREEMPT_AT = "qwen3-1.7b", 4, 2048, 4, 2
-TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
-              "--batch", str(TRAIN_BATCH), "--publish-every", str(TRAIN_STEPS), "--seed", "0",
-              "--device", "cuda", "--log-every", "1"]
+
+
+def train_argv(arch: str) -> list[str]:
+    return ["--arch", arch, "--steps", str(TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
+            "--batch", str(TRAIN_BATCH), "--publish-every", str(TRAIN_STEPS), "--seed", "0",
+            "--device", "cuda", "--log-every", "1"]
+
+
 # The chip machine's disk takes at most 45 GiB of writes a call, deleted or
-# not; the earlier phases and the image take part of it, and the three
-# train-state CMIs of the two runs (~24.1 GB each at 28 layers) would take
-# 67 GiB. So the runs cut depth (never width) to the most layers whose three
-# CMIs fit this budget; the profiled step and the K3 checks, which write
-# nothing, run at full depth.
-TRAIN_WRITE_BUDGET = 24 * 2**30
+# not; the other phases take ~4 GB of it (the fleet's cache publishes most),
+# and the three train-state CMIs of the two runs (~24.1 GB each at 28
+# layers) would take 67 GiB. So the runs cut depth (never width) to the most
+# layers whose three CMIs fit this budget: 4 of 28 (7.18 GB a CMI; 6 layers'
+# 8.58 GB left too little for train_moe's); the profiled step and the K3
+# checks, which write nothing, run at full depth.
+TRAIN_WRITE_BUDGET = 21 * 2**30
+# train_moe: granite's train state is 14 bytes a parameter too (18.7 GB at
+# 24 layers, 3.70 GB at 4), so its three CMIs get a budget of their own
+MOE_TRAIN_WRITE_BUDGET = 12 * 2**30
+# what the whole smoke may write (the machine's limit is 45 GiB a call)
+DISK_WRITE_LIMIT = 40 * 2**30
+# profiler ranges whose kernels form groups of their own
+RANGES = {"flash_attention_backward": "attention backward (plain torch)",
+          "adamw_update": "optimizer (AdamW)",
+          "moe_dispatch": "MoE dispatch (router, sort, searchsorted, gather, index_put)",
+          "moe_experts": "MoE expert GEMMs (bmm)",
+          "moe_combine": "MoE combine (gather, ordered sum)"}
 GRAD_TOL = 1e-4  # tests/test_torch_train.py's float32 gradient tolerance (of each max)
 LSE_TOL = 1e-4  # tests/test_torch_cuda.py's lse tolerance
 
@@ -241,6 +283,101 @@ def sass_inner_loop(lib: Path, kernel: str) -> dict:
     hist = {o: ops.count(o) for o in sorted(set(ops), key=lambda o: -ops.count(o))}
     return {"loop": f"0x{lo:x}-0x{hi:x}", "instructions": len(ops), "pairs": fmuls,
             "per_pair": len(ops) / fmuls, "opcodes": hist}
+
+
+def proc_write_bytes() -> int | None:
+    """Bytes this process and the children it has waited for sent to
+    storage (``write_bytes`` of ``/proc/self/io``); None where the kernel
+    does not count them."""
+    try:
+        for ln in Path("/proc/self/io").read_text().splitlines():
+            if ln.startswith("write_bytes:"):
+                return int(ln.split()[1])
+    except OSError:
+        pass
+    return None
+
+
+def dir_bytes(path: Path) -> int:
+    """Bytes of the files under ``path`` (0 if it is gone)."""
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+class DiskWrites:
+    """The bytes each phase writes: the larger of the growth of
+    :func:`proc_write_bytes` (which some kernels leave at 0) and
+    the files the phase left (``files``, which the caller may raise to count
+    what the phase deleted)."""
+
+    def __init__(self):
+        self.phases: dict[str, dict] = {}
+        self._io = proc_write_bytes()
+
+    def mark(self, phase: str, files: int) -> dict:
+        io = proc_write_bytes()
+        counted = None if io is None or self._io is None else io - self._io
+        self._io = io
+        self.phases[phase] = {"written_bytes": max(counted or 0, files),
+                              "proc_io_write_bytes": counted, "files_bytes": files}
+        return self.phases[phase]
+
+    def total(self) -> int:
+        return sum(p["written_bytes"] for p in self.phases.values())
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: navlint, the port's static analysis (no device)
+# ---------------------------------------------------------------------------
+
+
+def run_navlint() -> dict:
+    """``python -m repro_torch.analysis --check --coverage`` over the port:
+    exit 0, no finding, the coverage cross-check (fire sites, ``SITES``,
+    the chaos cells, ``docs/fabric.md``) included; then every fixture of
+    ``tests/lint_fixtures`` gives exactly the findings its ``# EXPECT:``
+    comments name (the reference's goldens; the CPU tests also hold them
+    equal to the JAX package's navlint, which this script may not import),
+    and the CLI's exit codes."""
+    from collections import Counter
+
+    from repro_torch.analysis import lint_paths, main as navlint_main
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
+    argv = [sys.executable, "-m", "repro_torch.analysis", "--check", "--coverage",
+            "src/repro_torch", "--docs", "docs/fabric.md"]
+    t0 = time.perf_counter()
+    text = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
+    seconds = time.perf_counter() - t0
+    assert text.returncode == 0 and "navlint: clean" in text.stdout, text.stdout + text.stderr
+    js = subprocess.run(argv + ["--json"], capture_output=True, text=True, cwd=ROOT, env=env,
+                        timeout=300)
+    report = json.loads(js.stdout)
+    assert js.returncode == 0 and report["findings"] == [] and report["checked_files"] > 70, report
+    expect = re.compile(r"#\s*EXPECT:\s*([A-Z0-9, ]+)")
+    fixtures = sorted(f for f in (ROOT / "tests" / "lint_fixtures").rglob("*.py")
+                      if f.name != "__init__.py")
+    found: dict[str, list] = {}
+    for f in fixtures:
+        want = Counter()
+        for lineno, line in enumerate(f.read_text().splitlines(), start=1):
+            m = expect.search(line)
+            for code in (m.group(1).replace(",", " ").split() if m else ()):
+                want[(lineno, code)] += 1
+        findings, _, _ = lint_paths([str(f)])
+        assert Counter((x.line, x.code) for x in findings) == want, (f.name, findings)
+        found[f.relative_to(ROOT / "tests" / "lint_fixtures").as_posix()] = sorted(want)
+    assert len(fixtures) >= 24, len(fixtures)
+    fixtures_dir = ROOT / "tests" / "lint_fixtures"
+    with contextlib.redirect_stdout(io.StringIO()):
+        codes = {name: navlint_main(["--check", str(fixtures_dir / name)])
+                 for name in ("nav201_fail.py", "nav201_ok.py")}
+    assert codes == {"nav201_fail.py": 1, "nav201_ok.py": 0}, codes
+    return {"command": " ".join(["python -m repro_torch.analysis"] + argv[3:]),
+            "last_line": text.stdout.strip().splitlines()[-1], "seconds": seconds,
+            "checked_files": report["checked_files"], "findings": 0,
+            "fixtures": len(fixtures), "fixture_findings": sum(len(v) for v in found.values()),
+            "fixtures_equal_goldens": True, "exit_codes": codes}
 
 
 # ---------------------------------------------------------------------------
@@ -436,8 +573,9 @@ def check_flash_attention(dev) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
     cases = []
-    # the six cases of tests/test_kernels.py, then the serve prefill's shape and
-    # prefill_32k's sequence length at the same heads
+    # the six cases of tests/test_kernels.py, then the serve prefill's shape,
+    # prefill_32k's sequence length at the same heads, and granite's prefill
+    # (head dim 64)
     shapes = [(2, 4, 4, 128, 128, 64, True, 0, "float32"),
               (1, 8, 2, 257, 257, 64, True, 0, "float32"),
               (2, 4, 2, 200, 200, 128, True, 64, "float32"),
@@ -445,7 +583,8 @@ def check_flash_attention(dev) -> dict:
               (1, 2, 1, 512, 512, 64, True, 0, "bfloat16"),
               (1, 4, 4, 64, 64, 128, True, 32, "bfloat16"),
               (1, 16, 8, 2048, 2048, 128, True, 0, "bfloat16"),
-              (1, 16, 8, 32768, 32768, 128, True, 0, "bfloat16")]
+              (1, 16, 8, 32768, 32768, 128, True, 0, "bfloat16"),
+              (1, 16, 8, 2048, 2048, 64, True, 0, "bfloat16")]
     timed = {}
     for i, (b, h, hkv, sq, sk, d, causal, window, dt) in enumerate(shapes):
         rng = np.random.default_rng(i)
@@ -470,7 +609,7 @@ def check_flash_attention(dev) -> dict:
         if dt == "bfloat16":
             case.update(one_bf16_rounding(got, flash_attention_plain(
                 q.float(), k.float(), v.float(), causal=causal, window=window)))
-        if sq >= 2048:  # the main path's shape and the 32k one: timed
+        if sq >= 2048:  # the main paths' shapes and the 32k one: timed
             pairs = visible_pairs(sq, sk, causal, window)
             flops = 4 * b * h * d * pairs
             nbytes = (2 * b * h * sq + 2 * b * hkv * sk) * d * q.element_size()
@@ -496,20 +635,21 @@ def check_flash_attention(dev) -> dict:
                 # 6 D operations per visible pair, its own floor
                 "floor_6d_ms": 6 * b * h * d * pairs / BF16_FLOPS * 1e3,
             })
-            timed[sq] = case
+            timed[sq, d] = case
         cases.append(case)
         del q, k, v, got, want
-    serve = timed[2048]
+    serve = timed[2048, 128]
+    at = ("ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "floor_6d_ms",
+          "max_abs_err", "max_abs_err_vs_f32", "out_rms", "rounding_limit_use")
     return {"name": "flash_attention", "cases": cases, "max_abs_err": serve["max_abs_err"],
             **{key: serve[key] for key in ("ms", "kernel_only_ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by", "floor_6d_ms")},
             "shape": "q bf16[1,16,2048,128], k/v bf16[1,8,2048,128], causal",
             **{key: serve[key] for key in ("max_abs_err_vs_f32", "out_rms",
                                            "rounding_limit_use")},
-            "at_32k": {key: timed[32768][key] for key in
-                       ("ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms",
-                        "floor_6d_ms", "max_abs_err", "max_abs_err_vs_f32", "out_rms",
-                        "rounding_limit_use")}}
+            "at_32k": {key: timed[32768, 128][key] for key in at},
+            "at_d64": {"shape": "q bf16[1,16,2048,64], k/v bf16[1,8,2048,64], causal",
+                       **{key: timed[2048, 64][key] for key in at}}}
 
 
 # ---------------------------------------------------------------------------
@@ -900,9 +1040,10 @@ def run_fabric(root: Path, dev, calm: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_serve(metrics: dict, dev, spec: str = SERVE_SPEC) -> dict:
+def check_serve(metrics: dict, dev, spec: str = SERVE_SPEC, varied: bool = True) -> dict:
     """The served transcripts equal ``run_reference``'s on an engine rebuilt
-    from the seed, and are not degenerate."""
+    from the seed, differ from request to request and (``varied``) each
+    holds more than one token."""
     from repro_torch.launch import serve as launch_serve
     from repro_torch.serve import make_engine, run_reference
 
@@ -914,7 +1055,8 @@ def check_serve(metrics: dict, dev, spec: str = SERVE_SPEC) -> dict:
     reference_s = time.perf_counter() - t0
     transcripts = metrics["transcripts"]
     assert transcripts == reference, (transcripts, reference)
-    assert all(len(t) == GEN and len(set(t)) > 1 for t in transcripts.values()), transcripts
+    assert all(len(t) == GEN and (len(set(t)) > 1 or not varied)
+               for t in transcripts.values()), transcripts
     assert len({tuple(t) for t in transcripts.values()}) == len(requests), transcripts
     leaves = _leaves(engine.params)
     return {"engine": engine, "requests": requests, "reference": reference,
@@ -924,6 +1066,7 @@ def check_serve(metrics: dict, dev, spec: str = SERVE_SPEC) -> dict:
                      "prefill_tok_s": metrics["prefill_tok_s"],
                      "decode_tok_s": metrics["decode_tok_s"], "decoded": metrics["decoded"],
                      "reference_s": reference_s, "transcripts_equal_reference": True,
+                     "distinct_tokens": {rid: len(set(t)) for rid, t in transcripts.items()},
                      "first_tokens": {rid: t[:8] for rid, t in transcripts.items()}}}
 
 
@@ -1037,6 +1180,41 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
+def device_groups(prof) -> dict:
+    """A trace's device time by kernel group: a kernel launched inside one
+    of :data:`RANGES` counts as that range, any other by its name
+    (:func:`_kernel_group`); K3's kernels, launched through ctypes with no
+    op around them, by name. Also the device's busy time, its kernels and
+    the largest of them by name."""
+    events = prof.events()
+    device = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.elapsed_us() for e in device)
+    groups: dict[str, float] = {}
+    for e in events:
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        owner, anc = None, e
+        while anc is not None and owner is None:
+            owner, anc = RANGES.get(anc.name), anc.cpu_parent
+        for kern in e.kernels:
+            group = owner or _kernel_group(kern.name)
+            groups[group] = groups.get(group, 0.0) + kern.duration
+    k3_us = sum(e.time_range.elapsed_us() for e in device if "flash_fwd_kernel" in e.name)
+    if groups.get("K3 flash_attention", 0.0) == 0.0:  # its ctypes launches have no op
+        groups["K3 flash_attention"] = k3_us
+    rest = busy - sum(groups.values())
+    if abs(rest) > 1.0:
+        groups["not attributed"] = rest
+    by_name: dict[str, float] = {}
+    for e in device:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+    return {"busy_us": busy, "device": device,
+            "groups_ms": {k: v / 1e3 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": {k: v / 1e3 for k, v in
+                               sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}}
+
+
 def profile_serve(engine, prompt: list[int], steps: int = 8) -> dict:
     """Where one request's time goes: a 2048-token prefill and ``steps``
     decode steps under torch.profiler, device time by kernel group and the
@@ -1067,25 +1245,168 @@ def profile_serve(engine, prompt: list[int], steps: int = 8) -> dict:
                     engine.decode(state)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events()
-                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-        groups: dict[str, float] = {}
-        by_name: dict[str, float] = {}
-        for e in kernels:
-            us = e.time_range.elapsed_us()
-            groups[_kernel_group(e.name)] = groups.get(_kernel_group(e.name), 0.0) + us
-            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us
-        busy = sum(groups.values())
+        split = device_groups(prof)
+        busy = split["busy_us"]
         out[phase] = {
             "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1 - busy / wall_us if kernels else None,
-            "kernel_launches": len(kernels),
-            "groups_ms": {k: v / 1e3 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
-            "top_kernels_ms": {k: v / 1e3 for k, v in
-                               sorted(by_name.items(), key=lambda kv: -kv[1])[:6]},
+            "device_idle_share": 1 - busy / wall_us if split["device"] else None,
+            "kernel_launches": len(split["device"]),
+            "groups_ms": split["groups_ms"], "top_kernels_ms": split["top_kernels_ms"],
             "steps": 1 if phase == "prefill" else steps,
         }
     return out
+
+
+def run_serve_moe(root: Path, dev) -> dict:
+    """granite-moe-1b-a400m at full width through ``launch.serve.main`` with
+    the serve phase's traffic: K3 launches counted from 0 just before and
+    read just after (4 x 24, all on the tensor cores), transcripts equal
+    ``run_reference``'s, one request published, dropped and resumed with
+    zero re-prefill, prefill logits with K3 against the plain attention,
+    and where a prefill's and a decode step's time goes, the MoE dispatch,
+    expert GEMMs and combine as groups of their own."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.colocate import ops as colocate_ops
+    from repro_torch.kernels.delta_encode import ops as delta_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    delta_ops.changed_blocks.launches = 0
+    colocate_ops.colocate_match.launches = 0
+    flash_ops.flash_attention.launches = 0
+    flash_ops.flash_attention.wgmma_launches = 0
+    metrics = launch_serve.main(serve_argv(MOE_ARCH))
+    torch.cuda.synchronize()
+    launches = {"delta_encode": delta_ops.changed_blocks.launches,
+                "colocate": colocate_ops.colocate_match.launches,
+                "flash_attention": flash_ops.flash_attention.launches,
+                "flash_attention_wgmma": flash_ops.flash_attention.wgmma_launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    # The reference's init scales an expert's weights by the fan-in over all
+    # experts (1/sqrt(X E), 1/sqrt(X F)), so with random weights the MoE's
+    # output is ~1 % of the attention's and greedy decoding may repeat one
+    # token; check_moe_on_card holds the MoE itself on the card instead.
+    served = check_serve(metrics, dev, spec=MOE_SERVE_SPEC, varied=False)
+    engine, req = served["engine"], served["requests"][0]
+    cfg = engine.cfg
+    assert cfg == get_config(MOE_ARCH), cfg  # the full width and depth, nothing cut
+    assert launches == {"delta_encode": 0, "colocate": 0, "flash_attention": BATCH * cfg.n_layers,
+                        "flash_attention_wgmma": BATCH * cfg.n_layers}, launches
+    resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
+    in_model = check_model_kernel_vs_plain(engine, req["prompt"])
+    on_card = check_moe_on_card(dev, cfg)
+    scatter = time_dispatch_scatter(dev, cfg)
+    trace = profile_serve(engine, req["prompt"])
+    for phase in ("prefill", "decode"):
+        for name in ("moe_dispatch", "moe_experts", "moe_combine"):
+            assert trace[phase]["groups_ms"].get(RANGES[name], 0) > 0, (phase, name, trace)
+    return {**served["line"],
+            "config": {"arch": MOE_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+                       "experts": [cfg.n_experts, cfg.top_k, cfg.resolved_moe_d_ff],
+                       "router": cfg.router_type, "capacity_factor": cfg.capacity_factor,
+                       "vocab": cfg.vocab, "dtype": cfg.dtype,
+                       "params": cfg.param_count(), "active_params": cfg.active_param_count()},
+            "capacity": {"prefill_per_expert": moe.capacity(PROMPT_LEN, cfg),
+                         "prefill_assignments": PROMPT_LEN * cfg.top_k,
+                         "decode_per_expert": moe.capacity(1, cfg)},
+            "resume": resume, "kernel_vs_plain_in_model": in_model, "moe_on_card": on_card,
+            "where_the_time_goes": trace, "dispatch_scatter": scatter,
+            "launches": launches, "k3_launches_per_prefill": cfg.n_layers,
+            "peak_memory_bytes": peak}
+
+
+def check_moe_on_card(dev, cfg) -> dict:
+    """One MoE layer of ``cfg`` on the card (bf16) against the same layer on
+    the CPU in float32 (the port's CPU path, which the CPU tests hold
+    against the JAX package), at a prefill's group (2048 tokens, capacity
+    640) and a decode step's (one token, capacity 1). The router weights
+    and inputs are multiples of 2**-6 and 2**-2 small enough that every
+    router logit is exact in float32 on both devices: the routing is then
+    the same whatever the order of the sums, ties (which the few distinct
+    values make common) included; experts 0-3 are favoured, so their
+    capacity overflows and drops happen. Outputs within 2e-2 of the largest
+    magnitude (bf16 products and sums); then each expert's down
+    projection made to write only its own column, so a column is non-zero
+    exactly where its expert's assignment passed capacity: those sets
+    equal on both devices."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(18)
+    e, x_, f = cfg.d_model, cfg.n_experts, cfg.resolved_moe_d_ff
+    p32 = {"w_router": rng.integers(-8, 9, (e, x_)).astype(np.float32) / 64,
+           "wg": (rng.standard_normal((x_, e, f)) / math.sqrt(e)).astype(np.float32),
+           "wu": (rng.standard_normal((x_, e, f)) / math.sqrt(e)).astype(np.float32),
+           "wd": (rng.standard_normal((x_, f, e)) / math.sqrt(f)).astype(np.float32)}
+    p32["w_router"][:16, :4] = 8 / 64  # with the constant features below: experts 0-3
+    own = np.zeros_like(p32["wd"])     # favoured, so their capacity overflows
+    own[np.arange(x_), :, np.arange(x_)] = 1.0 + np.abs(rng.standard_normal((x_, f)))
+    cpu_cfg = cfg.with_(dtype="float32")
+    out = {}
+    for label, tokens in (("prefill", PROMPT_LEN), ("decode", 1)):
+        x = (rng.integers(-2, 3, (1, tokens, e)) / 4).astype(np.float32)
+        x[..., :16] = 0.5
+        res = {"tokens": tokens, "capacity": moe.capacity(tokens, cfg)}
+        for wd_name, wd in (("dense", p32["wd"]), ("own_column", own)):
+            weights = {**p32, "wd": wd}
+            card = {k: torch.from_numpy(v).to(dev, torch.float32 if k == "w_router"
+                                              else torch.bfloat16) for k, v in weights.items()}
+            host = {k: v.float().cpu() for k, v in card.items()}  # the same bf16 values
+            got = moe.moe_ffn(card, torch.from_numpy(x).to(dev, torch.bfloat16), cfg)
+            want = moe.moe_ffn(host, torch.from_numpy(x), cpu_cfg)
+            got = got.float().cpu()
+            assert got.shape == want.shape and torch.isfinite(got).all()
+            if wd_name == "dense":
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                assert err <= BF16_TOL * scale, (label, err, scale)
+                res.update(max_abs_err=err, max_abs=scale, tol=f"{BF16_TOL} of the max")
+            else:
+                kept_card = set(map(tuple, torch.nonzero(got[0, :, :x_]).tolist()))
+                kept_host = set(map(tuple, torch.nonzero(want[0, :, :x_]).tolist()))
+                assert kept_card == kept_host, (label, len(kept_card ^ kept_host))
+                res.update(kept_assignments=len(kept_card),
+                           dropped=tokens * cfg.top_k - len(kept_card), kept_equal=True)
+        out[label] = res
+    assert out["prefill"]["dropped"] > 0  # the capacity bound was exercised
+    return out
+
+
+def time_dispatch_scatter(dev, cfg) -> dict:
+    """The dispatch's scatter alone (``index_put`` with ``accumulate=True``
+    of a prefill group's 16,384 assignments into the (X, C, E) bf16 buffer):
+    every assignment in a slot of its own, then with 500 and 2,400 of them
+    on one slot, as dropped assignments land on their expert's clamped last
+    slot. PyTorch's sort-based kernel adds a slot's rows one after another."""
+    from repro_torch.models import moe
+
+    x_, e, k = cfg.n_experts, cfg.d_model, cfg.top_k
+    cap, n = moe.capacity(PROMPT_LEN, cfg), PROMPT_LEN * k
+    eid = np.sort(np.random.default_rng(0).integers(0, x_, n))
+    pos = np.zeros(n, np.int64)
+    for x in range(x_):
+        rows = np.nonzero(eid == x)[0]
+        pos[rows] = np.arange(len(rows)) % cap
+    vals = torch.randn(n, e, device=dev, dtype=torch.bfloat16)
+    out = {"assignments": n, "capacity": cap}
+    for dup in (0, 500, 2400):
+        ei, pi = eid.copy(), pos.copy()
+        ei[:dup], pi[:dup] = 0, cap - 1
+        idx = (torch.from_numpy(ei).to(dev), torch.from_numpy(pi).to(dev))
+        out[f"ms_with_{dup}_on_one_slot"] = cuda_ms(lambda idx=idx: torch.zeros(
+            (x_, cap, e), dtype=torch.bfloat16, device=dev).index_put(idx, vals, accumulate=True), 20)
+    return out
+
+
+def train_files(root: Path, train: dict) -> int:
+    """Bytes a train phase wrote as files: what is left under ``root``, or
+    its publishes' bytes where it deleted a CMI on the way."""
+    published = sum(p["written_bytes"] for run in train["publish"].values() for p in run)
+    return max(dir_bytes(root), published)
 
 
 # ---------------------------------------------------------------------------
@@ -1289,27 +1610,27 @@ def state_bytes(cfg) -> int:
                for s in flat.values())
 
 
-def train_depth(cfg, free_bytes: int) -> int:
+def train_depth(cfg, free_bytes: int, budget: int) -> int:
     """The config's depth, or the most layers whose three train-state CMIs
-    (B's two, A's one) fit :data:`TRAIN_WRITE_BUDGET`, two of them (the
+    (B's two, A's one) fit ``budget`` bytes of writes, two of them (the
     phase keeps two at a time) in ``free_bytes`` with 10 % to spare: a cut
     of depth, never of width."""
     for layers in range(cfg.n_layers, 0, -1):
         nbytes = state_bytes(cfg.with_(n_layers=layers))
-        if 3 * nbytes <= TRAIN_WRITE_BUDGET and 2.2 * nbytes <= free_bytes:
+        if 3 * nbytes <= budget and 2.2 * nbytes <= free_bytes:
             return layers
     raise RuntimeError(f"no depth of {cfg.name} fits {free_bytes} free bytes and "
-                       f"{TRAIN_WRITE_BUDGET} bytes of writes")
+                       f"{budget} bytes of writes")
 
 
 
-def _launch_train(root: Path, name: str, store: Path, extra: list[str]) -> list[dict]:
+def _launch_train(root: Path, name: str, store: Path, arch: str, extra: list[str]) -> list[dict]:
     """One launcher process on the card; its --metrics records."""
     metrics, log = root / f"{name}.jsonl", root / f"{name}.log"
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
     with open(log, "w") as out:
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *train_argv(arch),
                                *extra, "--store", str(store), "--metrics", str(metrics)],
                               stdout=out, stderr=subprocess.STDOUT, env=env, timeout=900)
     if proc.returncode:
@@ -1323,15 +1644,14 @@ def _digests(man) -> dict:
 
 
 def train_step_flops(cfg) -> int:
-    """Model FLOPs of one step: 6 N T, plus attention's 4 B H D pairs a
-    layer forward and twice that backward (12 in all)."""
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.window)
-    attn = 12 * TRAIN_BATCH * cfg.n_heads * cfg.resolved_head_dim * pairs
-    return 6 * cfg.param_count() * tokens + attn * cfg.n_layers
+    """Model FLOPs of one step at the phase's shape, by the launcher's own
+    count (6 N T with N the active parameters, plus attention)."""
+    from repro_torch.launch.train import step_flops
+
+    return step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
 
 
-def run_train(root: Path) -> dict:
+def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDGET) -> dict:
     """Run B (reclaimed at step 2, resumed) then run A (uninterrupted), one
     launcher process each on one job store; B's step-2 CMI is dropped once
     B has finished, so the disk holds two train states at a time."""
@@ -1340,9 +1660,9 @@ def run_train(root: Path) -> dict:
     from repro_torch.core import JobStore
 
     root.mkdir(parents=True, exist_ok=True)
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     free = shutil.disk_usage(root).free
-    layers = train_depth(cfg, free)
+    layers = train_depth(cfg, free, budget)
     extra = [] if layers == cfg.n_layers else ["--layers", str(layers)]
     cfg = cfg.with_(n_layers=layers)
     store = root / "jobs"
@@ -1350,7 +1670,8 @@ def run_train(root: Path) -> dict:
     torch.cuda.empty_cache()  # the launchers need the card's memory
 
     t0 = time.perf_counter()
-    rec = {"B": _launch_train(root, "B", store, extra + ["--preempt-at", str(TRAIN_PREEMPT_AT)])}
+    rec = {"B": _launch_train(root, "B", store, arch,
+                              extra + ["--preempt-at", str(TRAIN_PREEMPT_AT)])}
     wall = {"B": time.perf_counter() - t0}
     js = JobStore(store)
     end = {"B": rec["B"][-1]}
@@ -1359,7 +1680,7 @@ def run_train(root: Path) -> dict:
              for cmi in (r["cmi"] for r in rec["B"] if r["event"] == "publish")}
     js.gc_cmis(job["B"].job_id, keep_last=1)
     t0 = time.perf_counter()
-    rec["A"] = _launch_train(root, "A", store, extra)
+    rec["A"] = _launch_train(root, "A", store, arch, extra)
     wall["A"] = time.perf_counter() - t0
     end["A"] = rec["A"][-1]
     job["A"] = js.read_job(end["A"]["job_id"])
@@ -1399,6 +1720,8 @@ def run_train(root: Path) -> dict:
     step_s = {k: [r["s"] for r in rec[k] if r["event"] == "step"] for k in "AB"}
     median_s = statistics.median(step_s["A"][1:])  # steps 2-4: step 1 warms up
     flops = train_step_flops(cfg)
+    assert all(r["model_flops_per_step"] == flops for k in "AB" for r in rec[k]
+               if r["event"] == "start")
     publish = {k: [{"step": r["step"], "s": r["s"], "cmi": r["cmi"],
                     "written_bytes": stats[r["cmi"]]["written_bytes"],
                     "objects_written": stats[r["cmi"]]["objects_written"]}
@@ -1406,15 +1729,18 @@ def run_train(root: Path) -> dict:
     restart = next(r for r in rec["B"] if r["event"] == "start" and r["resumed"])
     state_nbytes = sum(e.nbytes for e in man["B"].arrays.values())
     return {
-        "config": {"arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "config": {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                    "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
                    "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
                    "remat": cfg.remat, "loss_chunk": cfg.loss_chunk,
-                   "params": cfg.param_count(), "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+                   "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+                   **({"experts": [cfg.n_experts, cfg.top_k, cfg.resolved_moe_d_ff],
+                       "capacity_factor": cfg.capacity_factor} if cfg.moe else {}),
+                   "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
                    "steps": TRAIN_STEPS, "preempt_at": TRAIN_PREEMPT_AT},
-        "depth_cut": None if not extra else {"layers": layers, "of": get_config(TRAIN_ARCH).n_layers},
+        "depth_cut": None if not extra else {"layers": layers, "of": get_config(arch).n_layers},
         "disk_free_before_bytes": free, "state_bytes": state_nbytes,
-        "write_budget_bytes": TRAIN_WRITE_BUDGET,
+        "write_budget_bytes": budget,
         "bitwise_equal": True, "losses": [loss for _, loss in steps["A"]],
         "step_s": step_s, "step_s_median_2_4": median_s,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_s,
@@ -1429,12 +1755,12 @@ def run_train(root: Path) -> dict:
     }
 
 
-def profile_train(dev, layers: int) -> dict:
+def profile_train(dev, layers: int, arch: str = TRAIN_ARCH) -> dict:
     """Train steps at the phase's shape in this process (not deterministic
     mode; nothing published): one to warm up, three timed (their median,
     tokens/s, model TFLOP/s, peak memory), then one profiled: device time by
-    kernel group (kernels launched inside K3's backward and AdamW's named
-    ranges counted as those), the device's idle share, K3 launches."""
+    kernel group (:func:`device_groups`: K3's backward, AdamW and the MoE
+    phases by their ranges), the device's idle share, K3 launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1443,7 +1769,7 @@ def profile_train(dev, layers: int) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.optim import AdamWConfig
 
-    cfg = get_config(TRAIN_ARCH).with_(n_layers=layers)
+    cfg = get_config(arch).with_(n_layers=layers)
     opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
     state = make_init_fn(cfg, opt_cfg, seed=0, device=dev)()
     step = make_train_step(cfg, opt_cfg, peak_lr=3e-3, warmup=5, total_steps=TRAIN_STEPS)
@@ -1466,34 +1792,11 @@ def profile_train(dev, layers: int) -> dict:
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
-    ranges = {"flash_attention_backward": "attention backward (plain torch)",
-              "adamw_update": "optimizer (AdamW)"}
-    events = prof.events()
-    device = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    busy = sum(e.time_range.elapsed_us() for e in device)
-    k3_us = sum(e.time_range.elapsed_us() for e in device if "flash_fwd_kernel" in e.name)
+    split = device_groups(prof)
+    device, busy = split["device"], split["busy_us"]
     k3_kernels = sum("flash_fwd_kernel" in e.name for e in device)
     k3_wgmma = sum("flash_fwd_kernel_wgmma" in e.name for e in device)
     assert k3_wgmma == k3_kernels > 0, (k3_wgmma, k3_kernels)  # all on the tensor cores
-    groups: dict[str, float] = {}
-    for e in events:
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CPU or not e.kernels:
-            continue
-        owner, anc = None, e
-        while anc is not None and owner is None:
-            owner, anc = ranges.get(anc.name), anc.cpu_parent
-        for kern in e.kernels:
-            group = owner or _kernel_group(kern.name)
-            groups[group] = groups.get(group, 0.0) + kern.duration
-    if groups.get("K3 flash_attention", 0.0) == 0.0:  # its ctypes launches have no op
-        groups["K3 flash_attention"] = k3_us
-    by_name: dict[str, float] = {}
-    for e in device:
-        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
-    rest = busy - sum(groups.values())
-    if abs(rest) > 1.0:
-        groups["not attributed"] = rest
     step_s = statistics.median(unprofiled[1:])
     flops = train_step_flops(cfg)
     return {"n_layers": cfg.n_layers, "unprofiled_step_s": unprofiled,
@@ -1505,17 +1808,16 @@ def profile_train(dev, layers: int) -> dict:
             "device_busy_ms": busy / 1e3, "device_idle_share": 1 - busy / wall_us,
             "kernel_launches": len(device), "k3_launches": k3_launches,
             "k3_kernels_in_trace": k3_kernels, "k3_wgmma_kernels_in_trace": k3_wgmma,
-            "groups_ms": {k: v / 1e3 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
-            "top_kernels_ms": {k: v / 1e3 for k, v in
-                               sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}}
+            "groups_ms": split["groups_ms"], "top_kernels_ms": split["top_kernels_ms"]}
 
 
-def check_k3_training(dev) -> dict:
-    """K3 with lse against its plain version at the training shape; its
-    time with and without lse, SDPA's forward (saving its lse for a
-    backward) and backward, and the plain attention backward, at the serve
-    and the training shapes; then a 2-layer float32 model's gradients with
-    K3 against plain attention under autograd."""
+def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True) -> dict:
+    """K3 with lse against its plain version at ``arch``'s heads and the
+    training shape; its time with and without lse, SDPA's forward (saving
+    its lse for a backward) and backward, and the plain attention backward,
+    at the serve and the training shapes; then (``gradients``) a 2-layer
+    float32 model's gradients with K3 against plain attention under
+    autograd."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -1524,7 +1826,7 @@ def check_k3_training(dev) -> dict:
     from repro_torch.models import attention as attn
     from repro_torch.utils import flatten_with_paths
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     out = {}
     for label, b in (("serve_shape", 1), ("train_shape", TRAIN_BATCH)):
@@ -1540,7 +1842,8 @@ def check_k3_training(dev) -> dict:
         plain_ms = (time.perf_counter() - t0) * 1e3
         lse_err = float((lse - want_lse).abs().max())
         assert lse_err <= LSE_TOL, lse_err
-        one_bf16_rounding(got, flash_ops.flash_attention_plain(q.float(), k.float(), v.float()))
+        rounding = one_bf16_rounding(got, flash_ops.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=True))
         t0 = time.perf_counter()
         grads = flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout)
         torch.cuda.synchronize()
@@ -1555,8 +1858,12 @@ def check_k3_training(dev) -> dict:
         out[label] = {
             "shape": f"q bf16[{b},{h},{TRAIN_SEQ},{d}], k/v bf16[{b},{hkv},{TRAIN_SEQ},{d}], causal",
             "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+            "rounding_limit_use": rounding["rounding_limit_use"],
             "ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, 0, None, False), 20),
             "lse_ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, 0, None, True), 20),
+            "lse_kernel_only_ms": profiled_ms(
+                lambda: flash_ops._forward(q, k, v, True, 0, None, True),
+                "flash_fwd_kernel_wgmma", 20),
             "plain_ms": plain_ms,
             "library_sdpa_forward_with_lse_ms": cuda_ms(
                 lambda: F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True),
@@ -1574,6 +1881,8 @@ def check_k3_training(dev) -> dict:
         }
         del q, k, v, dout, got, lse, want, want_lse, leaves, sdpa
         torch.cuda.empty_cache()
+    if not gradients:
+        return out
 
     # the model's gradients with K3 (float32: the CUDA-core kernel) against
     # plain attention differentiated by autograd, same weights and batch
@@ -1628,7 +1937,9 @@ def main() -> int:
     smi = nvidia_smi()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda, device=kind,
          count=torch.cuda.device_count(), nvidia_smi=smi, python=sys.version.split()[0],
-         clocks_sm_and_max=nvidia_smi("clocks.sm,clocks.max.sm"))
+         clocks_sm_and_max=nvidia_smi("clocks.sm,clocks.max.sm"),
+         disk_free_bytes=shutil.disk_usage(ROOT).free, proc_io_write_bytes=proc_write_bytes())
+    disk = DiskWrites()
 
     t0 = time.perf_counter()
     _build.build()
@@ -1640,7 +1951,9 @@ def main() -> int:
     k2_entry = {entry: v for entry, v in ptxas["colocate"].items() if "colocate_kernel" in entry}
     k2_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k2_entry.values())
     emit("build", seconds=build_s, sources=list(_build.SOURCES), ptxas=ptxas,
-         k2_spill_bytes=k2_spills, k3_wgmma_spill_bytes=k3_spills)
+         k2_spill_bytes=k2_spills, k3_wgmma_spill_bytes=k3_spills,
+         disk=disk.mark("build", dir_bytes(ROOT / "build" / "kernels")))
+    emit("navlint", **run_navlint(), disk=disk.mark("navlint", 0))
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -1652,7 +1965,8 @@ def main() -> int:
         k2 = check_colocate(dev, geo)
         del geo
         k3 = check_flash_attention(dev)
-        emit("kernels", delta_encode=k1, colocate=k2, flash_attention=k3)
+        emit("kernels", delta_encode=k1, colocate=k2, flash_attention=k3,
+             disk=disk.mark("kernels", 0))
 
         # the main path: counts from 0 just before, read just after
         delta_ops.changed_blocks.launches = 0
@@ -1672,7 +1986,9 @@ def main() -> int:
              fsck=itin["fsck"],
              published=itin["cmis"], product=product, launches=launches_itin)
         emit("publish", publishes=publishes,
-             launches={k: launches[k] - launches_itin[k] for k in launches})
+             launches={k: launches[k] - launches_itin[k] for k in launches},
+             disk=disk.mark("itinerary+publish", sum(dir_bytes(work / d) for d in
+                                                     ("itinerary", "calm", "publish"))))
         assert launches["delta_encode"] > launches_itin["delta_encode"] >= 0
         assert launches["colocate"] > 0
 
@@ -1689,7 +2005,8 @@ def main() -> int:
              nvidia_smi_compute_apps=fab["nvidia_smi_compute_apps"], calm=fab["calm"],
              calm_warm=fab["calm_warm"],
              interrupted=fab["interrupted"], delta=fab["delta"], launches=by_path["fabric"],
-             store_hop_tour_wall_s=itin["wall_s"], live_tour_wall_s=calm["wall_s"])
+             store_hop_tour_wall_s=itin["wall_s"], live_tour_wall_s=calm["wall_s"],
+             disk=disk.mark("fabric", dir_bytes(work / "fabric")))
         assert by_path["fabric"]["colocate"] == 3 and by_path["fabric"]["delta_encode"] > 0
         del fab
 
@@ -1722,17 +2039,26 @@ def main() -> int:
         emit("serve", **served["line"], resume=resume, kernel_vs_plain_in_model=in_model,
              where_the_time_goes=trace,
              launches=serve_launches, k3_launches_per_prefill=n_layers,
-             peak_memory_bytes=torch.cuda.max_memory_allocated())
+             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             disk=disk.mark("serve", dir_bytes(work / "serve")))
         del served, engine
+
+        # the MoE serve path: granite-moe-1b-a400m, counts from 0 just
+        # before, read just after
+        moe = run_serve_moe(work / "serve_moe", dev)
+        launches["flash_attention"] += moe["launches"]["flash_attention"]
+        by_path["serve_moe"] = {"flash_attention": moe["launches"]["flash_attention"]}
+        emit("serve_moe", **moe, disk=disk.mark("serve_moe", dir_bytes(work / "serve_moe")))
+        del moe
 
         # the serving fleet: each worker's counts set to 0 just before its
         # admits and read just after (K3 runs only inside the workers)
         fleet = run_serve_fleet(work / "fleet", dev, metrics)
         launches["flash_attention"] += fleet["launches"]["flash_attention"]
         by_path["serve_fleet"] = {"flash_attention": fleet["launches"]["flash_attention"]}
-        emit("serve_fleet", **fleet)
+        emit("serve_fleet", **fleet, disk=disk.mark("serve_fleet", dir_bytes(work / "fleet")))
         del fleet
-        emit("chaos", **run_chaos(dev))
+        emit("chaos", **run_chaos(dev), disk=disk.mark("chaos", 0))
 
         # the training path: each launcher process counts its own K3
         # launches from 0 and reports them at its end
@@ -1747,7 +2073,28 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         train["full_depth_step"] = profile_train(dev, n_layers)
         train["k3"] = check_k3_training(dev)
-        emit("train", **train)
+        emit("train", **train, disk=disk.mark("train", train_files(work / "train", train)))
+        shutil.rmtree(work / "train", ignore_errors=True)  # room for train_moe's states
+        k3_train = train["k3"]
+        del train
+
+        # the MoE training path: granite through the launcher, each
+        # process counting its own K3 launches from 0
+        train = run_train(work / "train_moe", MOE_ARCH, MOE_TRAIN_WRITE_BUDGET)
+        by_path["train_moe"] = {"flash_attention": sum(train["launches"][run]["flash_attention"]
+                                                       for run in ("A", "B"))}
+        launches["flash_attention"] += by_path["train_moe"]["flash_attention"]
+        n_layers = get_config(MOE_ARCH).n_layers
+        torch.cuda.reset_peak_memory_stats(dev)
+        train["full_depth_step"] = profile_train(dev, n_layers, MOE_ARCH)
+        train["k3"] = check_k3_training(dev, MOE_ARCH, gradients=False)
+        emit("train_moe", **train,
+             disk=disk.mark("train_moe", train_files(work / "train_moe", train)))
+        k3_train_moe = train["k3"]
+        del train
+        total = disk.total()
+        emit("disk", phases=disk.phases, total_written_bytes=total, limit_bytes=DISK_WRITE_LIMIT)
+        assert total < DISK_WRITE_LIMIT, (total, disk.phases)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1773,7 +2120,8 @@ def main() -> int:
                      "kernel_ms": k["ms"], "kernel_only_ms": k["kernel_only_ms"],
                      "shape": k["shape"], "parity": parity[name],
                      **({"sass_per_pair": k["sass_per_pair"]} if "sass_per_pair" in k else {}),
-                     **({"training": train["k3"]} if name == "flash_attention" else {})})
+                     **({"at_d64": k["at_d64"], "training": k3_train,
+                         "training_d64": k3_train_moe} if name == "flash_attention" else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -221,8 +221,8 @@ CELLS: list[dict] = [
 def cell_registry() -> list[dict]:
     """The matrix as machine-readable data, one normalized dict per cell.
 
-    This is what the fault-coverage checker (the JAX package's ``python -m
-    repro.analysis --coverage``, pointed at this package's tree) cross-checks
+    This is what the fault-coverage checker (``python -m
+    repro_torch.analysis --coverage``) cross-checks
     against the AST-extracted ``faults.fire`` sites and the
     ``docs/fabric.md`` state table: every registered site must have at least
     one cell here, and every cell's point must be a registered site.

@@ -92,6 +92,14 @@ class Stage:
     fn_ref: str = ""
 
 
+def declared_destinations(stages: list["Stage"]) -> list[str]:
+    """Distinct stage destinations in tour order (first occurrence wins)."""
+    seen: dict[str, None] = {}
+    for st in stages:
+        seen.setdefault(st.dest, None)
+    return list(seen)
+
+
 def validate_stages(stages: list["Stage"], nbs=None) -> list[str]:
     """Pre-flight check of a tour: one warning string per migration hazard —
     destinations the NBS has never heard of, and stage functions a worker

@@ -78,11 +78,22 @@ def batch_to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Ten
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3e-4,
-                    warmup: int = 100, total_steps: int = 10_000):
+                    warmup: int = 100, total_steps: int = 10_000, n_route_groups: int = 0,
+                    moe_buf_shard: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``: the loss and
     its gradient, the warmup-cosine learning rate at ``state["step"]``, one
     AdamW update, the step and data counters advanced, all in place on
-    ``state``. ``metrics``: 0-d tensors ``loss``, ``lr``, ``grad_norm``."""
+    ``state``. ``metrics``: 0-d tensors ``loss``, ``lr``, ``grad_norm``.
+
+    MoE routing groups default to the data-parallel degree, as in the
+    reference: 1 on one device, so a step routes its whole batch as one
+    group. ``moe_buf_shard`` shards the dispatch buffer over a mesh's
+    expert axes, so it comes with the meshes."""
+    if moe_buf_shard:
+        raise NotImplementedError(
+            "moe_buf_shard shards the MoE dispatch buffer over a mesh: it comes with the "
+            "multi-card slice (ROADMAP queue 1, item 11: distributed/*)")
+    n_groups = n_route_groups or 1
     # torch.utils.checkpoint's first call imports torch._dynamo, and that
     # import keeps its caller's frames alive for good: whatever train state
     # the first step's frames hold would stay on the card. Imported here,
@@ -95,7 +106,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3
         params = state["params"]
         flat, treedef = flatten_with_paths(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
-        loss = model.loss(treedef.unflatten(leaves), batch)
+        loss = model.loss(treedef.unflatten(leaves), batch, n_groups=n_groups)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         grads = treedef.unflatten(dict(zip(leaves, grads)))
         lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup, total=total_steps)

@@ -25,7 +25,8 @@ come with the multi-card slice.
         --device cpu --steps 30 --publish-every 10 --preempt-at 17 --store /tmp/navp-jobs
 
 ``--metrics FILE`` appends one JSON line per step, publish and
-incarnation (losses, seconds, CMI names, K3 launches, peak device memory).
+incarnation (losses, seconds, CMI names, model FLOPs a step, K3 launches,
+peak device memory).
 ``main`` returns the final loss.
 """
 
@@ -74,6 +75,24 @@ def deterministic():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[1:]
 
 
+def causal_pairs(seq_len: int, window: int = 0) -> int:
+    """(q, k) pairs a causal mask keeps over ``seq_len`` positions, within
+    a sliding ``window`` when one is set."""
+    if not window or window >= seq_len:
+        return seq_len * (seq_len + 1) // 2
+    return window * (window + 1) // 2 + (seq_len - window) * window
+
+
+def step_flops(cfg, batch: int, seq_len: int) -> int:
+    """Model FLOPs of one training step: 6 N T, N the parameters a token
+    uses (``active_param_count``: a MoE layer's top-k experts, not all of
+    them), plus attention's 4 B H D operations a visible (q, k) pair and
+    layer forward and twice that backward (12 in all)."""
+    pairs = causal_pairs(seq_len, cfg.window)
+    attn = 12 * batch * cfg.n_heads * cfg.resolved_head_dim * pairs * cfg.n_layers
+    return 6 * cfg.active_param_count() * batch * seq_len + attn
+
+
 class _Metrics:
     """One JSON line per record, appended to ``path`` (nothing without one)."""
 
@@ -112,7 +131,8 @@ def build_worker(args, cfg, store, nbs, schedule, notice, job_id, device, metric
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             metrics("start", incarnation=incarnation, node=node, resumed=job.status == "ckpt",
-                    step=int(state["step"]), s=time.perf_counter() - t0)
+                    step=int(state["step"]), s=time.perf_counter() - t0,
+                    model_flops_per_step=step_flops(cfg, args.batch, args.seq_len))
             loss = float("nan")
             while int(state["step"]) < args.steps:
                 step = int(state["step"])

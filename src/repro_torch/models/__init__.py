@@ -1,4 +1,4 @@
-"""Model zoo on PyTorch: the decoder-only GQA configurations so far.
+"""Model zoo on PyTorch: the decoder-only GQA configurations, dense or MoE, so far.
 
 Params are plain nested dicts with layers stacked on a leading ``L`` axis,
 with the JAX package's paths and shapes (``repro/models``), so the serve

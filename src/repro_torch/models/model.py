@@ -1,4 +1,4 @@
-"""Model facade for the decoder-only GQA configurations.
+"""Model facade for the decoder-only GQA configurations (dense or MoE FFN).
 
 Port of the JAX package's ``repro/models/model.py``::
 
@@ -11,8 +11,10 @@ Port of the JAX package's ``repro/models/model.py``::
 
 Parameters are a plain nested dict with the reference's paths and shapes
 (``embed``, ``final_norm``, ``blocks/g0/{ln1, ln2, attn/{wq, wk, wv, wo,
-q_norm, k_norm}, ffn/{wg, wu, wd}}``, stacked on L), and the caches are
-``{"g0": {"k", "v"}: (L, B, S, KV, Dh)}``, so the serve CMI of a request
+q_norm, k_norm}, ffn/{wg, wu, wd}}``, stacked on L; a MoE group's ``ffn``
+is ``{w_router (float32), [router_bias], wg, wu, wd, [ws_g, ws_u, ws_d]}``),
+and the caches are ``{"g0": {"k", "v"}: (L, B, S, KV, Dh)}`` per layer
+group, so the serve CMI of a request
 published by one package resumes in the other. :func:`params_from_numpy`
 carries the JAX package's parameters across. :func:`input_specs` gives the
 inputs of a shape as :class:`TensorSpec` stand-ins (the reference's
@@ -62,26 +64,27 @@ class Model:
         return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
 
     # -- train --------------------------------------------------------------
-    def loss(self, params, batch) -> torch.Tensor:
+    def loss(self, params, batch, *, n_groups: int = 0) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
-        (B, S) int; label -1 ignored), a 0-d float32 tensor."""
+        (B, S) int; label -1 ignored), a 0-d float32 tensor. ``n_groups``:
+        MoE routing groups (0: one per sequence)."""
         cfg = self.cfg
         x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
-        h = tf.forward_train(params, x, cfg)
+        h = tf.forward_train(params, x, cfg, n_groups=n_groups)
         return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk)
 
     # -- serve --------------------------------------------------------------
-    def prefill(self, params, batch, s_max: int):
+    def prefill(self, params, batch, s_max: int, *, n_groups: int = 0):
         """Returns (last-position logits (B, V) float32, caches)."""
         x = embed(batch["tokens"], params["embed"]).to(pdtype(self.cfg))
-        h, caches = tf.forward_prefill(params, x, self.cfg, s_max)
+        h, caches = tf.forward_prefill(params, x, self.cfg, s_max, n_groups=n_groups)
         return unembed_logits(h[:, -1], self._unembed(params)), caches
 
-    def decode(self, params, caches, tokens, pos: int):
+    def decode(self, params, caches, tokens, pos: int, *, n_groups: int = 0):
         """One decode step. tokens (B, 1) int; pos the absolute position.
         The caches are written in place and returned."""
         x = embed(tokens, params["embed"]).to(pdtype(self.cfg))
-        h, caches = tf.forward_decode(params, x, caches, int(pos), self.cfg)
+        h, caches = tf.forward_decode(params, x, caches, int(pos), self.cfg, n_groups=n_groups)
         return unembed_logits(h, self._unembed(params)), caches
 
     # -- caches ---------------------------------------------------------------

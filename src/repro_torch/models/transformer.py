@@ -1,12 +1,14 @@
 """Decoder-only transformer assembly: layer groups, stacked layers, caches.
 
 Port of the JAX package's ``repro/models/transformer.py`` for the GQA mixer
-with the dense (SwiGLU) FFN. Layers with identical structure are stacked on
-a leading ``L`` axis, as in the reference; each ``lax.scan`` over that axis
-is a Python loop over its slices here. ``block_groups`` is the reference's
-grouping, so parameter paths and cache paths are the same in both
-packages. The other mixers (mla, hybrid, mlstm) and the MoE FFN raise
-``NotImplementedError`` (ROADMAP queue 1, item 11).
+with the dense (SwiGLU) or the MoE FFN. Layers with identical structure are
+stacked on a leading ``L`` axis, as in the reference; each ``lax.scan`` over
+that axis is a Python loop over its slices here. ``block_groups`` is the
+reference's grouping (a MoE config's ``first_dense_layers`` form a dense
+group ``g0`` before the MoE group ``g1``), so parameter paths and cache
+paths are the same in both packages. ``n_groups`` is the MoE routing
+groups of every call (0: one per sequence). The other mixers (mla, hybrid,
+mlstm) raise ``NotImplementedError`` (ROADMAP queue 1, item 11).
 
 The training forward's layer-scan remat maps onto ``torch.utils.checkpoint``
 per layer, after the reference's ``_REMAT_POLICIES``: ``nothing`` keeps no
@@ -25,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import init_dense, init_embedding, pdtype, rmsnorm, swiglu
 from repro_torch.utils import flatten_with_paths
 
@@ -57,7 +60,7 @@ def check_supported(cfg: ArchConfig) -> None:
     for _, _, mixer, ffn in block_groups(cfg):
         if mixer != "gqa":
             raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} {_LATER}")
-        if ffn != "dense":
+        if ffn not in ("dense", "moe"):
             raise NotImplementedError(f"{cfg.name}: ffn {ffn!r} {_LATER}")
 
 
@@ -66,7 +69,9 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_ffn(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
+def _init_ffn(gen, cfg: ArchConfig, n_layers: int, kind: str, device) -> dict:
+    if kind == "moe":
+        return moe_mod.init_moe(gen, cfg, n_layers, device)
     dt, e = pdtype(cfg), cfg.d_model
     return {
         "wg": init_dense(gen, (n_layers, e, cfg.d_ff), ("layers", "embed", "mlp"), dt, device),
@@ -86,12 +91,12 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[str, A
         params["unembed"] = init_embedding(gen, cfg, device)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     params["blocks"] = {}
-    for gname, n, _, _ in block_groups(cfg):
+    for gname, n, _, ffn in block_groups(cfg):
         params["blocks"][gname] = {
             "ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device),
             "attn": attn.init_gqa(gen, cfg, n, device),
             "ln2": torch.ones((n, cfg.d_model), dtype=dt, device=device),
-            "ffn": _init_ffn(gen, cfg, n, device),
+            "ffn": _init_ffn(gen, cfg, n, ffn, device),
         }
     return params
 
@@ -106,28 +111,30 @@ def _layer(gp: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in gp.items()}
 
 
-def _ffn(pl, h, cfg: ArchConfig):
-    f = pl["ffn"]
-    return swiglu(rmsnorm(h, pl["ln2"], cfg.norm_eps), f["wg"], f["wu"], f["wd"])
+def _ffn(pl, h, cfg: ArchConfig, ffn: str, n_groups: int):
+    f, x = pl["ffn"], rmsnorm(h, pl["ln2"], cfg.norm_eps)
+    if ffn == "moe":
+        return moe_mod.moe_ffn(f, x, cfg, n_groups=n_groups)
+    return swiglu(x, f["wg"], f["wu"], f["wd"])
 
 
-def block_train(pl, x, cfg: ArchConfig):
+def block_train(pl, x, cfg: ArchConfig, ffn: str, n_groups: int):
     """One layer of the training forward."""
     h = x + attn.gqa_train(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg)
-    return h + _ffn(pl, h, cfg)
+    return h + _ffn(pl, h, cfg, ffn, n_groups)
 
 
-def block_prefill(pl, x, cfg: ArchConfig, s_max: int):
+def block_prefill(pl, x, cfg: ArchConfig, ffn: str, n_groups: int, s_max: int):
     """One layer of the prefill; also returns its decode cache."""
     y, cache = attn.gqa_prefill(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg, s_max)
     h = x + y
-    return h + _ffn(pl, h, cfg), cache
+    return h + _ffn(pl, h, cfg, ffn, n_groups), cache
 
 
-def block_decode(pl, x, cache, pos: int, cfg: ArchConfig):
+def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, ffn: str, n_groups: int):
     y, cache = attn.gqa_decode(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cache, pos, cfg)
     h = x + y
-    return h + _ffn(pl, h, cfg), cache
+    return h + _ffn(pl, h, cfg, ffn, n_groups), cache
 
 
 # ---------------------------------------------------------------------------
@@ -172,32 +179,32 @@ def _unbind_layers(gp: dict, n: int) -> list[dict]:
     return [treedef.unflatten({path: col[i] for path, col in cols.items()}) for i in range(n)]
 
 
-def forward_train(params, x, cfg: ArchConfig):
+def forward_train(params, x, cfg: ArchConfig, *, n_groups: int = 0):
     """x: (B, S, E) embedded inputs -> final hidden (B, S, E)."""
-    body = _remat(functools.partial(block_train, cfg=cfg), cfg)
-    for gname, n, _, _ in block_groups(cfg):
+    for gname, n, _, ffn in block_groups(cfg):
+        body = _remat(functools.partial(block_train, cfg=cfg, ffn=ffn, n_groups=n_groups), cfg)
         for pl in _unbind_layers(params["blocks"][gname], n):
             x = body(pl, x)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
-def forward_prefill(params, x, cfg: ArchConfig, s_max: int):
+def forward_prefill(params, x, cfg: ArchConfig, s_max: int, *, n_groups: int = 0):
     """Returns (final hidden, caches) — caches stacked on L per group."""
     caches = {}
-    for gname, n, _, _ in block_groups(cfg):
+    for gname, n, _, ffn in block_groups(cfg):
         gp = params["blocks"][gname]
         layer_caches = []
         for i in range(n):
-            x, cache = block_prefill(_layer(gp, i), x, cfg, s_max)
+            x, cache = block_prefill(_layer(gp, i), x, cfg, ffn, n_groups, s_max)
             layer_caches.append(cache)
         caches[gname] = {k: torch.stack([c[k] for c in layer_caches]) for k in ("k", "v")}
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches
 
 
-def forward_decode(params, x, caches, pos: int, cfg: ArchConfig):
+def forward_decode(params, x, caches, pos: int, cfg: ArchConfig, *, n_groups: int = 0):
     """x: (B,1,E). Returns (final hidden (B,1,E), caches written in place)."""
-    for gname, n, _, _ in block_groups(cfg):
+    for gname, n, _, ffn in block_groups(cfg):
         gp, gc = params["blocks"][gname], caches[gname]
         for i in range(n):
-            x, _ = block_decode(_layer(gp, i), x, _layer(gc, i), pos, cfg)
+            x, _ = block_decode(_layer(gp, i), x, _layer(gc, i), pos, cfg, ffn, n_groups)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches

@@ -2,8 +2,9 @@
 
 The matrix's cells are the reference's, id for id and spec for spec; the
 port fires every registered protocol state as often as the reference does;
-and the JAX package's coverage checker, pointed at the port's tree, finds
-the fire sites, ``SITES``, the port's cells and ``docs/fabric.md`` in 1:1
+and both the JAX package's coverage checker and the port's own
+(``repro_torch.analysis``), pointed at the port's tree, find the fire
+sites, ``SITES``, the port's cells and ``docs/fabric.md`` in 1:1
 agreement. The live half runs a few real cells (multi-process, real
 signals) with ``device="cpu"`` workers: the reference's four live cells of
 ``tests/test_chaos.py`` plus the two serve cells that need the serving
@@ -95,6 +96,22 @@ def test_fault_coverage_holds_over_the_port_tree():
     findings = check_coverage(REPO / "src" / "repro_torch", sites=SITES,
                               cells=matrix.CELLS, docs_path=REPO / "docs" / "fabric.md")
     assert findings == [], "\n".join(f"{f.code}: {f.message}" for f in findings)
+
+
+def test_port_coverage_checker_holds_over_the_port_tree():
+    """The port's own checker (``repro_torch.analysis``), with its default
+    SITES and cells, finds what the reference's finds over the port."""
+    from repro_torch.analysis.coverage import check_coverage as port_check_coverage
+
+    docs = REPO / "docs" / "fabric.md"
+    findings = port_check_coverage(REPO / "src" / "repro_torch", docs_path=docs)
+    assert findings == [], "\n".join(f"{f.code}: {f.message}" for f in findings)
+    doctored = {k: v for k, v in SITES.items() if k != "hop.after_save"}
+    port = port_check_coverage(REPO / "src" / "repro_torch", sites=doctored, docs_path=docs)
+    ref = check_coverage(REPO / "src" / "repro_torch", sites=doctored,
+                         cells=matrix.CELLS, docs_path=docs)
+    assert [(f.code, f.path, f.line) for f in port] == [(f.code, f.path, f.line) for f in ref]
+    assert {f.code for f in port} >= {"NAV501", "NAV504", "NAV506"}
 
 
 def test_port_fires_each_point_as_often_as_the_reference():

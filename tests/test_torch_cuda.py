@@ -81,7 +81,8 @@ def test_colocate_kernel_tie_rule(dev, label):
 # the six cases of tests/test_kernels.py's flash attention sweep, then the
 # tensor-core kernel's edges (bf16 at D = 64 and 128): Sk not a multiple of
 # its 64-key tile, Sq != Sk, a window across tile edges, B = 2, rows with no
-# visible key, no key at all, and a bf16 head dim it does not take
+# visible key, no key at all, a bf16 head dim it does not take, and the
+# MoE model's prefill shape at D = 64
 _FLASH_CASES = [
     # (b, h, hkv, sq, sk, d, causal, window, dtype)
     (2, 4, 4, 128, 128, 64, True, 0, "float32"),
@@ -99,6 +100,7 @@ _FLASH_CASES = [
     (1, 4, 2, 256, 64, 128, True, 32, "bfloat16"),
     (1, 2, 1, 100, 0, 128, True, 0, "bfloat16"),
     (1, 2, 2, 130, 130, 96, True, 0, "bfloat16"),
+    (1, 16, 8, 2048, 2048, 64, True, 0, "bfloat16"),  # granite-moe-1b-a400m's prefill
 ]
 
 
@@ -366,3 +368,81 @@ def test_chaos_tour_cell_on_cuda_workers(dev, cell_id):
     from repro_torch.chaos import matrix
 
     matrix.run_cell(next(c for c in matrix.CELLS if c["id"] == cell_id), device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the MoE family on the card
+# ---------------------------------------------------------------------------
+
+
+def test_moe_ffn_on_the_card_equals_cpu(dev):
+    """granite's smoke MoE layer on the card (bf16) against the port's CPU
+    path in float32 at the same bf16 values: outputs within 2e-2 of the
+    largest magnitude, the same routing (inputs and router weights whose
+    logits are exact in float32 on both devices, ties included) and the
+    same (token, expert) assignments kept at a capacity factor that drops."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("granite-moe-1b-a400m").with_(capacity_factor=0.5)
+    e, x_, f = cfg.d_model, cfg.n_experts, cfg.resolved_moe_d_ff
+    rng = np.random.default_rng(5)
+    w = {"w_router": rng.integers(-8, 9, (e, x_)).astype(np.float32) / 64,
+         "wg": rng.standard_normal((x_, e, f)).astype(np.float32) / np.sqrt(e),
+         "wu": rng.standard_normal((x_, e, f)).astype(np.float32) / np.sqrt(e),
+         "wd": rng.standard_normal((x_, f, e)).astype(np.float32) / np.sqrt(f)}
+    own = np.zeros_like(w["wd"])
+    own[np.arange(x_), :, np.arange(x_)] = 1.0 + np.abs(rng.standard_normal((x_, f)))
+    x = (rng.integers(-2, 3, (2, 64, e)) / 4).astype(np.float32)
+    for wd in (w["wd"], own):
+        card = {k: torch.from_numpy(v).to(dev, torch.float32 if k == "w_router"
+                                          else torch.bfloat16)
+                for k, v in {**w, "wd": wd}.items()}
+        host = {k: v.float().cpu() for k, v in card.items()}
+        got = moe.moe_ffn(card, torch.from_numpy(x).to(dev, torch.bfloat16), cfg).float().cpu()
+        want = moe.moe_ffn(host, torch.from_numpy(x), cfg.with_(dtype="float32"))
+        assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    kept = lambda out: set(map(tuple, torch.nonzero(out[..., :x_]).tolist()))  # noqa: E731
+    assert kept(got) == kept(want) and len(kept(want)) < x.shape[0] * x.shape[1] * cfg.top_k
+
+
+def test_moe_serve_and_train_on_the_card(dev, tmp_path):
+    """granite's smoke config on the card: ``launch.serve`` transcripts equal
+    ``run_reference``'s; the Fig. 7 launcher (one process a run, so its
+    deterministic settings precede its first CUDA call) reclaimed at step 2
+    and resumed ends with every chunk digest of its final CMI equal to the
+    uninterrupted run's."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core import JobStore
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import make_engine, run_reference
+
+    arch = "granite-moe-1b-a400m"
+    got = launch_serve.main(["--arch", arch, "--smoke", "--device", "cuda", "--gen", "8",
+                             "--prompt-len", "40", "--batch", "3"])["transcripts"]
+    engine = make_engine(f"model:{arch}:smoke:seed=0", device=dev)
+    reqs = launch_serve.build_requests(engine.vocab, batch=3, prompt_len=40, gen=8, seed=0)
+    assert got == run_reference(engine, reqs)
+
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    digests, losses = {}, {}
+    for name, extra in (("a", []), ("b", ["--preempt-at", "2"])):
+        store, metrics = tmp_path / name, tmp_path / f"{name}.jsonl"
+        subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                        "--smoke", "--device", "cuda", "--steps", "4", "--publish-every", "2",
+                        "--seq-len", "64", "--batch", "4", "--store", str(store),
+                        "--metrics", str(metrics), *extra], env=env, check=True, timeout=600)
+        js = JobStore(store)
+        (job_id, _), = js.svc_list_jobs()
+        man = load_manifest(js.cmi_root(job_id), js.read_job(job_id).cmi)
+        digests[name] = {p: [c.hash for c in e.chunks] for p, e in man.arrays.items()}
+        losses[name] = [r["loss"] for r in map(json.loads, metrics.read_text().splitlines())
+                        if r["event"] == "step"]
+    assert digests["a"] == digests["b"] and losses["a"] == losses["b"] and len(losses["a"]) == 4
