@@ -20,7 +20,9 @@ with nvcc and prints one JSON line per phase:
              (cuobjdump) and a 4-instruction floor beside the bound; K3's bf16
              cases at D = 64 and 128 run its tensor-core kernel, whose own
              arithmetic (two PV products) has a 6 D floor beside the 4 D bound;
-             granite-moe-1b-a400m's prefill shape (head dim 64) among them
+             granite-moe-1b-a400m's prefill shape (head dim 64) among them,
+             and hymba-1.5b's (25 q / 5 kv heads, head dim 64, 4096 tokens,
+             window 2048), its SDPA yardstick given the window as a mask
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
              through a transit CMI, preempted after the match publish and
              resumed; the product equals an uninterrupted run's
@@ -82,15 +84,31 @@ with nvcc and prints one JSON line per phase:
   train_moe  the same two launcher runs for granite-moe-1b-a400m (the runs
              keep 4 of 24 layers, widths kept), its full-depth step timed
              and profiled in this process, K3 with lse at head dim 64
+  serve_hybrid  hymba-1.5b at full width (32 layers of windowed attention
+             in parallel with SSD heads): 4 requests of 4096 prompt tokens,
+             past the 2048-token window, and 32 generated; 4 x 32 K3
+             launches, all tensor-core, each with the window; transcripts
+             equal ``run_reference``'s; one request resumed with zero
+             re-prefill from a CMI holding its SSD states; one hybrid layer
+             on the card against the float32 CPU path; where the time goes
+  train_hybrid  the two launcher runs for hymba at 2 x 4096 tokens a step
+             (the runs keep 1 of 32 layers), every loss finite; its
+             full-depth step in this process; K3 with lse at its heads and
+             window
+  xlstm      xlstm-1.3b at full width (48 mLSTM layers, no attention, no
+             TPU kernel): served as the serve phase is, transcripts equal,
+             one request resumed with zero re-prefill from its 202 MB mLSTM
+             state; full-depth training steps in this process
   disk       the bytes each phase wrote (``/proc/self/io`` where the kernel
              counts them, else the files left), held under 40 GiB: the chip
              machine takes at most 45 GiB of writes a call
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
 made on its main paths (K1 and K2: the itinerary, publish and fabric phases,
-the fabric's counted inside the workers too; K3: the serve and serve_moe
-phases' ``main``, the serving workers' prefills and the training runs of
-both models, each counted inside its launcher process), the nvidia-smi
+the fabric's counted inside the workers too; K3: the serve, serve_moe and
+serve_hybrid phases' ``main``, the serving workers' prefills and the
+training runs of the three attention models, each counted inside its
+launcher process), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
@@ -135,18 +153,26 @@ BF16_TOL = 2e-2  # tests/test_kernels.py's bfloat16 tolerance
 BF16_ROUNDING = 2.0 ** -8  # one round to nearest bf16 moves x by at most 2**-8 |x|
 # the serve phase: qwen3-1.7b at full width, the CLI's requests, and the
 # request published and resumed; serve_moe the same for granite-moe-1b-a400m
-SERVE_SPEC = "model:qwen3-1.7b:full:seed=0"
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_SPEC = f"model:{SERVE_ARCH}:full:seed=0"
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_SERVE_SPEC = f"model:{MOE_ARCH}:full:seed=0"
 PROMPT_LEN, GEN, BATCH = 2048, 32, 4
+# serve_hybrid: hymba-1.5b's prompts pass its 2048-token attention window,
+# so K3 runs windowed and decode's rolling cache wraps; xlstm the mLSTM
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_SERVE_SPEC = f"model:{HYBRID_ARCH}:full:seed=0"
+HYBRID_PROMPT_LEN = 4096
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_SERVE_SPEC = f"model:{XLSTM_ARCH}:full:seed=0"
 
 
-def serve_argv(arch: str) -> list[str]:
-    return ["--arch", arch, "--prompt-len", str(PROMPT_LEN), "--gen", str(GEN),
+def serve_argv(arch: str, prompt_len: int = PROMPT_LEN) -> list[str]:
+    return ["--arch", arch, "--prompt-len", str(prompt_len), "--gen", str(GEN),
             "--batch", str(BATCH), "--seed", "0", "--device", "cuda"]
 
 
-SERVE_ARGV = serve_argv("qwen3-1.7b")
+SERVE_ARGV = serve_argv(SERVE_ARCH)
 PUBLISH_EVERY = 16
 DROP_AT_DONE = 24  # the first host is dropped here; its last publish is at done 17
 # the serving fleet: two workers, a live migration after 8 rounds, a SIGKILL at 20
@@ -158,25 +184,29 @@ CHAOS_CELLS = ("hop.before_restore:sigkill", "relay.mid_stream:kill_conn",
 # tokens, run B reclaimed after step 2 (8,192 tokens a step; the train state
 # is ~24.1 GB, so each publish writes that much)
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_PREEMPT_AT = "qwen3-1.7b", 4, 2048, 4, 2
+# train_hybrid: hymba at 2 x 4096 (8,192 tokens a step too), so the window
+# binds in the training forward
+HYBRID_TRAIN_SEQ, HYBRID_TRAIN_BATCH = 4096, 2
 
 
-def train_argv(arch: str) -> list[str]:
-    return ["--arch", arch, "--steps", str(TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
-            "--batch", str(TRAIN_BATCH), "--publish-every", str(TRAIN_STEPS), "--seed", "0",
+def train_argv(arch: str, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH) -> list[str]:
+    return ["--arch", arch, "--steps", str(TRAIN_STEPS), "--seq-len", str(seq),
+            "--batch", str(batch), "--publish-every", str(TRAIN_STEPS), "--seed", "0",
             "--device", "cuda", "--log-every", "1"]
 
 
 # The chip machine's disk takes at most 45 GiB of writes a call, deleted or
 # not; the other phases take ~4 GB of it (the fleet's cache publishes most),
-# and the three train-state CMIs of the two runs (~24.1 GB each at 28
-# layers) would take 67 GiB. So the runs cut depth (never width) to the most
-# layers whose three CMIs fit this budget: 4 of 28 (7.18 GB a CMI; 6 layers'
-# 8.58 GB left too little for train_moe's); the profiled step and the K3
-# checks, which write nothing, run at full depth.
-TRAIN_WRITE_BUDGET = 21 * 2**30
-# train_moe: granite's train state is 14 bytes a parameter too (18.7 GB at
-# 24 layers, 3.70 GB at 4), so its three CMIs get a budget of their own
+# and the three train-state CMIs of each model's two runs (14 bytes a
+# parameter: ~24.1 GB each for qwen3 at 28 layers) would take far more. So
+# each model's runs cut depth (never width) to the most layers whose three
+# CMIs fit its budget: qwen3 2 of 28 (5.77 GB a CMI, 16.1 GiB for three),
+# granite 4 of 24 (3.70 GB), hymba 1 of 32 (1.98 GB: its untied 32,001-row
+# embeddings are most of it). The profiled steps and the K3 checks, which
+# write nothing, run at full depth.
+TRAIN_WRITE_BUDGET = 17 * 2**30
 MOE_TRAIN_WRITE_BUDGET = 12 * 2**30
+HYBRID_TRAIN_WRITE_BUDGET = 6 * 2**30
 # what the whole smoke may write (the machine's limit is 45 GiB a call)
 DISK_WRITE_LIMIT = 40 * 2**30
 # profiler ranges whose kernels form groups of their own
@@ -184,13 +214,19 @@ RANGES = {"flash_attention_backward": "attention backward (plain torch)",
           "adamw_update": "optimizer (AdamW)",
           "moe_dispatch": "MoE dispatch (router, sort, searchsorted, gather, index_put)",
           "moe_experts": "MoE expert GEMMs (bmm)",
-          "moe_combine": "MoE combine (gather, ordered sum)"}
+          "moe_combine": "MoE combine (gather, ordered sum)",
+          "linear_recurrence": "chunked linear recurrence (SSD, mLSTM)"}
 GRAD_TOL = 1e-4  # tests/test_torch_train.py's float32 gradient tolerance (of each max)
 LSE_TOL = 1e-4  # tests/test_torch_cuda.py's lse tolerance
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - START, **fields}),
+          flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -206,22 +242,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_ms(fn, kernel: str, reps: int) -> float | None:
+def profiled_ms(fn, kernel: str, reps: int, attempts: int = 3) -> float | None:
     """Mean device time of one launch of the kernel named ``kernel`` while
-    ``fn`` runs, from torch.profiler (None where it records no device
-    time). Per recorded launch, since the profiler may drop the first."""
+    ``fn`` runs, from torch.profiler's device events. Per recorded launch,
+    since the profiler may drop the first. A session late in the smoke has
+    recorded no device event at all where the same call early on did, so
+    a session without one is tried again, up to ``attempts`` in all (None
+    if none records any)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    us = sum(getattr(e, "device_time_total", 0.0) for e in rows)
-    launches = sum(e.count for e in rows)
-    return us / launches / 1e3 if us > 0 and launches else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+        if us and sum(us) > 0:
+            return sum(us) / len(us) / 1e3
+    return None
 
 
 def ptxas_entries(log: str) -> dict:
@@ -566,6 +608,17 @@ def one_bf16_rounding(got: torch.Tensor, ref32: torch.Tensor) -> dict:
     return out
 
 
+def sdpa_backend(fn) -> str:
+    """The ATen operator SDPA dispatched ``fn``'s call to (flash, efficient,
+    cuDNN or the math fallback), read from a profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = {e.name for e in prof.events() if e.name.startswith("aten::_scaled_dot_product_")}
+    return ",".join(sorted(names)) or "aten::scaled_dot_product_attention (math)"
+
+
 def check_flash_attention(dev) -> dict:
     import torch.nn.functional as F
 
@@ -574,8 +627,9 @@ def check_flash_attention(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
     cases = []
     # the six cases of tests/test_kernels.py, then the serve prefill's shape,
-    # prefill_32k's sequence length at the same heads, and granite's prefill
-    # (head dim 64)
+    # prefill_32k's sequence length at the same heads, granite's prefill
+    # (head dim 64) and hymba's (25 q / 5 kv heads at head dim 64, 4096
+    # tokens past its 2048-token window)
     shapes = [(2, 4, 4, 128, 128, 64, True, 0, "float32"),
               (1, 8, 2, 257, 257, 64, True, 0, "float32"),
               (2, 4, 2, 200, 200, 128, True, 64, "float32"),
@@ -584,7 +638,8 @@ def check_flash_attention(dev) -> dict:
               (1, 4, 4, 64, 64, 128, True, 32, "bfloat16"),
               (1, 16, 8, 2048, 2048, 128, True, 0, "bfloat16"),
               (1, 16, 8, 32768, 32768, 128, True, 0, "bfloat16"),
-              (1, 16, 8, 2048, 2048, 64, True, 0, "bfloat16")]
+              (1, 16, 8, 2048, 2048, 64, True, 0, "bfloat16"),
+              (1, 25, 5, 4096, 4096, 64, True, 2048, "bfloat16")]
     timed = {}
     for i, (b, h, hkv, sq, sk, d, causal, window, dt) in enumerate(shapes):
         rng = np.random.default_rng(i)
@@ -613,12 +668,18 @@ def check_flash_attention(dev) -> dict:
             pairs = visible_pairs(sq, sk, causal, window)
             flops = 4 * b * h * d * pairs
             nbytes = (2 * b * h * sq + 2 * b * hkv * sk) * d * q.element_size()
-            reps = 20 if sq <= 2048 else 3
+            reps = 20 if sq <= 4096 else 3
+            # the yardstick only; the port never calls it. A window goes in
+            # as a boolean mask, which SDPA's flash backend does not take
+            mask = (torch.ones(sq, sk, dtype=torch.bool, device=dev).tril()
+                    .triu(-(window - 1)) if window > 0 else None)
 
-            def library(q=q, k=k, v=v):  # the yardstick only; the port never calls it
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+            def library(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      is_causal=mask is None, enable_gqa=True)
 
             lib_err = float((library().float() - want.float()).abs().max())
+            assert lib_err <= BF16_TOL, lib_err  # the yardstick computes the same function
             case.update({
                 "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), reps),
                 "kernel_only_ms": profiled_ms(
@@ -626,6 +687,7 @@ def check_flash_attention(dev) -> dict:
                     "flash_fwd_kernel_wgmma" if kernel == "wgmma" else "flash_fwd_kernel", reps),
                 "plain_ms": plain_ms,
                 "library_ms": cuda_ms(library, reps),
+                "library_backend": sdpa_backend(library),
                 "library_max_abs_err": lib_err,
                 "visible_pairs": pairs, "flops": flops, "bytes": nbytes,
                 "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
@@ -649,7 +711,11 @@ def check_flash_attention(dev) -> dict:
                                            "rounding_limit_use")},
             "at_32k": {key: timed[32768, 128][key] for key in at},
             "at_d64": {"shape": "q bf16[1,16,2048,64], k/v bf16[1,8,2048,64], causal",
-                       **{key: timed[2048, 64][key] for key in at}}}
+                       **{key: timed[2048, 64][key] for key in at}},
+            "at_hymba": {"shape": "q bf16[1,25,4096,64], k/v bf16[1,5,4096,64], causal, "
+                                  "window 2048",
+                         **{key: timed[4096, 64][key] for key in at + (
+                             "kernel", "visible_pairs", "flops", "bytes", "library_backend")}}}
 
 
 # ---------------------------------------------------------------------------
@@ -1040,7 +1106,8 @@ def run_fabric(root: Path, dev, calm: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_serve(metrics: dict, dev, spec: str = SERVE_SPEC, varied: bool = True) -> dict:
+def check_serve(metrics: dict, dev, spec: str = SERVE_SPEC, varied: bool = True,
+                prompt_len: int = PROMPT_LEN) -> dict:
     """The served transcripts equal ``run_reference``'s on an engine rebuilt
     from the seed, differ from request to request and (``varied``) each
     holds more than one token."""
@@ -1048,7 +1115,7 @@ def check_serve(metrics: dict, dev, spec: str = SERVE_SPEC, varied: bool = True)
     from repro_torch.serve import make_engine, run_reference
 
     engine = make_engine(spec, device=dev)
-    requests = launch_serve.build_requests(engine.vocab, batch=BATCH, prompt_len=PROMPT_LEN,
+    requests = launch_serve.build_requests(engine.vocab, batch=BATCH, prompt_len=prompt_len,
                                            gen=GEN, seed=0)
     t0 = time.perf_counter()
     reference = run_reference(engine, requests)
@@ -1078,7 +1145,10 @@ def _leaves(tree):
 
 def run_serve_resume(root: Path, dev, engine, req: dict, want: list[int]) -> dict:
     """One request under a job: published on admit and every 16 steps, its
-    host dropped at done 24, resumed by a new host from the CMI of done 17."""
+    host dropped at done 24, resumed by a new host from the CMI of done 17.
+    Every decode step changes every layer's cache (a k/v row, a recurrent
+    state), so each publish writes the whole cache; ``cmi_cache_arrays``
+    are the cache leaves of the CMI resumed from, with their bytes."""
     from repro_torch.checkpoint.fsck import fsck_store
     from repro_torch.checkpoint.serializer import load_manifest
     from repro_torch.core import DHP, NBS, JobStore
@@ -1097,8 +1167,11 @@ def run_serve_resume(root: Path, dev, engine, req: dict, want: list[int]) -> dic
 
     def on_publish(job_id, status, name):
         if name in opened:
-            stats = load_manifest(store.cmi_root(job_id), name).extra["stats"]
+            man = load_manifest(store.cmi_root(job_id), name)
+            stats = man.extra["stats"]
             publishes.append({"cmi": name, "publish_s": time.perf_counter() - opened.pop(name),
+                              "cache_arrays": {p: e.nbytes for p, e in man.arrays.items()
+                                               if p.startswith("caches/")},
                               "written_bytes": stats["written_bytes"],
                               "ref_bytes": stats["ref_bytes"], "chunks": stats["chunks"],
                               "ref_chunks": stats["ref_chunks"]})
@@ -1123,7 +1196,8 @@ def run_serve_resume(root: Path, dev, engine, req: dict, want: list[int]) -> dic
     resume_s = time.perf_counter() - t0
     resumed_at = res["done"]
     assert resumed_at == 1 + PUBLISH_EVERY, resumed_at
-    assert host2.active[req["id"]]["caches"]["g0"]["k"].device.type == engine.device.type
+    assert all(t.device.type == engine.device.type
+               for t in _leaves(host2.active[req["id"]]["caches"]))
     got = [tok for _, tok in res["tokens"]]
     while host2.active:
         got += [tok for _, tok in host2.step()["tokens"].get(req["id"], [])]
@@ -1132,14 +1206,19 @@ def run_serve_resume(root: Path, dev, engine, req: dict, want: list[int]) -> dic
     report = fsck_store(store.cmi_root(job.job_id))
     assert report.clean, report.summary()
     assert store.read_job(job.job_id).status == STATUS_FINISHED
-    cfg = engine.cfg
-    kv_bytes = 2 * cfg.n_layers * (PROMPT_LEN + GEN) * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    cache = engine.model.cache_struct(1, len(req["prompt"]) + GEN)
+    cache_bytes = sum(math.prod(s.shape) * torch.empty((), dtype=s.dtype).element_size()
+                      for s in _leaves(cache))
     assert len(publishes) == 2
-    for pub in publishes:  # every layer's cache rows changed: the whole cache is written
-        assert pub["written_bytes"] >= kv_bytes, (pub, kv_bytes)
+    cache_arrays = publishes[0].pop("cache_arrays")
+    assert publishes[1].pop("cache_arrays") == cache_arrays  # the CMI resumed from
+    assert sum(cache_arrays.values()) == cache_bytes, (cache_arrays, cache_bytes)
+    for pub in publishes:  # every layer's cache changed: the whole cache is written
+        assert pub["written_bytes"] >= cache_bytes, (pub, cache_bytes)
     assert publishes[1]["ref_bytes"] > 0  # the unchanged prompt is referenced, not rewritten
     return {"resumed_at_done": resumed_at, "dropped_at_done": DROP_AT_DONE,
-            "resume_s": resume_s, "kv_cache_bytes": kv_bytes, "publishes": publishes,
+            "resume_s": resume_s, "cache_bytes": cache_bytes,
+            "cmi_cache_arrays": cache_arrays, "publishes": publishes,
             "transcript_equal": True, "reprefills": host2.counters["prefills"],
             "fsck": report.summary()}
 
@@ -1257,6 +1336,44 @@ def profile_serve(engine, prompt: list[int], steps: int = 8) -> dict:
     return out
 
 
+def serve_counted(dev, arch: str, prompt_len: int = PROMPT_LEN) -> tuple[dict, dict, dict, int]:
+    """``launch.serve.main`` for ``arch`` at full width, every kernel's
+    count set to 0 just before and read just after: (metrics, launches,
+    the ``window`` of each call the model made to K3, peak memory)."""
+    from collections import Counter
+
+    from repro_torch.kernels.colocate import ops as colocate_ops
+    from repro_torch.kernels.delta_encode import ops as delta_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import attention as attn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel, windows = attn.flash_attention, Counter()
+
+    def seen(*args, **kw):  # records the call, then the wrapper launches and counts
+        windows[kw.get("window", 0)] += 1
+        return kernel(*args, **kw)
+
+    delta_ops.changed_blocks.launches = 0
+    colocate_ops.colocate_match.launches = 0
+    flash_ops.flash_attention.launches = 0
+    flash_ops.flash_attention.wgmma_launches = 0
+    attn.flash_attention = seen
+    try:
+        metrics = launch_serve.main(serve_argv(arch, prompt_len))
+        torch.cuda.synchronize()
+    finally:
+        attn.flash_attention = kernel
+    launches = {"delta_encode": delta_ops.changed_blocks.launches,
+                "colocate": colocate_ops.colocate_match.launches,
+                "flash_attention": flash_ops.flash_attention.launches,
+                "flash_attention_wgmma": flash_ops.flash_attention.wgmma_launches}
+    return metrics, launches, dict(windows), torch.cuda.max_memory_allocated(dev)
+
+
 def run_serve_moe(root: Path, dev) -> dict:
     """granite-moe-1b-a400m at full width through ``launch.serve.main`` with
     the serve phase's traffic: K3 launches counted from 0 just before and
@@ -1266,26 +1383,9 @@ def run_serve_moe(root: Path, dev) -> dict:
     and where a prefill's and a decode step's time goes, the MoE dispatch,
     expert GEMMs and combine as groups of their own."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.colocate import ops as colocate_ops
-    from repro_torch.kernels.delta_encode import ops as delta_ops
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.launch import serve as launch_serve
     from repro_torch.models import moe
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    delta_ops.changed_blocks.launches = 0
-    colocate_ops.colocate_match.launches = 0
-    flash_ops.flash_attention.launches = 0
-    flash_ops.flash_attention.wgmma_launches = 0
-    metrics = launch_serve.main(serve_argv(MOE_ARCH))
-    torch.cuda.synchronize()
-    launches = {"delta_encode": delta_ops.changed_blocks.launches,
-                "colocate": colocate_ops.colocate_match.launches,
-                "flash_attention": flash_ops.flash_attention.launches,
-                "flash_attention_wgmma": flash_ops.flash_attention.wgmma_launches}
-    peak = torch.cuda.max_memory_allocated(dev)
+    metrics, launches, _, peak = serve_counted(dev, MOE_ARCH)
     # The reference's init scales an expert's weights by the fan-in over all
     # experts (1/sqrt(X E), 1/sqrt(X F)), so with random weights the MoE's
     # output is ~1 % of the attention's and greedy decoding may repeat one
@@ -1400,6 +1500,120 @@ def time_dispatch_scatter(dev, cfg) -> dict:
         out[f"ms_with_{dup}_on_one_slot"] = cuda_ms(lambda idx=idx: torch.zeros(
             (x_, cap, e), dtype=torch.bfloat16, device=dev).index_put(idx, vals, accumulate=True), 20)
     return out
+
+
+def run_serve_hybrid(root: Path, dev) -> dict:
+    """hymba-1.5b at full width through ``launch.serve.main``: 4 requests of
+    4096 prompt tokens, past its 2048-token window, and 32 generated (the
+    first decode writes slot 0 of the rolling cache again). K3 counted from
+    0 just before and read just after: one launch a layer a prefill (4 x
+    32), all on the tensor cores, every call with the window. Transcripts
+    equal ``run_reference``'s; one request published, dropped and resumed
+    with zero re-prefill, its SSD states in the CMI; prefill logits with K3
+    against the plain attention; one hybrid layer on the card against the
+    float32 CPU path; where a prefill's and a decode step's time goes."""
+    from repro_torch.configs import get_config
+
+    metrics, launches, windows, peak = serve_counted(dev, HYBRID_ARCH, HYBRID_PROMPT_LEN)
+    served = check_serve(metrics, dev, spec=HYBRID_SERVE_SPEC, prompt_len=HYBRID_PROMPT_LEN)
+    engine, req = served["engine"], served["requests"][0]
+    cfg = engine.cfg
+    assert cfg == get_config(HYBRID_ARCH) and 0 < cfg.window < HYBRID_PROMPT_LEN, cfg  # nothing cut
+    per_run = BATCH * cfg.n_layers
+    assert launches == {"delta_encode": 0, "colocate": 0, "flash_attention": per_run,
+                        "flash_attention_wgmma": per_run}, launches
+    assert windows == {cfg.window: per_run}, windows
+    resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
+    ssd = {p: n for p, n in resume["cmi_cache_arrays"].items() if p.endswith("/ssd")}
+    assert list(ssd.values()) == [cfg.n_layers * cfg.n_heads * cfg.ssm_state
+                                  * cfg.resolved_head_dim * 4], resume["cmi_cache_arrays"]
+    in_model = check_model_kernel_vs_plain(engine, req["prompt"])
+    on_card = check_hybrid_on_card(dev, cfg)
+    trace = profile_serve(engine, req["prompt"])
+    assert trace["prefill"]["groups_ms"].get(RANGES["linear_recurrence"], 0) > 0, trace
+    return {**served["line"],
+            "config": {"arch": HYBRID_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+                       "window": cfg.window, "ssm_state": cfg.ssm_state, "chunk": cfg.chunk,
+                       "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+                       "params": cfg.param_count()},
+            "prompt_len": HYBRID_PROMPT_LEN, "resume": resume,
+            "kernel_vs_plain_in_model": in_model, "hybrid_layer_on_card": on_card,
+            "where_the_time_goes": trace, "launches": launches, "k3_windows": windows,
+            "k3_launches_per_prefill": cfg.n_layers, "peak_memory_bytes": peak}
+
+
+def check_hybrid_on_card(dev, cfg) -> dict:
+    """One hymba layer (the windowed attention ‖ the SSD, then the SwiGLU
+    FFN; random weights from seed 19) at the serve prompt's 4096 tokens on
+    the card against the same layer on the CPU in float32 (the port's CPU
+    path, which the CPU tests hold against the JAX package), from the same
+    bf16-exact weights and inputs: the layer's output, its k/v cache and
+    its SSD state. On the card in bf16, the main path's arithmetic (K3's
+    tensor-core kernel), within 2e-2 of each one's largest magnitude; in
+    float32 (K3's CUDA-core kernel, TF32 off) within 1e-4 of it."""
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import flatten_with_paths, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(19)
+    layer = tf._layer(Model(cfg.with_(n_layers=1)).init(gen)["blocks"]["g0"], 0)
+    x = torch.randn((1, HYBRID_PROMPT_LEN, cfg.d_model), generator=gen).to(torch.bfloat16)
+    s_max = HYBRID_PROMPT_LEN + GEN
+
+    def run(pl, xin):
+        y, cache = tf.block_prefill(pl, xin, cfg, "hybrid", "dense", 0, s_max)
+        return {"out": y, **flatten_with_paths(cache)[0]}
+
+    want = run(tree_map(lambda t: t.float(), layer), x.float())
+    out = {}
+    for label, dtype, tol in (("bf16", None, BF16_TOL), ("float32", torch.float32, GRAD_TOL)):
+        pl = tree_map(lambda t: t.to(dev, dtype or t.dtype), layer)
+        got = run(pl, x.to(dev, dtype or x.dtype))
+        res = {}
+        for key, w in want.items():
+            g = got[key].float().cpu()
+            assert g.shape == w.shape and torch.isfinite(g).all(), (label, key)
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            assert err <= tol * scale, (label, key, err, scale)
+            res[key] = {"max_abs_err": err, "max_abs": scale}
+        out[label] = {"tol": f"{tol} of the max", **res}
+    return out
+
+
+def run_xlstm(root: Path, dev) -> dict:
+    """xlstm-1.3b at full width: served through ``launch.serve.main`` (4
+    requests of 2048 prompt tokens, 32 generated; every kernel counted from
+    0 just before and read just after, and none launched: the mLSTM is
+    matrix products and elementwise work that the JAX package runs outside
+    any Pallas kernel), transcripts equal ``run_reference``'s, one request
+    published, dropped and resumed with zero re-prefill from its 202 MB
+    mLSTM state; then full-depth training steps in this process, timed,
+    with finite losses and the peak memory."""
+    from repro_torch.configs import get_config
+
+    metrics, launches, windows, peak = serve_counted(dev, XLSTM_ARCH)
+    served = check_serve(metrics, dev, spec=XLSTM_SERVE_SPEC)
+    engine, req = served["engine"], served["requests"][0]
+    cfg = engine.cfg
+    assert cfg == get_config(XLSTM_ARCH), cfg
+    assert launches == {"delta_encode": 0, "colocate": 0, "flash_attention": 0,
+                        "flash_attention_wgmma": 0} and not windows, (launches, windows)
+    resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
+    dh = cfg.resolved_head_dim
+    assert list(resume["cmi_cache_arrays"].values()) == [cfg.n_layers * cfg.n_heads * dh
+                                                         * (dh + 1) * 4], resume
+    line = {**served["line"],
+            "config": {"arch": XLSTM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.n_heads, dh], "chunk": cfg.chunk, "vocab": cfg.vocab,
+                       "dtype": cfg.dtype, "params": cfg.param_count()},
+            "resume": resume, "launches": launches, "peak_memory_bytes": peak,
+            "tpu_kernels": "none: the JAX package runs the mLSTM outside any Pallas kernel"}
+    del served, engine
+    torch.cuda.reset_peak_memory_stats(dev)
+    line["full_depth_step"] = profile_train(dev, cfg.n_layers, XLSTM_ARCH)
+    return line
 
 
 def train_files(root: Path, train: dict) -> int:
@@ -1624,14 +1838,14 @@ def train_depth(cfg, free_bytes: int, budget: int) -> int:
 
 
 
-def _launch_train(root: Path, name: str, store: Path, arch: str, extra: list[str]) -> list[dict]:
+def _launch_train(root: Path, name: str, store: Path, argv: list[str]) -> list[dict]:
     """One launcher process on the card; its --metrics records."""
     metrics, log = root / f"{name}.jsonl", root / f"{name}.log"
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
     with open(log, "w") as out:
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *train_argv(arch),
-                               *extra, "--store", str(store), "--metrics", str(metrics)],
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv,
+                               "--store", str(store), "--metrics", str(metrics)],
                               stdout=out, stderr=subprocess.STDOUT, env=env, timeout=900)
     if proc.returncode:
         raise RuntimeError(f"train run {name} exited {proc.returncode}:\n"
@@ -1643,21 +1857,16 @@ def _digests(man) -> dict:
     return {path: [c.hash for c in entry.chunks] for path, entry in man.arrays.items()}
 
 
-def train_step_flops(cfg) -> int:
-    """Model FLOPs of one step at the phase's shape, by the launcher's own
-    count (6 N T with N the active parameters, plus attention)."""
-    from repro_torch.launch.train import step_flops
-
-    return step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-
-
-def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDGET) -> dict:
+def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDGET,
+              seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH) -> dict:
     """Run B (reclaimed at step 2, resumed) then run A (uninterrupted), one
-    launcher process each on one job store; B's step-2 CMI is dropped once
-    B has finished, so the disk holds two train states at a time."""
+    launcher process each on one job store, ``batch`` x ``seq`` tokens a
+    step; B's step-2 CMI is dropped once B has finished, so the disk holds
+    two train states at a time."""
     from repro_torch.checkpoint import SaveOptions, load_checkpoint, load_manifest, save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core import JobStore
+    from repro_torch.launch.train import step_flops
 
     root.mkdir(parents=True, exist_ok=True)
     cfg = get_config(arch)
@@ -1670,8 +1879,8 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
     torch.cuda.empty_cache()  # the launchers need the card's memory
 
     t0 = time.perf_counter()
-    rec = {"B": _launch_train(root, "B", store, arch,
-                              extra + ["--preempt-at", str(TRAIN_PREEMPT_AT)])}
+    argv = train_argv(arch, seq, batch) + extra
+    rec = {"B": _launch_train(root, "B", store, argv + ["--preempt-at", str(TRAIN_PREEMPT_AT)])}
     wall = {"B": time.perf_counter() - t0}
     js = JobStore(store)
     end = {"B": rec["B"][-1]}
@@ -1680,7 +1889,7 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
              for cmi in (r["cmi"] for r in rec["B"] if r["event"] == "publish")}
     js.gc_cmis(job["B"].job_id, keep_last=1)
     t0 = time.perf_counter()
-    rec["A"] = _launch_train(root, "A", store, arch, extra)
+    rec["A"] = _launch_train(root, "A", store, argv)
     wall["A"] = time.perf_counter() - t0
     end["A"] = rec["A"][-1]
     job["A"] = js.read_job(end["A"]["job_id"])
@@ -1719,7 +1928,7 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
 
     step_s = {k: [r["s"] for r in rec[k] if r["event"] == "step"] for k in "AB"}
     median_s = statistics.median(step_s["A"][1:])  # steps 2-4: step 1 warms up
-    flops = train_step_flops(cfg)
+    flops = step_flops(cfg, batch, seq)
     assert all(r["model_flops_per_step"] == flops for k in "AB" for r in rec[k]
                if r["event"] == "start")
     publish = {k: [{"step": r["step"], "s": r["s"], "cmi": r["cmi"],
@@ -1736,14 +1945,16 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
                    "params": cfg.param_count(), "active_params": cfg.active_param_count(),
                    **({"experts": [cfg.n_experts, cfg.top_k, cfg.resolved_moe_d_ff],
                        "capacity_factor": cfg.capacity_factor} if cfg.moe else {}),
-                   "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+                   **({"window": cfg.window} if cfg.window else {}),
+                   **({"ssm_state": cfg.ssm_state, "chunk": cfg.chunk} if cfg.ssm else {}),
+                   "batch": batch, "seq_len": seq,
                    "steps": TRAIN_STEPS, "preempt_at": TRAIN_PREEMPT_AT},
         "depth_cut": None if not extra else {"layers": layers, "of": get_config(arch).n_layers},
         "disk_free_before_bytes": free, "state_bytes": state_nbytes,
         "write_budget_bytes": budget,
         "bitwise_equal": True, "losses": [loss for _, loss in steps["A"]],
         "step_s": step_s, "step_s_median_2_4": median_s,
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_s,
+        "tokens_per_s": batch * seq / median_s,
         "model_flops_per_step": flops, "model_tflops": flops / median_s / 1e12,
         "model_flops_share_of_bf16_peak": flops / median_s / BF16_FLOPS,
         "publish": publish, "restart_s": restart["s"], "restart_bytes": state_nbytes,
@@ -1755,52 +1966,59 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
     }
 
 
-def profile_train(dev, layers: int, arch: str = TRAIN_ARCH) -> dict:
+def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ,
+                  batch: int = TRAIN_BATCH) -> dict:
     """Train steps at the phase's shape in this process (not deterministic
     mode; nothing published): one to warm up, three timed (their median,
-    tokens/s, model TFLOP/s, peak memory), then one profiled: device time by
-    kernel group (:func:`device_groups`: K3's backward, AdamW and the MoE
-    phases by their ranges), the device's idle share, K3 launches."""
+    tokens/s, model TFLOP/s, peak memory, every loss finite), then one
+    profiled: device time by kernel group (:func:`device_groups`: K3's
+    backward, AdamW, the MoE phases and the chunked recurrence by their
+    ranges), the device's idle share, K3 launches (none for the mLSTM)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed.steps import batch_to_device, make_init_fn, make_train_step
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import step_flops
     from repro_torch.optim import AdamWConfig
 
     cfg = get_config(arch).with_(n_layers=layers)
     opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
     state = make_init_fn(cfg, opt_cfg, seed=0, device=dev)()
     step = make_train_step(cfg, opt_cfg, peak_lr=3e-3, warmup=5, total_steps=TRAIN_STEPS)
-    pipe = TokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
-    batch = batch_to_device(pipe.batch_at({"data_step": 0, "seed": 0})[0], dev)
-    unprofiled = []
+    pipe = TokenPipeline(cfg, seq, batch, seed=0)
+    tokens = batch_to_device(pipe.batch_at({"data_step": 0, "seed": 0})[0], dev)
+    unprofiled, losses = [], []
     for _ in range(4):  # the first warms up
         t0 = time.perf_counter()
-        step(state, batch)
+        _, m = step(state, tokens)
         torch.cuda.synchronize()
         unprofiled.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    assert all(math.isfinite(loss) for loss in losses), losses
     before = flash_attention.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch)
+        step(state, tokens)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     k3_launches = flash_attention.launches - before
-    assert k3_launches == 2 * layers, k3_launches  # forward + remat recompute, every layer
-    del state, batch
+    want_k3 = 0 if cfg.mlstm else 2 * layers  # forward + remat recompute, every layer
+    assert k3_launches == want_k3, (k3_launches, want_k3)
+    del state, tokens
     gc.collect()
     torch.cuda.empty_cache()
     split = device_groups(prof)
     device, busy = split["device"], split["busy_us"]
     k3_kernels = sum("flash_fwd_kernel" in e.name for e in device)
     k3_wgmma = sum("flash_fwd_kernel_wgmma" in e.name for e in device)
-    assert k3_wgmma == k3_kernels > 0, (k3_wgmma, k3_kernels)  # all on the tensor cores
+    assert k3_wgmma == k3_kernels and (k3_kernels > 0) == (want_k3 > 0), (k3_wgmma, k3_kernels)
     step_s = statistics.median(unprofiled[1:])
-    flops = train_step_flops(cfg)
-    return {"n_layers": cfg.n_layers, "unprofiled_step_s": unprofiled,
-            "step_s_median_2_4": step_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+    flops = step_flops(cfg, batch, seq)
+    return {"n_layers": cfg.n_layers, "batch": batch, "seq_len": seq, "losses": losses,
+            "unprofiled_step_s": unprofiled,
+            "step_s_median_2_4": step_s, "tokens_per_s": batch * seq / step_s,
             "model_flops_per_step": flops, "model_tflops": flops / step_s / 1e12,
             "model_flops_share_of_bf16_peak": flops / step_s / BF16_FLOPS,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
@@ -1811,13 +2029,14 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH) -> dict:
             "groups_ms": split["groups_ms"], "top_kernels_ms": split["top_kernels_ms"]}
 
 
-def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True) -> dict:
-    """K3 with lse against its plain version at ``arch``'s heads and the
-    training shape; its time with and without lse, SDPA's forward (saving
-    its lse for a backward) and backward, and the plain attention backward,
-    at the serve and the training shapes; then (``gradients``) a 2-layer
-    float32 model's gradients with K3 against plain attention under
-    autograd."""
+def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True,
+                      seq: int = TRAIN_SEQ, batches: tuple[int, ...] = (1, TRAIN_BATCH)) -> dict:
+    """K3 with lse against its plain version at ``arch``'s heads and window
+    and ``seq`` tokens; its time with and without lse, SDPA's forward
+    (saving its lse for a backward; a window as a boolean mask) and
+    backward, and the plain attention backward, at the serve and the
+    training batch; then (``gradients``) a 2-layer float32 model's
+    gradients with K3 against plain attention under autograd."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -1827,55 +2046,62 @@ def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True) -> di
     from repro_torch.utils import flatten_with_paths
 
     cfg = get_config(arch)
-    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, hkv, d, win = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.window
+    mask = torch.ones(seq, seq, dtype=torch.bool, device=dev).tril().triu(-(win - 1)) if win else None
+    sdpa_kw = {"attn_mask": mask, "is_causal": mask is None, "enable_gqa": True}
     out = {}
-    for label, b in (("serve_shape", 1), ("train_shape", TRAIN_BATCH)):
+    for label, b in zip(("serve_shape", "train_shape"), batches):
         rng = np.random.default_rng(b)
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
-            dev, torch.bfloat16) for shape in ((b, h, TRAIN_SEQ, d), (b, hkv, TRAIN_SEQ, d),
-                                              (b, hkv, TRAIN_SEQ, d), (b, h, TRAIN_SEQ, d)))
-        got, lse = flash_ops._forward(q, k, v, True, 0, None, True)
-        assert torch.equal(got, flash_ops.flash_attention(q, k, v, causal=True))
+            dev, torch.bfloat16) for shape in ((b, h, seq, d), (b, hkv, seq, d),
+                                              (b, hkv, seq, d), (b, h, seq, d)))
+        got, lse = flash_ops._forward(q, k, v, True, win, None, True)
+        assert torch.equal(got, flash_ops.flash_attention(q, k, v, causal=True, window=win))
         t0 = time.perf_counter()
-        want, want_lse = flash_ops.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+        want, want_lse = flash_ops.flash_attention_plain(q, k, v, causal=True, window=win,
+                                                         return_lse=True)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         lse_err = float((lse - want_lse).abs().max())
         assert lse_err <= LSE_TOL, lse_err
         rounding = one_bf16_rounding(got, flash_ops.flash_attention_plain(
-            q.float(), k.float(), v.float(), causal=True))
+            q.float(), k.float(), v.float(), causal=True, window=win))
         t0 = time.perf_counter()
-        grads = flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout)
+        grads = flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout, window=win)
         torch.cuda.synchronize()
         bwd_first_ms = (time.perf_counter() - t0) * 1e3
         assert all(torch.isfinite(g).all() for g in grads)
         del grads
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-        pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, 0)
+        sdpa = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+        pairs = visible_pairs(seq, seq, True, win)
         fwd_flops, bwd_flops = 4 * b * h * d * pairs, 10 * b * h * d * pairs
-        nbytes = (2 * b * h + 2 * b * hkv) * TRAIN_SEQ * d * 2
+        nbytes = (2 * b * h + 2 * b * hkv) * seq * d * 2
         out[label] = {
-            "shape": f"q bf16[{b},{h},{TRAIN_SEQ},{d}], k/v bf16[{b},{hkv},{TRAIN_SEQ},{d}], causal",
+            "shape": f"q bf16[{b},{h},{seq},{d}], k/v bf16[{b},{hkv},{seq},{d}], causal"
+                     + (f", window {win}" if win else ""),
             "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
             "rounding_limit_use": rounding["rounding_limit_use"],
-            "ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, 0, None, False), 20),
-            "lse_ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, 0, None, True), 20),
+            "ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, win, None, False), 20),
+            "lse_ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, win, None, True), 20),
             "lse_kernel_only_ms": profiled_ms(
-                lambda: flash_ops._forward(q, k, v, True, 0, None, True),
+                lambda: flash_ops._forward(q, k, v, True, win, None, True),
                 "flash_fwd_kernel_wgmma", 20),
             "plain_ms": plain_ms,
             "library_sdpa_forward_with_lse_ms": cuda_ms(
-                lambda: F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True),
-                20),
+                lambda: F.scaled_dot_product_attention(*leaves, **sdpa_kw), 20),
+            "library_sdpa_backend": sdpa_backend(
+                lambda: F.scaled_dot_product_attention(*leaves, **sdpa_kw)),
             "library_sdpa_backward_ms": cuda_ms(
                 lambda: torch.autograd.grad(sdpa, leaves, dout, retain_graph=True), 10),
             "attention_backward_plain_ms": cuda_ms(
-                lambda: flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout), 3),
+                lambda: flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout,
+                                                                 window=win), 3),
             "attention_backward_plain_first_ms": bwd_first_ms,
+            "visible_pairs": pairs,
             "forward_bound_ms": max(fwd_flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
             "backward_bound_ms": max(bwd_flops / BF16_FLOPS,
-                                     (nbytes * 2 + b * h * TRAIN_SEQ * (d * 2 + 4))
+                                     (nbytes * 2 + b * h * seq * (d * 2 + 4))
                                      / HBM_BYTES_PER_S) * 1e3,
             "backward_bound_by": "operations",
         }
@@ -1890,7 +2116,7 @@ def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True) -> di
     model = Model(small)
     params = model.init(torch.Generator(dev).manual_seed(0))
     rng = np.random.default_rng(3)
-    tokens = torch.from_numpy(rng.integers(0, small.vocab, (1, TRAIN_SEQ + 1))).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, small.vocab, (1, seq + 1))).to(dev)
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
     def loss_and_grads():
@@ -1913,7 +2139,7 @@ def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True) -> di
              for key, g in grads.items()}
     assert max(worst.values()) <= GRAD_TOL, worst
     out["model_gradients"] = {
-        "config": "qwen3-1.7b widths, 2 layers, float32, B1 S2048", "loss": float(loss.detach()),
+        "config": f"{arch} widths, 2 layers, float32, B1 S{seq}", "loss": float(loss.detach()),
         "loss_plain_attention": float(want_loss.detach()), "k3_launches": k3_runs,
         "max_rel_err": max(worst.values()), "worst_leaf": max(worst, key=worst.get),
         "tol": f"{GRAD_TOL} of each gradient's max"}
@@ -1929,8 +2155,6 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.colocate import ops as colocate_ops
     from repro_torch.kernels.delta_encode import ops as delta_ops
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.launch import serve as launch_serve
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1967,6 +2191,13 @@ def main() -> int:
         k3 = check_flash_attention(dev)
         emit("kernels", delta_encode=k1, colocate=k2, flash_attention=k3,
              disk=disk.mark("kernels", 0))
+        # K3 with lse at each trained model's heads, reported in its train
+        # line; run here, where the profiler records the kernel's own time
+        # (after the later phases its sessions have recorded no device event)
+        k3_train = check_k3_training(dev)
+        k3_train_moe = check_k3_training(dev, MOE_ARCH, gradients=False)
+        k3_train_hybrid = check_k3_training(dev, HYBRID_ARCH, gradients=False,
+                                            seq=HYBRID_TRAIN_SEQ, batches=(1, HYBRID_TRAIN_BATCH))
 
         # the main path: counts from 0 just before, read just after
         delta_ops.changed_blocks.launches = 0
@@ -2011,18 +2242,9 @@ def main() -> int:
         del fab
 
         # the serve path: counts from 0 just before, read just after
-        delta_ops.changed_blocks.launches = 0
-        colocate_ops.colocate_match.launches = 0
-        flash_ops.flash_attention.launches = 0
-        flash_ops.flash_attention.wgmma_launches = 0
-        metrics = launch_serve.main(SERVE_ARGV)
-        torch.cuda.synchronize()
-        launches["flash_attention"] = flash_ops.flash_attention.launches
+        metrics, serve_launches, windows, _ = serve_counted(dev, SERVE_ARCH)
+        launches["flash_attention"] = serve_launches["flash_attention"]
         by_path["serve"] = {"flash_attention": launches["flash_attention"]}
-        serve_launches = {"delta_encode": delta_ops.changed_blocks.launches,
-                          "colocate": colocate_ops.colocate_match.launches,
-                          "flash_attention": launches["flash_attention"],
-                          "flash_attention_wgmma": flash_ops.flash_attention.wgmma_launches}
         served = check_serve(metrics, dev)
         cfg = served["engine"].cfg
         assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -2032,6 +2254,7 @@ def main() -> int:
         assert serve_launches == {"delta_encode": 0, "colocate": 0,
                                   "flash_attention": BATCH * n_layers,
                                   "flash_attention_wgmma": BATCH * n_layers}, serve_launches
+        assert windows == {0: BATCH * n_layers}, windows
         engine, req = served["engine"], served["requests"][0]
         resume = run_serve_resume(work / "serve", dev, engine, req, served["reference"][req["id"]])
         in_model = check_model_kernel_vs_plain(engine, req["prompt"])
@@ -2072,10 +2295,9 @@ def main() -> int:
         n_layers = get_config(TRAIN_ARCH).n_layers  # full depth: these write nothing
         torch.cuda.reset_peak_memory_stats(dev)
         train["full_depth_step"] = profile_train(dev, n_layers)
-        train["k3"] = check_k3_training(dev)
-        emit("train", **train, disk=disk.mark("train", train_files(work / "train", train)))
+        emit("train", **train, k3=k3_train,
+             disk=disk.mark("train", train_files(work / "train", train)))
         shutil.rmtree(work / "train", ignore_errors=True)  # room for train_moe's states
-        k3_train = train["k3"]
         del train
 
         # the MoE training path: granite through the launcher, each
@@ -2087,11 +2309,40 @@ def main() -> int:
         n_layers = get_config(MOE_ARCH).n_layers
         torch.cuda.reset_peak_memory_stats(dev)
         train["full_depth_step"] = profile_train(dev, n_layers, MOE_ARCH)
-        train["k3"] = check_k3_training(dev, MOE_ARCH, gradients=False)
-        emit("train_moe", **train,
+        emit("train_moe", **train, k3=k3_train_moe,
              disk=disk.mark("train_moe", train_files(work / "train_moe", train)))
-        k3_train_moe = train["k3"]
+        shutil.rmtree(work / "train_moe", ignore_errors=True)  # room for train_hybrid's
         del train
+
+        # the hybrid serve path: hymba-1.5b, counts from 0 just before, read
+        # just after
+        hybrid = run_serve_hybrid(work / "serve_hybrid", dev)
+        launches["flash_attention"] += hybrid["launches"]["flash_attention"]
+        by_path["serve_hybrid"] = {"flash_attention": hybrid["launches"]["flash_attention"]}
+        emit("serve_hybrid", **hybrid,
+             disk=disk.mark("serve_hybrid", dir_bytes(work / "serve_hybrid")))
+        del hybrid
+
+        # the hybrid training path: each launcher process counting its own
+        # K3 launches from 0
+        train = run_train(work / "train_hybrid", HYBRID_ARCH, HYBRID_TRAIN_WRITE_BUDGET,
+                          HYBRID_TRAIN_SEQ, HYBRID_TRAIN_BATCH)
+        by_path["train_hybrid"] = {"flash_attention": sum(
+            train["launches"][run]["flash_attention"] for run in ("A", "B"))}
+        launches["flash_attention"] += by_path["train_hybrid"]["flash_attention"]
+        n_layers = get_config(HYBRID_ARCH).n_layers
+        torch.cuda.reset_peak_memory_stats(dev)
+        train["full_depth_step"] = profile_train(dev, n_layers, HYBRID_ARCH, HYBRID_TRAIN_SEQ,
+                                                 HYBRID_TRAIN_BATCH)
+        emit("train_hybrid", **train, k3=k3_train_hybrid,
+             disk=disk.mark("train_hybrid", train_files(work / "train_hybrid", train)))
+        shutil.rmtree(work / "train_hybrid", ignore_errors=True)
+        del train
+
+        # the mLSTM: xlstm-1.3b served (counts from 0 just before, read just
+        # after: it launches none) and a full-depth step in this process
+        emit("xlstm", **run_xlstm(work / "xlstm", dev),
+             disk=disk.mark("xlstm", dir_bytes(work / "xlstm")))
         total = disk.total()
         emit("disk", phases=disk.phases, total_written_bytes=total, limit_bytes=DISK_WRITE_LIMIT)
         assert total < DISK_WRITE_LIMIT, (total, disk.phases)
@@ -2120,8 +2371,9 @@ def main() -> int:
                      "kernel_ms": k["ms"], "kernel_only_ms": k["kernel_only_ms"],
                      "shape": k["shape"], "parity": parity[name],
                      **({"sass_per_pair": k["sass_per_pair"]} if "sass_per_pair" in k else {}),
-                     **({"at_d64": k["at_d64"], "training": k3_train,
-                         "training_d64": k3_train_moe} if name == "flash_attention" else {})})
+                     **({"at_d64": k["at_d64"], "at_hymba": k["at_hymba"], "training": k3_train,
+                         "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid}
+                        if name == "flash_attention" else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

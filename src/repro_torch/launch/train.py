@@ -83,14 +83,50 @@ def causal_pairs(seq_len: int, window: int = 0) -> int:
     return window * (window + 1) // 2 + (seq_len - window) * window
 
 
+def token_params(cfg) -> int:
+    """Parameters one token multiplies: the configuration's analytic count
+    (``active_param_count``: a MoE layer's top-k experts, not all of them),
+    which gives every layer the GQA projections; an mLSTM block has none of
+    those, and five (E, H·Dh) projections (q, k, v, the output gate, o)
+    where that count takes four."""
+    n = cfg.active_param_count()
+    if cfg.mlstm:
+        e, dh = cfg.d_model, cfg.resolved_head_dim
+        gqa = 2 * e * cfg.n_heads * dh + 2 * e * cfg.n_kv_heads * dh
+        n += cfg.n_layers * (e * cfg.n_heads * dh - gqa)
+    return n
+
+
+def recurrence_flops(cfg, batch: int, seq_len: int) -> int:
+    """Forward FLOPs of one layer's chunked linear recurrence
+    (``models.ssm.chunked_linear_recurrence``), 0 without one: per token
+    and head, over chunks of Q (the sequence padded to whole chunks), the
+    Q×Q tile's scores (2 Q N) and outputs (2 Q P), whole tiles as computed,
+    and the N×P state terms, the carry's contribution and the inter-chunk
+    output (2 N P each). SSD: N the state size, P the head dim; mLSTM: N
+    the head dim, P the head dim plus the normaliser's column."""
+    if not (cfg.ssm or cfg.mlstm):
+        return 0
+    dh = cfg.resolved_head_dim
+    n, p = (cfg.ssm_state, dh) if cfg.ssm else (dh, dh + 1)
+    q = min(cfg.chunk, seq_len)
+    tokens = batch * -(-seq_len // q) * q
+    return 2 * tokens * cfg.n_heads * (q * (n + p) + 2 * n * p)
+
+
 def step_flops(cfg, batch: int, seq_len: int) -> int:
     """Model FLOPs of one training step: 6 N T, N the parameters a token
-    uses (``active_param_count``: a MoE layer's top-k experts, not all of
-    them), plus attention's 4 B H D operations a visible (q, k) pair and
-    layer forward and twice that backward (12 in all)."""
-    pairs = causal_pairs(seq_len, cfg.window)
-    attn = 12 * batch * cfg.n_heads * cfg.resolved_head_dim * pairs * cfg.n_layers
-    return 6 * cfg.active_param_count() * batch * seq_len + attn
+    multiplies (:func:`token_params`), plus, in every layer, three times
+    (forward, and backward twice) each mixer's own products: softmax
+    attention's 4 B H D operations a visible (q, k) pair (12 in all) where
+    the mixer has attention (all but the mLSTM; within the sliding window
+    when one is set), and the chunked recurrence's (:func:`recurrence_flops`)
+    where it has one (hybrid's SSD, the mLSTM)."""
+    per_layer = 3 * recurrence_flops(cfg, batch, seq_len)
+    if not cfg.mlstm:
+        pairs = causal_pairs(seq_len, cfg.window)
+        per_layer += 12 * batch * cfg.n_heads * cfg.resolved_head_dim * pairs
+    return 6 * token_params(cfg) * batch * seq_len + per_layer * cfg.n_layers
 
 
 class _Metrics:

@@ -1,4 +1,5 @@
-"""Model facade for the decoder-only GQA configurations (dense or MoE FFN).
+"""Model facade for the decoder-only configurations: GQA (dense or MoE FFN),
+the hybrid (attention ‖ SSD, hymba) and the mLSTM (xLSTM).
 
 Port of the JAX package's ``repro/models/model.py``::
 
@@ -12,10 +13,14 @@ Port of the JAX package's ``repro/models/model.py``::
 Parameters are a plain nested dict with the reference's paths and shapes
 (``embed``, ``final_norm``, ``blocks/g0/{ln1, ln2, attn/{wq, wk, wv, wo,
 q_norm, k_norm}, ffn/{wg, wu, wd}}``, stacked on L; a MoE group's ``ffn``
-is ``{w_router (float32), [router_bias], wg, wu, wd, [ws_g, ws_u, ws_d]}``),
-and the caches are ``{"g0": {"k", "v"}: (L, B, S, KV, Dh)}`` per layer
-group, so the serve CMI of a request
-published by one package resumes in the other. :func:`params_from_numpy`
+is ``{w_router (float32), [router_bias], wg, wu, wd, [ws_g, ws_u, ws_d]}``;
+a hybrid block adds ``ssd/{wx, wB, wC, w_dt, dt_bias, A_log, D, wo}``; an
+mLSTM block is ``{ln1, mlstm/{wq, wk, wv, w_i, w_f, f_bias, w_og, ln_out,
+wo}}`` with no FFN), and the caches are the reference's per layer group:
+``{"k", "v"}: (L, B, S, KV, Dh)`` for GQA, ``{"attn": {"k", "v"}, "ssd":
+(L, B, H, N, Dh) float32}`` for the hybrid, ``{"mlstm": (L, B, H, Dh, Dh +
+1) float32}`` for the mLSTM, so the serve CMI of a request published by one
+package resumes in the other. :func:`params_from_numpy`
 carries the JAX package's parameters across. :func:`input_specs` gives the
 inputs of a shape as :class:`TensorSpec` stand-ins (the reference's
 ``ShapeDtypeStruct``).
@@ -94,8 +99,19 @@ class Model:
         dt = pdtype(cfg)
         kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
         s_kv = min(s_ctx, cfg.window) if cfg.window else s_ctx
-        spec = lambda n: TensorSpec((n, batch, s_kv, kv, dh), dt)  # noqa: E731
-        return {g: {"k": spec(n), "v": spec(n)} for g, n, _, _ in tf.block_groups(cfg)}
+        f32 = torch.float32
+        out = {}
+        for gname, n, mixer, _ in tf.block_groups(cfg):
+            kv_cache = {"k": TensorSpec((n, batch, s_kv, kv, dh), dt),
+                        "v": TensorSpec((n, batch, s_kv, kv, dh), dt)}
+            if mixer == "gqa":
+                out[gname] = kv_cache
+            elif mixer == "hybrid":
+                out[gname] = {"attn": kv_cache,
+                              "ssd": TensorSpec((n, batch, cfg.n_heads, cfg.ssm_state, dh), f32)}
+            else:
+                out[gname] = {"mlstm": TensorSpec((n, batch, cfg.n_heads, dh, dh + 1), f32)}
+        return out
 
     def init_cache(self, batch: int, s_ctx: int, device) -> dict[str, Any]:
         flat, treedef = flatten_with_paths(self.cache_struct(batch, s_ctx))

@@ -1,0 +1,307 @@
+"""Recurrent mixers: chunkwise linear recurrence, the SSD (Mamba-2 style)
+branch, the mLSTM (xLSTM) and a reference sLSTM.
+
+Port of the JAX package's ``repro/models/ssm.py``. The core primitive keeps
+a state S_t in R^{N x P} per (batch, head)::
+
+    S_t = a_t · S_{t-1} + k_t ⊗ v_t          a_t ∈ (0, 1]
+    y_t = S_tᵀ q_t                            q_t, k_t ∈ R^N, v_t ∈ R^P
+
+evaluated over chunks of Q tokens, with La the inclusive cumsum of log a
+within a chunk::
+
+    intra:  y_i += Σ_{j≤i} (q_i·k_j) · exp(La_i − La_j) · v_j   (Q×Q product)
+    inter:  y_i += exp(La_i) · S_prevᵀ q_i
+    carry:  S_new = exp(La_Q) S_prev + Σ_j exp(La_Q − La_j) k_j ⊗ v_j
+
+The reference scans the chunks one by one. Here every chunk's intra-chunk
+tile and carry contribution are computed at once, as (B, nc, H, Q, Q) and
+(B, nc, H, N, P) tensors; only the carry itself runs chunk by chunk, in the
+reference's order, and the inter-chunk term is again one product over all
+chunks. Products are float32 ``einsum``s, as in the reference.
+
+The one difference of substance: the reference exponentiates La_i − La_j
+over the whole Q×Q tile and masks the upper triangle afterwards. Above the
+diagonal that exponent is minus the decay between j and i, which overflows
+to inf once a chunk's log-decays sum below about −88; the forward stays
+finite (the mask selects 0), but the backward multiplies 0 by inf and the
+gradients of q, k and log a become NaN (hymba at full width reaches −99.6
+on average with the reference's init). Here the upper triangle's exponent
+is set to −inf before ``exp``, so its weight is exactly 0 and so is its
+gradient; every entry the reference keeps is computed the same way.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import init_dense, pdtype, rmsnorm
+
+
+def chunked_linear_recurrence(
+    q: torch.Tensor,  # (B, S, H, N)
+    k: torch.Tensor,  # (B, S, H, N)
+    v: torch.Tensor,  # (B, S, H, P)
+    log_a: torch.Tensor,  # (B, S, H) log-decay, <= 0
+    *,
+    chunk: int,
+    initial_state: torch.Tensor | None = None,  # (B, H, N, P)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, S, H, P) float32, final_state (B, H, N, P) float32)."""
+    with record_function("linear_recurrence"):
+        b, s, h, n = q.shape
+        p = v.shape[-1]
+        qf, kf, vf, la = (t.float() for t in (q, k, v, log_a))
+        cq = min(chunk, s)
+        nc = -(-s // cq)
+        pad = nc * cq - s
+        if pad:  # log a = 0 -> a = 1 on the padding
+            qf, kf, vf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
+            la = F.pad(la, (0, 0, 0, pad))
+        qc, kc, vc = (t.reshape(b, nc, cq, h, t.shape[-1]) for t in (qf, kf, vf))
+        cum = torch.cumsum(la.reshape(b, nc, cq, h), dim=2)  # (B, nc, Q, H) inclusive
+        tot = cum[:, :, -1]  # (B, nc, H)
+
+        # intra-chunk, every chunk at once: La_i − La_j masked to −inf above
+        # the diagonal before exp (see the module docstring)
+        cum_h = cum.transpose(2, 3)  # (B, nc, H, Q)
+        dec = cum_h[..., :, None] - cum_h[..., None, :]  # (B, nc, H, i, j)
+        upper = torch.ones((cq, cq), dtype=torch.bool, device=q.device).triu(1)
+        dec = dec.masked_fill(upper, float("-inf"))
+        sc = torch.einsum("bcihn,bcjhn->bchij", qc, kc) * torch.exp(dec)
+        y = torch.einsum("bchij,bcjhp->bcihp", sc, vc)
+
+        # each chunk's own contribution to the carry, every chunk at once
+        kw = kc * torch.exp(tot[:, :, None] - cum)[..., None]  # (B, nc, Q, H, N)
+        contrib = torch.einsum("bcjhn,bcjhp->bchnp", kw, vc)  # (B, nc, H, N, P)
+
+        # the carry, chunk by chunk in the reference's order; prev[c] is the
+        # state entering chunk c
+        state = (initial_state.float() if initial_state is not None
+                 else torch.zeros((b, h, n, p), dtype=torch.float32, device=q.device))
+        decay = torch.exp(tot)[..., None, None]  # (B, nc, H, 1, 1)
+        prev = []
+        for c in range(nc):
+            prev.append(state)
+            state = state * decay[:, c] + contrib[:, c]
+
+        # inter-chunk, every chunk at once
+        y = y + torch.einsum("bcihn,bchnp->bcihp", qc * torch.exp(cum)[..., None],
+                             torch.stack(prev, dim=1))
+        return y.reshape(b, nc * cq, h, p)[:, :s], state
+
+
+def linear_recurrence_step(
+    q: torch.Tensor,  # (B, H, N)
+    k: torch.Tensor,
+    v: torch.Tensor,  # (B, H, P)
+    a: torch.Tensor,  # (B, H) decay in (0, 1]
+    state: torch.Tensor,  # (B, H, N, P)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step. Returns (y (B, H, P), new_state)."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    state = state * a[..., None, None].float() + kf[..., :, None] * vf[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", qf, state)
+    return y, state
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bse,eh...->bsh...") as one matrix product."""
+    return torch.matmul(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _out(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("...hd,hde->...e")."""
+    return torch.matmul(y.flatten(-2), wo.flatten(0, 1))
+
+
+# ---------------------------------------------------------------------------
+# SSD branch (hymba's mamba-style heads)
+# ---------------------------------------------------------------------------
+
+
+def init_ssd(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
+    e, h = cfg.d_model, cfg.n_heads
+    dh, n = cfg.resolved_head_dim, cfg.ssm_state
+    dt = pdtype(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "wx": init_dense(gen, (n_layers, e, h, dh), ("layers", "embed", "heads", "head_dim"), dt, device),
+        "wB": init_dense(gen, (n_layers, e, h, n), ("layers", "embed", "heads", None), dt, device),
+        "wC": init_dense(gen, (n_layers, e, h, n), ("layers", "embed", "heads", None), dt, device),
+        "w_dt": init_dense(gen, (n_layers, e, h), ("layers", "embed", "heads"), dt, device),
+        "dt_bias": torch.zeros((n_layers, h), **f32),
+        "A_log": torch.zeros((n_layers, h), **f32),
+        "D": torch.ones((n_layers, h), **f32),
+        "wo": init_dense(gen, (n_layers, h, dh, e), ("layers", "heads", "head_dim", "embed"), dt, device),
+    }
+
+
+def _ssd_gates(p, x):
+    """(dt (B, S, H) > 0, log_a (B, S, H) <= 0), float32."""
+    dt = F.softplus(torch.matmul(x.float(), p["w_dt"].float()) + p["dt_bias"])
+    return dt, -dt * torch.exp(p["A_log"])
+
+
+def _ssd_inputs(p, x):
+    xs = _proj(x, p["wx"])  # v
+    bb = _proj(x, p["wB"])  # k
+    cc = _proj(x, p["wC"])  # q
+    dt, log_a = _ssd_gates(p, x)
+    return xs, bb, cc, dt, log_a
+
+
+def _ssd_output(p, y, xs, x_dtype):
+    y = y + xs.float() * p["D"][:, None]
+    return _out(y.to(x_dtype), p["wo"])
+
+
+def ssd_apply(p, x, cfg: ArchConfig, initial_state=None):
+    """SSD branch forward. x: (B, S, E) -> ((B, S, E), final state
+    (B, H, N, P) float32): the reference's ``ssd_train`` and the SSD half
+    of its hybrid ``block_prefill``."""
+    xs, bb, cc, dt, log_a = _ssd_inputs(p, x)
+    v = xs * dt[..., None].to(xs.dtype)  # fold Δ into v
+    y, state = chunked_linear_recurrence(cc, bb, v, log_a, chunk=cfg.chunk,
+                                         initial_state=initial_state)
+    return _ssd_output(p, y, xs, x.dtype), state
+
+
+def ssd_train(p, x, cfg: ArchConfig):
+    """SSD branch forward. x: (B, S, E) -> (B, S, E)."""
+    return ssd_apply(p, x, cfg)[0]
+
+
+def ssd_init_state(cfg: ArchConfig, batch: int, device=None):
+    return torch.zeros((batch, cfg.n_heads, cfg.ssm_state, cfg.resolved_head_dim),
+                       dtype=torch.float32, device=device)
+
+
+def ssd_decode(p, x, state, cfg: ArchConfig):
+    """x: (B, 1, E); state (B, H, N, P) -> (y (B, 1, E), new_state)."""
+    xs, bb, cc, dt, log_a = _ssd_inputs(p, x)
+    v = xs * dt[..., None].to(xs.dtype)
+    y, state = linear_recurrence_step(cc[:, 0], bb[:, 0], v[:, 0], torch.exp(log_a[:, 0]), state)
+    return _ssd_output(p, y[:, None], xs, x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM) block — includes its own projections; no separate FFN
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
+    e, h, dh = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    dt = pdtype(cfg)
+    heads = ("layers", "embed", "heads", "head_dim")
+    p = {nm: init_dense(gen, (n_layers, e, h, dh), heads, dt, device) for nm in ("wq", "wk", "wv")}
+    p["w_i"] = init_dense(gen, (n_layers, e, h), ("layers", "embed", "heads"), dt, device)
+    p["w_f"] = init_dense(gen, (n_layers, e, h), ("layers", "embed", "heads"), dt, device)
+    p["f_bias"] = torch.full((n_layers, h), 4.0, dtype=torch.float32, device=device)
+    p["w_og"] = init_dense(gen, (n_layers, e, h, dh), heads, dt, device)
+    p["ln_out"] = torch.ones((n_layers, h * dh), dtype=dt, device=device)
+    p["wo"] = init_dense(gen, (n_layers, h, dh, e), ("layers", "heads", "head_dim", "embed"), dt, device)
+    return p
+
+
+def _mlstm_qkvg(p, x, cfg: ArchConfig):
+    dh = cfg.resolved_head_dim
+    q = _proj(x, p["wq"]) / math.sqrt(dh)
+    k = _proj(x, p["wk"]) / math.sqrt(dh)
+    v = _proj(x, p["wv"])
+    xf = x.float()
+    i_g = torch.sigmoid(torch.matmul(xf, p["w_i"].float()))
+    log_f = F.logsigmoid(torch.matmul(xf, p["w_f"].float()) + p["f_bias"])
+    og = torch.sigmoid(_proj(x, p["w_og"]).float())
+    return q, k, v, i_g, log_f, og
+
+
+def _mlstm_out(p, y, og, x_dtype, cfg: ArchConfig, eps: float):
+    y = y * og  # output gate
+    flat = rmsnorm(y.flatten(-2).to(x_dtype), p["ln_out"], eps)
+    return _out(flat.unflatten(-1, y.shape[-2:]).to(x_dtype), p["wo"])
+
+
+def _mlstm_kv(k, v, i_g):
+    """(k scaled by the input gate, v with the normaliser's ones column),
+    float32."""
+    k_eff = k.float() * i_g[..., None]
+    v_aug = torch.cat([v.float(), torch.ones(v.shape[:-1] + (1,), device=v.device)], dim=-1)
+    return k_eff, v_aug
+
+
+def _mlstm_normalise(y_aug):
+    return y_aug[..., :-1] / torch.clamp(torch.abs(y_aug[..., -1:]), min=1.0)
+
+
+def mlstm_apply(p, x, cfg: ArchConfig, initial_state=None):
+    """x: (B, S, E) -> ((B, S, E), final state (B, H, Dh, Dh + 1) float32):
+    the reference's ``mlstm_train`` and its mlstm ``block_prefill``."""
+    q, k, v, i_g, log_f, og = _mlstm_qkvg(p, x, cfg)
+    k_eff, v_aug = _mlstm_kv(k, v, i_g)
+    y_aug, state = chunked_linear_recurrence(q, k_eff, v_aug, log_f, chunk=cfg.chunk,
+                                             initial_state=initial_state)
+    return _mlstm_out(p, _mlstm_normalise(y_aug), og, x.dtype, cfg, cfg.norm_eps), state
+
+
+def mlstm_train(p, x, cfg: ArchConfig):
+    """x: (B, S, E) -> (B, S, E). Matrix memory C ∈ R^{N×P} with N = P =
+    head_dim, normaliser tracked as an extra v-column (h = Cq / max(|n·q|, 1))."""
+    return mlstm_apply(p, x, cfg)[0]
+
+
+def mlstm_init_state(cfg: ArchConfig, batch: int, device=None):
+    dh = cfg.resolved_head_dim
+    return torch.zeros((batch, cfg.n_heads, dh, dh + 1), dtype=torch.float32, device=device)
+
+
+def mlstm_decode(p, x, state, cfg: ArchConfig):
+    """x: (B, 1, E); state (B, H, Dh, Dh + 1) -> (y (B, 1, E), new_state)."""
+    q, k, v, i_g, log_f, og = _mlstm_qkvg(p, x, cfg)
+    k_eff, v_aug = _mlstm_kv(k[:, 0], v[:, 0], i_g[:, 0])
+    y_aug, state = linear_recurrence_step(q[:, 0], k_eff, v_aug, torch.exp(log_f[:, 0]), state)
+    out = _mlstm_out(p, _mlstm_normalise(y_aug), og[:, 0], x.dtype, cfg, cfg.norm_eps)
+    return out[:, None], state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM — reference implementation (unit-tested; not used by the 1.3b config)
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(gen, d_model: int, d_hidden: int, dtype=torch.float32, device=None) -> dict:
+    def normal(shape, fan):
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        return w.normal_(0.0, 1.0, generator=gen).mul_(fan ** -0.5).to(dtype)
+
+    return {"w_in": normal((d_model, 4 * d_hidden), d_model),
+            "r": normal((d_hidden, 4 * d_hidden), d_hidden),
+            "b": torch.zeros((4 * d_hidden,), dtype=dtype, device=device)}
+
+
+def slstm_apply(p, x):
+    """Scalar-memory sLSTM with exponential gating + stabiliser (paper eq.
+    set). x: (B, S, E) -> (B, S, Dh). Strictly sequential (a loop over time)."""
+    b, s, _ = x.shape
+    dh = p["r"].shape[0]
+    zx = torch.matmul(x.float(), p["w_in"].float())
+    r, bias = p["r"].float(), p["b"].float()
+    c = n = h = m = torch.zeros((b, dh), dtype=torch.float32, device=x.device)
+    hs = []
+    for t in range(s):
+        z = zx[:, t] + torch.matmul(h, r) + bias
+        zi, zf, zz, zo = torch.chunk(z, 4, dim=-1)
+        m_new = torch.maximum(zf + m, zi)  # stabiliser state
+        i = torch.exp(zi - m_new)
+        f = torch.exp(zf + m - m_new)
+        c = f * c + i * torch.tanh(zz)
+        n = f * n + i
+        h = torch.sigmoid(zo) * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1)

@@ -1,14 +1,20 @@
 """Decoder-only transformer assembly: layer groups, stacked layers, caches.
 
-Port of the JAX package's ``repro/models/transformer.py`` for the GQA mixer
-with the dense (SwiGLU) or the MoE FFN. Layers with identical structure are
-stacked on a leading ``L`` axis, as in the reference; each ``lax.scan`` over
-that axis is a Python loop over its slices here. ``block_groups`` is the
-reference's grouping (a MoE config's ``first_dense_layers`` form a dense
-group ``g0`` before the MoE group ``g1``), so parameter paths and cache
-paths are the same in both packages. ``n_groups`` is the MoE routing
-groups of every call (0: one per sequence). The other mixers (mla, hybrid,
-mlstm) raise ``NotImplementedError`` (ROADMAP queue 1, item 11).
+Port of the JAX package's ``repro/models/transformer.py`` for the mixers
+gqa, hybrid (attention ‖ SSD, hymba) and mlstm (xLSTM), with the dense
+(SwiGLU), the MoE or no FFN (an mLSTM block owns its projections). Layers
+with identical structure are stacked on a leading ``L`` axis, as in the
+reference; each ``lax.scan`` over that axis is a Python loop over its
+slices here. ``block_groups`` is the reference's grouping (a MoE config's
+``first_dense_layers`` form a dense group ``g0`` before the MoE group
+``g1``), so parameter paths and cache paths are the same in both packages.
+``n_groups`` is the MoE routing groups of every call (0: one per
+sequence). MLA and the encoder/vision front ends raise
+``NotImplementedError`` (ROADMAP queue 1, item 11).
+
+Decode writes every cache in place, as ``gqa_decode`` writes k/v: a hybrid
+layer's SSD state and an mLSTM layer's matrix memory are copied into their
+slot of the stacked cache, since the request's caches are its state.
 
 The training forward's layer-scan remat maps onto ``torch.utils.checkpoint``
 per layer, after the reference's ``_REMAT_POLICIES``: ``nothing`` keeps no
@@ -28,10 +34,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import init_dense, init_embedding, pdtype, rmsnorm, swiglu
 from repro_torch.utils import flatten_with_paths
 
 _LATER = "is not ported yet (ROADMAP queue 1, item 11: models and training)"
+# the FFN kinds each ported mixer runs with (the configurations that exist)
+_FFNS = {"gqa": ("dense", "moe"), "hybrid": ("dense",), "mlstm": ("none",)}
 
 
 def block_groups(cfg: ArchConfig) -> list[tuple[str, int, str, str]]:
@@ -58,10 +67,10 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.encdec or cfg.vision_prefix:
         raise NotImplementedError(f"{cfg.name}: the encoder/vision front ends {_LATER}")
     for _, _, mixer, ffn in block_groups(cfg):
-        if mixer != "gqa":
+        if mixer not in _FFNS:
             raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} {_LATER}")
-        if ffn not in ("dense", "moe"):
-            raise NotImplementedError(f"{cfg.name}: ffn {ffn!r} {_LATER}")
+        if ffn not in _FFNS[mixer]:
+            raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} with ffn {ffn!r} {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -91,13 +100,18 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[str, A
         params["unembed"] = init_embedding(gen, cfg, device)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     params["blocks"] = {}
-    for gname, n, _, ffn in block_groups(cfg):
-        params["blocks"][gname] = {
-            "ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device),
-            "attn": attn.init_gqa(gen, cfg, n, device),
-            "ln2": torch.ones((n, cfg.d_model), dtype=dt, device=device),
-            "ffn": _init_ffn(gen, cfg, n, ffn, device),
-        }
+    for gname, n, mixer, ffn in block_groups(cfg):
+        bp = {"ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device)}
+        if mixer in ("gqa", "hybrid"):
+            bp["attn"] = attn.init_gqa(gen, cfg, n, device)
+        if mixer == "hybrid":
+            bp["ssd"] = ssm_mod.init_ssd(gen, cfg, n, device)
+        if mixer == "mlstm":
+            bp["mlstm"] = ssm_mod.init_mlstm(gen, cfg, n, device)
+        if ffn != "none":
+            bp["ln2"] = torch.ones((n, cfg.d_model), dtype=dt, device=device)
+            bp["ffn"] = _init_ffn(gen, cfg, n, ffn, device)
+        params["blocks"][gname] = bp
     return params
 
 
@@ -112,29 +126,62 @@ def _layer(gp: dict, i: int) -> dict:
 
 
 def _ffn(pl, h, cfg: ArchConfig, ffn: str, n_groups: int):
+    """``h`` plus the FFN sublayer's output (``h`` itself with no FFN)."""
+    if ffn == "none":
+        return h
     f, x = pl["ffn"], rmsnorm(h, pl["ln2"], cfg.norm_eps)
     if ffn == "moe":
-        return moe_mod.moe_ffn(f, x, cfg, n_groups=n_groups)
-    return swiglu(x, f["wg"], f["wu"], f["wd"])
+        return h + moe_mod.moe_ffn(f, x, cfg, n_groups=n_groups)
+    return h + swiglu(x, f["wg"], f["wu"], f["wd"])
 
 
-def block_train(pl, x, cfg: ArchConfig, ffn: str, n_groups: int):
+def _mixer_train(pl, x, cfg: ArchConfig, mixer: str):
+    if mixer == "gqa":
+        return attn.gqa_train(pl["attn"], x, cfg)
+    if mixer == "hybrid":
+        return (attn.gqa_train(pl["attn"], x, cfg) + ssm_mod.ssd_train(pl["ssd"], x, cfg)) * 0.5
+    return ssm_mod.mlstm_train(pl["mlstm"], x, cfg)
+
+
+def block_train(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int):
     """One layer of the training forward."""
-    h = x + attn.gqa_train(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg)
-    return h + _ffn(pl, h, cfg, ffn, n_groups)
+    h = x + _mixer_train(pl, rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg, mixer)
+    return _ffn(pl, h, cfg, ffn, n_groups)
 
 
-def block_prefill(pl, x, cfg: ArchConfig, ffn: str, n_groups: int, s_max: int):
-    """One layer of the prefill; also returns its decode cache."""
-    y, cache = attn.gqa_prefill(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg, s_max)
+def block_prefill(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, s_max: int):
+    """One layer of the prefill; also returns its decode cache: k/v, for
+    hybrid ``{"attn": {k, v}, "ssd": state}``, for mlstm ``{"mlstm": state}``."""
+    xin = rmsnorm(x, pl["ln1"], cfg.norm_eps)
+    if mixer == "gqa":
+        y, cache = attn.gqa_prefill(pl["attn"], xin, cfg, s_max)
+    elif mixer == "hybrid":
+        ya, ac = attn.gqa_prefill(pl["attn"], xin, cfg, s_max)
+        ys, sstate = ssm_mod.ssd_apply(pl["ssd"], xin, cfg)
+        y, cache = (ya + ys) * 0.5, {"attn": ac, "ssd": sstate}
+    else:
+        y, mstate = ssm_mod.mlstm_apply(pl["mlstm"], xin, cfg)
+        cache = {"mlstm": mstate}
     h = x + y
-    return h + _ffn(pl, h, cfg, ffn, n_groups), cache
+    return _ffn(pl, h, cfg, ffn, n_groups), cache
 
 
-def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, ffn: str, n_groups: int):
-    y, cache = attn.gqa_decode(pl["attn"], rmsnorm(x, pl["ln1"], cfg.norm_eps), cache, pos, cfg)
+def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int):
+    """One decode step of one layer; ``cache`` (this layer's views of the
+    stacked caches) is written in place and returned."""
+    xin = rmsnorm(x, pl["ln1"], cfg.norm_eps)
+    if mixer == "gqa":
+        y, cache = attn.gqa_decode(pl["attn"], xin, cache, pos, cfg)
+    elif mixer == "hybrid":
+        ya, _ = attn.gqa_decode(pl["attn"], xin, cache["attn"], pos, cfg)
+        ys, sstate = ssm_mod.ssd_decode(pl["ssd"], xin, cache["ssd"], cfg)
+        cache["ssd"].copy_(sstate)
+        y = (ya + ys) * 0.5
+    else:
+        y, mstate = ssm_mod.mlstm_decode(pl["mlstm"], xin, cache["mlstm"], cfg)
+        cache["mlstm"].copy_(mstate)
     h = x + y
-    return h + _ffn(pl, h, cfg, ffn, n_groups), cache
+    return _ffn(pl, h, cfg, ffn, n_groups), cache
 
 
 # ---------------------------------------------------------------------------
@@ -179,10 +226,18 @@ def _unbind_layers(gp: dict, n: int) -> list[dict]:
     return [treedef.unflatten({path: col[i] for path, col in cols.items()}) for i in range(n)]
 
 
+def _stack_layers(trees: list) -> Any:
+    """Per-layer cache trees stacked leaf by leaf on a new leading L axis."""
+    flats = [flatten_with_paths(t)[0] for t in trees]
+    _, treedef = flatten_with_paths(trees[0])
+    return treedef.unflatten({path: torch.stack([f[path] for f in flats]) for path in flats[0]})
+
+
 def forward_train(params, x, cfg: ArchConfig, *, n_groups: int = 0):
     """x: (B, S, E) embedded inputs -> final hidden (B, S, E)."""
-    for gname, n, _, ffn in block_groups(cfg):
-        body = _remat(functools.partial(block_train, cfg=cfg, ffn=ffn, n_groups=n_groups), cfg)
+    for gname, n, mixer, ffn in block_groups(cfg):
+        body = _remat(functools.partial(block_train, cfg=cfg, mixer=mixer, ffn=ffn,
+                                        n_groups=n_groups), cfg)
         for pl in _unbind_layers(params["blocks"][gname], n):
             x = body(pl, x)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -191,20 +246,20 @@ def forward_train(params, x, cfg: ArchConfig, *, n_groups: int = 0):
 def forward_prefill(params, x, cfg: ArchConfig, s_max: int, *, n_groups: int = 0):
     """Returns (final hidden, caches) — caches stacked on L per group."""
     caches = {}
-    for gname, n, _, ffn in block_groups(cfg):
+    for gname, n, mixer, ffn in block_groups(cfg):
         gp = params["blocks"][gname]
         layer_caches = []
         for i in range(n):
-            x, cache = block_prefill(_layer(gp, i), x, cfg, ffn, n_groups, s_max)
+            x, cache = block_prefill(_layer(gp, i), x, cfg, mixer, ffn, n_groups, s_max)
             layer_caches.append(cache)
-        caches[gname] = {k: torch.stack([c[k] for c in layer_caches]) for k in ("k", "v")}
+        caches[gname] = _stack_layers(layer_caches)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches
 
 
 def forward_decode(params, x, caches, pos: int, cfg: ArchConfig, *, n_groups: int = 0):
     """x: (B,1,E). Returns (final hidden (B,1,E), caches written in place)."""
-    for gname, n, _, ffn in block_groups(cfg):
+    for gname, n, mixer, ffn in block_groups(cfg):
         gp, gc = params["blocks"][gname], caches[gname]
         for i in range(n):
-            x, _ = block_decode(_layer(gp, i), x, _layer(gc, i), pos, cfg, ffn, n_groups)
+            x, _ = block_decode(_layer(gp, i), x, _layer(gc, i), pos, cfg, mixer, ffn, n_groups)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches

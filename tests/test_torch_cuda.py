@@ -81,8 +81,10 @@ def test_colocate_kernel_tie_rule(dev, label):
 # the six cases of tests/test_kernels.py's flash attention sweep, then the
 # tensor-core kernel's edges (bf16 at D = 64 and 128): Sk not a multiple of
 # its 64-key tile, Sq != Sk, a window across tile edges, B = 2, rows with no
-# visible key, no key at all, a bf16 head dim it does not take, and the
-# MoE model's prefill shape at D = 64
+# visible key, no key at all, a bf16 head dim it does not take, the MoE
+# model's prefill shape at D = 64, and groups of 5 q heads a kv head with
+# a window (hymba-1.5b's 25 q / 5 kv heads at D = 64): small, a window
+# across tile edges, and hymba's prefill past its 2048-token window
 _FLASH_CASES = [
     # (b, h, hkv, sq, sk, d, causal, window, dtype)
     (2, 4, 4, 128, 128, 64, True, 0, "float32"),
@@ -101,6 +103,9 @@ _FLASH_CASES = [
     (1, 2, 1, 100, 0, 128, True, 0, "bfloat16"),
     (1, 2, 2, 130, 130, 96, True, 0, "bfloat16"),
     (1, 16, 8, 2048, 2048, 64, True, 0, "bfloat16"),  # granite-moe-1b-a400m's prefill
+    (2, 10, 2, 333, 333, 64, True, 100, "bfloat16"),
+    (1, 5, 1, 700, 700, 64, True, 300, "bfloat16"),
+    (1, 25, 5, 4096, 4096, 64, True, 2048, "bfloat16"),  # hymba-1.5b's prefill
 ]
 
 
