@@ -22,7 +22,12 @@ with nvcc and prints one JSON line per phase:
              arithmetic (two PV products) has a 6 D floor beside the 4 D bound;
              granite-moe-1b-a400m's prefill shape (head dim 64) among them,
              and hymba-1.5b's (25 q / 5 kv heads, head dim 64, 4096 tokens,
-             window 2048), its SDPA yardstick given the window as a mask
+             window 2048), its SDPA yardstick given the window as a mask;
+             deepseek-v3's MLA prefill (128 heads, qk head dim 192, v 128;
+             the tensor-core kernel's floor 2 D + 4 Dv a pair) and
+             whisper-tiny's non-causal encoder (1,500 frames) and cross
+             attention (2,048 tokens against 1,500 frames) and its decoder's
+             causal self-attention (2,048 tokens, B 4, 6 heads)
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
              through a transit CMI, preempted after the match publish and
              resumed; the product equals an uninterrupted run's
@@ -99,16 +104,30 @@ with nvcc and prints one JSON line per phase:
              TPU kernel): served as the serve phase is, transcripts equal,
              one request resumed with zero re-prefill from its 202 MB mLSTM
              state; full-depth training steps in this process
+  serve_mla  deepseek-v3-671b at full width, its depth cut to 4 layers (3
+             dense, 1 MoE of 256 experts, top 8, sigmoid routing, 1 shared;
+             15.1 B parameters) through ``launch.serve.main --layers 4``:
+             4 x 4 K3 launches, all tensor-core at qk 192 / v 128;
+             transcripts equal ``run_reference``'s; one request resumed
+             with zero re-prefill from its latent cache; prefill logits
+             with K3 against the plain attention; one dense MLA layer on
+             the card against the float32 CPU path; where the time goes
+             (K3, the MLA projections, the MoE dispatch, expert GEMMs)
+  train_encdec  whisper-tiny at full width (4 encoder + 4 decoder layers,
+             1,500 frames a sample, not cut) through the launcher at 4 x
+             2048 tokens: B reclaimed after step 2 and resumed bitwise A's,
+             K3 with lse in every encoder, self and cross attention of the
+             forward and its recompute; a profiled step in this process
   disk       the bytes each phase wrote (``/proc/self/io`` where the kernel
              counts them, else the files left), held under 40 GiB: the chip
              machine takes at most 45 GiB of writes a call
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
 made on its main paths (K1 and K2: the itinerary, publish and fabric phases,
-the fabric's counted inside the workers too; K3: the serve, serve_moe and
-serve_hybrid phases' ``main``, the serving workers' prefills and the
-training runs of the three attention models, each counted inside its
-launcher process), the nvidia-smi
+the fabric's counted inside the workers too; K3: the serve, serve_moe,
+serve_hybrid and serve_mla phases' ``main``, the serving workers' prefills
+and the training runs of the four attention models, each counted inside
+its launcher process), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
@@ -165,11 +184,19 @@ HYBRID_SERVE_SPEC = f"model:{HYBRID_ARCH}:full:seed=0"
 HYBRID_PROMPT_LEN = 4096
 XLSTM_ARCH = "xlstm-1.3b"
 XLSTM_SERVE_SPEC = f"model:{XLSTM_ARCH}:full:seed=0"
+# serve_mla: deepseek-v3's widths, depth cut to its 3 dense layers and one
+# MoE layer (15.1 B parameters, 30.2 GB in bf16; its 61 layers would not fit)
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 4
+MLA_SERVE_SPEC = f"model:{MLA_ARCH}:full:layers={MLA_LAYERS}:seed=0"
+MLA_ON_CARD_TOKENS = 256  # the MLA layer checked against the float32 CPU path
+# train_encdec: whisper-tiny, 4 x 2048 decoder tokens and 4 x 1500 frames
+ENCDEC_ARCH = "whisper-tiny"
 
 
-def serve_argv(arch: str, prompt_len: int = PROMPT_LEN) -> list[str]:
+def serve_argv(arch: str, prompt_len: int = PROMPT_LEN, layers: int = 0) -> list[str]:
     return ["--arch", arch, "--prompt-len", str(prompt_len), "--gen", str(GEN),
-            "--batch", str(BATCH), "--seed", "0", "--device", "cuda"]
+            "--batch", str(BATCH), "--seed", "0", "--device", "cuda",
+            *(["--layers", str(layers)] if layers else [])]
 
 
 SERVE_ARGV = serve_argv(SERVE_ARCH)
@@ -207,6 +234,7 @@ def train_argv(arch: str, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH) -> lis
 TRAIN_WRITE_BUDGET = 17 * 2**30
 MOE_TRAIN_WRITE_BUDGET = 12 * 2**30
 HYBRID_TRAIN_WRITE_BUDGET = 6 * 2**30
+ENCDEC_TRAIN_WRITE_BUDGET = 3 * 2**30  # whisper's three 0.69 GB CMIs, not cut
 # what the whole smoke may write (the machine's limit is 45 GiB a call)
 DISK_WRITE_LIMIT = 40 * 2**30
 # profiler ranges whose kernels form groups of their own
@@ -215,6 +243,7 @@ RANGES = {"flash_attention_backward": "attention backward (plain torch)",
           "moe_dispatch": "MoE dispatch (router, sort, searchsorted, gather, index_put)",
           "moe_experts": "MoE expert GEMMs (bmm)",
           "moe_combine": "MoE combine (gather, ordered sum)",
+          "mla": "MLA projections and absorbed decode",
           "linear_recurrence": "chunked linear recurrence (SSD, mLSTM)"}
 GRAD_TOL = 1e-4  # tests/test_torch_train.py's float32 gradient tolerance (of each max)
 LSE_TOL = 1e-4  # tests/test_torch_cuda.py's lse tolerance
@@ -619,37 +648,67 @@ def sdpa_backend(fn) -> str:
     return ",".join(sorted(names)) or "aten::scaled_dot_product_attention (math)"
 
 
+def k3_work(b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int, causal: bool,
+            window: int, element_size: int = 2) -> dict:
+    """K3's work at a shape: visible pairs, the operations the function
+    needs (2 (D + Dv) a pair and head: QK^T and PV), the bytes it must move
+    (q, k, v read once, the output written once), the card's bound, and
+    the tensor-core kernel's own floor (two PV products: 2 D + 4 Dv, 6 D
+    where Dv = D)."""
+    pairs = visible_pairs(sq, sk, causal, window)
+    flops = 2 * b * h * (d + dv) * pairs
+    nbytes = (b * h * sq * (d + dv) + b * hkv * sk * (d + dv)) * element_size
+    return {"visible_pairs": pairs, "flops": flops, "bytes": nbytes,
+            "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S
+            else "bytes",
+            "floor_6d_ms": 2 * b * h * (d + 2 * dv) * pairs / BF16_FLOPS * 1e3}
+
+
 def check_flash_attention(dev) -> dict:
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import (
+        WGMMA_HEAD_DIMS,
+        flash_attention,
+        flash_attention_plain,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
     cases = []
-    # the six cases of tests/test_kernels.py, then the serve prefill's shape,
-    # prefill_32k's sequence length at the same heads, granite's prefill
-    # (head dim 64) and hymba's (25 q / 5 kv heads at head dim 64, 4096
-    # tokens past its 2048-token window)
-    shapes = [(2, 4, 4, 128, 128, 64, True, 0, "float32"),
-              (1, 8, 2, 257, 257, 64, True, 0, "float32"),
-              (2, 4, 2, 200, 200, 128, True, 64, "float32"),
-              (1, 4, 4, 96, 160, 64, False, 0, "bfloat16"),
-              (1, 2, 1, 512, 512, 64, True, 0, "bfloat16"),
-              (1, 4, 4, 64, 64, 128, True, 32, "bfloat16"),
-              (1, 16, 8, 2048, 2048, 128, True, 0, "bfloat16"),
-              (1, 16, 8, 32768, 32768, 128, True, 0, "bfloat16"),
-              (1, 16, 8, 2048, 2048, 64, True, 0, "bfloat16"),
-              (1, 25, 5, 4096, 4096, 64, True, 2048, "bfloat16")]
+    # the six cases of tests/test_kernels.py, then the main paths' shapes,
+    # timed under their labels: the serve prefill's, prefill_32k's sequence
+    # length at the same heads, granite's prefill (head dim 64), hymba's
+    # (25 q / 5 kv heads at head dim 64, 4096 tokens past its 2048-token
+    # window), deepseek-v3's MLA prefill (128 heads, qk 192, v 128) and
+    # whisper-tiny's three: its encoder (1,500 frames) and cross attention
+    # (2,048 tokens against them), both non-causal, and its decoder's
+    # causal self-attention (2,048 tokens)
+    shapes = [(2, 4, 4, 128, 128, 64, 64, True, 0, "float32", None),
+              (1, 8, 2, 257, 257, 64, 64, True, 0, "float32", None),
+              (2, 4, 2, 200, 200, 128, 128, True, 64, "float32", None),
+              (1, 4, 4, 96, 160, 64, 64, False, 0, "bfloat16", None),
+              (1, 2, 1, 512, 512, 64, 64, True, 0, "bfloat16", None),
+              (1, 4, 4, 64, 64, 128, 128, True, 32, "bfloat16", None),
+              (1, 16, 8, 2048, 2048, 128, 128, True, 0, "bfloat16", "serve"),
+              (1, 16, 8, 32768, 32768, 128, 128, True, 0, "bfloat16", "32k"),
+              (1, 16, 8, 2048, 2048, 64, 64, True, 0, "bfloat16", "d64"),
+              (1, 25, 5, 4096, 4096, 64, 64, True, 2048, "bfloat16", "hymba"),
+              (1, 128, 128, 2048, 2048, 192, 128, True, 0, "bfloat16", "mla"),
+              (4, 6, 6, 1500, 1500, 64, 64, False, 0, "bfloat16", "whisper_encoder"),
+              (4, 6, 6, 2048, 1500, 64, 64, False, 0, "bfloat16", "whisper_cross"),
+              (4, 6, 6, 2048, 2048, 64, 64, True, 0, "bfloat16", "whisper_decoder")]
     timed = {}
-    for i, (b, h, hkv, sq, sk, d, causal, window, dt) in enumerate(shapes):
+    for i, (b, h, hkv, sq, sk, d, dv, causal, window, dt, label) in enumerate(shapes):
         rng = np.random.default_rng(i)
         dtype = getattr(torch, dt)
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
-                   for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+                   for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv)))
         before = flash_attention.wgmma_launches
         got = flash_attention(q, k, v, causal=causal, window=window)
         kernel = "wgmma" if flash_attention.wgmma_launches > before else "cuda-core"
-        assert kernel == ("wgmma" if dt == "bfloat16" and d in (64, 128) else "cuda-core")
+        assert kernel == ("wgmma" if dt == "bfloat16" and (d, dv) in WGMMA_HEAD_DIMS
+                          else "cuda-core")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -658,25 +717,25 @@ def check_flash_attention(dev) -> dict:
         err = float((got.float() - want.float()).abs().max())
         tol = BF16_TOL if dt == "bfloat16" else F32_TOL
         close = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-        assert close and torch.isfinite(got).all(), (b, h, hkv, sq, sk, d, causal, window, dt, err)
-        case = {"shape": f"B{b} H{h} Hkv{hkv} Sq{sq} Sk{sk} D{d}", "causal": causal,
-                "window": window, "dtype": dt, "kernel": kernel, "max_abs_err": err, "tol": tol}
+        assert close and torch.isfinite(got).all(), (b, h, hkv, sq, sk, d, dv, causal, window,
+                                                     dt, err)
+        case = {"shape": f"B{b} H{h} Hkv{hkv} Sq{sq} Sk{sk} D{d}" + (f" Dv{dv}" if dv != d else ""),
+                "causal": causal, "window": window, "dtype": dt, "kernel": kernel,
+                "max_abs_err": err, "tol": tol}
         if dt == "bfloat16":
             case.update(one_bf16_rounding(got, flash_attention_plain(
                 q.float(), k.float(), v.float(), causal=causal, window=window)))
-        if sq >= 2048:  # the main paths' shapes and the 32k one: timed
-            pairs = visible_pairs(sq, sk, causal, window)
-            flops = 4 * b * h * d * pairs
-            nbytes = (2 * b * h * sq + 2 * b * hkv * sk) * d * q.element_size()
+        if label:  # the main paths' shapes and the 32k one: timed
             reps = 20 if sq <= 4096 else 3
             # the yardstick only; the port never calls it. A window goes in
             # as a boolean mask, which SDPA's flash backend does not take
             mask = (torch.ones(sq, sk, dtype=torch.bool, device=dev).tril()
                     .triu(-(window - 1)) if window > 0 else None)
 
-            def library(q=q, k=k, v=v, mask=mask):
+            def library(q=q, k=k, v=v, mask=mask, causal=causal):
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                      is_causal=mask is None, enable_gqa=True)
+                                                      is_causal=causal and mask is None,
+                                                      enable_gqa=True)
 
             lib_err = float((library().float() - want.float()).abs().max())
             assert lib_err <= BF16_TOL, lib_err  # the yardstick computes the same function
@@ -689,33 +748,36 @@ def check_flash_attention(dev) -> dict:
                 "library_ms": cuda_ms(library, reps),
                 "library_backend": sdpa_backend(library),
                 "library_max_abs_err": lib_err,
-                "visible_pairs": pairs, "flops": flops, "bytes": nbytes,
-                "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
-                "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S
-                else "bytes",
-                # the tensor-core kernel keeps P float32 as two bf16 halves:
-                # 6 D operations per visible pair, its own floor
-                "floor_6d_ms": 6 * b * h * d * pairs / BF16_FLOPS * 1e3,
+                **k3_work(b, h, hkv, sq, sk, d, dv, causal, window, q.element_size()),
             })
-            timed[sq, d] = case
+            timed[label] = case
         cases.append(case)
         del q, k, v, got, want
-    serve = timed[2048, 128]
+    serve = timed["serve"]
     at = ("ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "floor_6d_ms",
           "max_abs_err", "max_abs_err_vs_f32", "out_rms", "rounding_limit_use")
+    more = at + ("kernel", "visible_pairs", "flops", "bytes", "library_backend")
     return {"name": "flash_attention", "cases": cases, "max_abs_err": serve["max_abs_err"],
             **{key: serve[key] for key in ("ms", "kernel_only_ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by", "floor_6d_ms")},
             "shape": "q bf16[1,16,2048,128], k/v bf16[1,8,2048,128], causal",
             **{key: serve[key] for key in ("max_abs_err_vs_f32", "out_rms",
                                            "rounding_limit_use")},
-            "at_32k": {key: timed[32768, 128][key] for key in at},
+            "at_32k": {key: timed["32k"][key] for key in at},
             "at_d64": {"shape": "q bf16[1,16,2048,64], k/v bf16[1,8,2048,64], causal",
-                       **{key: timed[2048, 64][key] for key in at}},
+                       **{key: timed["d64"][key] for key in at}},
             "at_hymba": {"shape": "q bf16[1,25,4096,64], k/v bf16[1,5,4096,64], causal, "
                                   "window 2048",
-                         **{key: timed[4096, 64][key] for key in at + (
-                             "kernel", "visible_pairs", "flops", "bytes", "library_backend")}}}
+                         **{key: timed["hymba"][key] for key in more}},
+            "at_mla": {"shape": "q/k bf16[1,128,2048,192], v bf16[1,128,2048,128], causal",
+                       **{key: timed["mla"][key] for key in more}},
+            "at_whisper_encoder": {"shape": "q/k/v bf16[4,6,1500,64], non-causal",
+                                   **{key: timed["whisper_encoder"][key] for key in more}},
+            "at_whisper_cross": {"shape": "q bf16[4,6,2048,64], k/v bf16[4,6,1500,64], "
+                                          "non-causal",
+                                 **{key: timed["whisper_cross"][key] for key in more}},
+            "at_whisper_decoder": {"shape": "q/k/v bf16[4,6,2048,64], causal",
+                                   **{key: timed["whisper_decoder"][key] for key in more}}}
 
 
 # ---------------------------------------------------------------------------
@@ -1336,10 +1398,12 @@ def profile_serve(engine, prompt: list[int], steps: int = 8) -> dict:
     return out
 
 
-def serve_counted(dev, arch: str, prompt_len: int = PROMPT_LEN) -> tuple[dict, dict, dict, int]:
-    """``launch.serve.main`` for ``arch`` at full width, every kernel's
-    count set to 0 just before and read just after: (metrics, launches,
-    the ``window`` of each call the model made to K3, peak memory)."""
+def serve_counted(dev, arch: str, prompt_len: int = PROMPT_LEN,
+                  layers: int = 0) -> tuple[dict, dict, dict, int]:
+    """``launch.serve.main`` for ``arch`` at full width (its depth cut to
+    ``layers`` where given), every kernel's count set to 0 just before and
+    read just after: (metrics, launches, the ``window`` of each call the
+    model made to K3, peak memory)."""
     from collections import Counter
 
     from repro_torch.kernels.colocate import ops as colocate_ops
@@ -1363,7 +1427,7 @@ def serve_counted(dev, arch: str, prompt_len: int = PROMPT_LEN) -> tuple[dict, d
     flash_ops.flash_attention.wgmma_launches = 0
     attn.flash_attention = seen
     try:
-        metrics = launch_serve.main(serve_argv(arch, prompt_len))
+        metrics = launch_serve.main(serve_argv(arch, prompt_len, layers))
         torch.cuda.synchronize()
     finally:
         attn.flash_attention = kernel
@@ -1420,11 +1484,40 @@ def run_serve_moe(root: Path, dev) -> dict:
             "peak_memory_bytes": peak}
 
 
-def check_moe_on_card(dev, cfg) -> dict:
-    """One MoE layer of ``cfg`` on the card (bf16) against the same layer on
-    the CPU in float32 (the port's CPU path, which the CPU tests hold
-    against the JAX package), at a prefill's group (2048 tokens, capacity
-    640) and a decode step's (one token, capacity 1). The router weights
+def _expert_stack(dev, gen, shape, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(X, a, b) expert weights N(0, scale**2) drawn on the card from
+    ``gen`` one expert at a time and rounded to bf16, and the same values in
+    float32 on the host, filled expert by expert: neither device holds a
+    float32 or float64 draw of the whole stack (deepseek's 256 x 7168 x
+    2048 is 7.5 GB in bf16, 15 GB in float32)."""
+    card = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    host = torch.empty(shape, dtype=torch.float32)
+    for x in range(shape[0]):
+        card[x] = torch.randn(shape[1:], generator=gen, device=dev) * scale
+        host[x] = card[x].float().cpu()
+    return card, host
+
+
+def _own_column(dev, gen, x_: int, f: int, e: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Down projections that write only their expert's own output column
+    (1 + |N(0, 1)| a hidden unit), on the card in bf16 and on the host in
+    float32, built as :func:`_expert_stack` builds its stacks."""
+    card = torch.zeros((x_, f, e), dtype=torch.bfloat16, device=dev)
+    host = torch.zeros((x_, f, e), dtype=torch.float32)
+    for x in range(x_):
+        card[x, :, x] = 1.0 + torch.randn(f, generator=gen, device=dev).abs()
+        host[x, :, x] = card[x, :, x].float().cpu()
+    return card, host
+
+
+def check_moe_on_card(dev, cfg, prefill_tokens: int = PROMPT_LEN) -> dict:
+    """One MoE layer of ``cfg``, all its experts at full width, on the card
+    (bf16) against the same layer on the CPU in float32 (the port's CPU
+    path, which the CPU tests hold against the JAX package), at a prefill's
+    group (``prefill_tokens``; 2048 tokens: granite's capacity 640,
+    deepseek's 80) and a decode step's (one token, capacity 1); sigmoid
+    routing with its bias (zero, its init) and a shared expert where
+    ``cfg`` has them. The router weights
     and inputs are multiples of 2**-6 and 2**-2 small enough that every
     router logit is exact in float32 on both devices: the routing is then
     the same whatever the order of the sums, ties (which the few distinct
@@ -1432,34 +1525,56 @@ def check_moe_on_card(dev, cfg) -> dict:
     capacity overflows and drops happen. Outputs within 2e-2 of the largest
     magnitude (bf16 products and sums); then each expert's down
     projection made to write only its own column, so a column is non-zero
-    exactly where its expert's assignment passed capacity: those sets
-    equal on both devices."""
+    exactly where its expert's assignment passed capacity (the shared
+    expert's down projection zero): those sets equal on both devices. The
+    expert weights are drawn on the card (seed 18); the host's float32 copy
+    of them is the largest host allocation of the smoke (45 GB at
+    deepseek's widths), reported with the host's peak resident size."""
+    import resource
+
     from repro_torch.models import moe
 
+    t0 = time.perf_counter()
     rng = np.random.default_rng(18)
+    gen = torch.Generator(device=dev).manual_seed(18)
     e, x_, f = cfg.d_model, cfg.n_experts, cfg.resolved_moe_d_ff
-    p32 = {"w_router": rng.integers(-8, 9, (e, x_)).astype(np.float32) / 64,
-           "wg": (rng.standard_normal((x_, e, f)) / math.sqrt(e)).astype(np.float32),
-           "wu": (rng.standard_normal((x_, e, f)) / math.sqrt(e)).astype(np.float32),
-           "wd": (rng.standard_normal((x_, f, e)) / math.sqrt(f)).astype(np.float32)}
-    p32["w_router"][:16, :4] = 8 / 64  # with the constant features below: experts 0-3
-    own = np.zeros_like(p32["wd"])     # favoured, so their capacity overflows
-    own[np.arange(x_), :, np.arange(x_)] = 1.0 + np.abs(rng.standard_normal((x_, f)))
+    w_router = rng.integers(-8, 9, (e, x_)).astype(np.float32) / 64
+    w_router[:16, :4] = 8 / 64  # with the constant features below: experts 0-3
+    small = {"w_router": w_router}  # favoured, so their capacity overflows
+    if cfg.router_type == "sigmoid":
+        small["router_bias"] = np.zeros(x_, np.float32)
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        small.update(ws_g=rng.standard_normal((e, fs), dtype=np.float32) / math.sqrt(e),
+                     ws_u=rng.standard_normal((e, fs), dtype=np.float32) / math.sqrt(e),
+                     ws_d=rng.standard_normal((fs, e), dtype=np.float32) / math.sqrt(fs))
+    xs = {}
+    for label, tokens in (("prefill", prefill_tokens), ("decode", 1)):
+        xs[label] = (rng.integers(-2, 3, (1, tokens, e)) / 4).astype(np.float32)
+        xs[label][..., :16] = 0.5
+    card = {k: torch.from_numpy(v).to(dev, torch.float32 if k.startswith("router")
+                                      or k == "w_router" else torch.bfloat16)
+            for k, v in small.items()}
+    host = {k: v.float().cpu() for k, v in card.items()}  # the same bf16 values
+    for name, shape, fan_in in (("wg", (x_, e, f), e), ("wu", (x_, e, f), e),
+                                ("wd", (x_, f, e), f)):
+        card[name], host[name] = _expert_stack(dev, gen, shape, 1 / math.sqrt(fan_in))
     cpu_cfg = cfg.with_(dtype="float32")
-    out = {}
-    for label, tokens in (("prefill", PROMPT_LEN), ("decode", 1)):
-        x = (rng.integers(-2, 3, (1, tokens, e)) / 4).astype(np.float32)
-        x[..., :16] = 0.5
-        res = {"tokens": tokens, "capacity": moe.capacity(tokens, cfg)}
-        for wd_name, wd in (("dense", p32["wd"]), ("own_column", own)):
-            weights = {**p32, "wd": wd}
-            card = {k: torch.from_numpy(v).to(dev, torch.float32 if k == "w_router"
-                                              else torch.bfloat16) for k, v in weights.items()}
-            host = {k: v.float().cpu() for k, v in card.items()}  # the same bf16 values
+    out = {label: {"tokens": x.shape[1], "capacity": moe.capacity(x.shape[1], cfg)}
+           for label, x in xs.items()}
+    for wd_name in ("dense", "own_column"):
+        if wd_name == "own_column":
+            del card["wd"], host["wd"]
+            card["wd"], host["wd"] = _own_column(dev, gen, x_, f, e)
+            if "ws_d" in card:
+                card["ws_d"].zero_()
+                host["ws_d"].zero_()
+        for label, x in xs.items():
             got = moe.moe_ffn(card, torch.from_numpy(x).to(dev, torch.bfloat16), cfg)
             want = moe.moe_ffn(host, torch.from_numpy(x), cpu_cfg)
             got = got.float().cpu()
             assert got.shape == want.shape and torch.isfinite(got).all()
+            res, tokens = out[label], x.shape[1]
             if wd_name == "dense":
                 err = float((got - want).abs().max())
                 scale = float(want.abs().max())
@@ -1471,9 +1586,13 @@ def check_moe_on_card(dev, cfg) -> dict:
                 assert kept_card == kept_host, (label, len(kept_card ^ kept_host))
                 res.update(kept_assignments=len(kept_card),
                            dropped=tokens * cfg.top_k - len(kept_card), kept_equal=True)
-        out[label] = res
     assert out["prefill"]["dropped"] > 0  # the capacity bound was exercised
-    return out
+    host_bytes = sum(t.numel() * t.element_size() for t in host.values())
+    del card, host
+    torch.cuda.empty_cache()
+    return {"experts": x_, **out, "host_float32_bytes": host_bytes,
+            "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "s": time.perf_counter() - t0}
 
 
 def time_dispatch_scatter(dev, cfg) -> dict:
@@ -1613,6 +1732,75 @@ def run_xlstm(root: Path, dev) -> dict:
     del served, engine
     torch.cuda.reset_peak_memory_stats(dev)
     line["full_depth_step"] = profile_train(dev, cfg.n_layers, XLSTM_ARCH)
+    return line
+
+
+def run_serve_mla(root: Path, dev) -> dict:
+    """deepseek-v3-671b at full width, its depth cut to 4 layers (3 dense +
+    1 MoE), through ``launch.serve.main --layers 4``: 4 requests of 2048
+    prompt tokens and 32 generated, K3 counted from 0 just before and read
+    just after (one launch a layer a prefill, all on the tensor cores at qk
+    192 / v 128). Transcripts equal ``run_reference``'s on an engine
+    rebuilt from the spec; one request published, dropped and resumed with
+    zero re-prefill from its latent cache; prefill logits with K3 against
+    the plain attention; one dense MLA layer and the MoE layer (all 256
+    experts) on the card against the float32 CPU path; where a prefill's
+    and a decode step's time goes (K3, the MLA range, the MoE dispatch,
+    expert GEMMs and combine)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.cases import check_mla_layer_on_device
+
+    gc.collect()
+    torch.cuda.empty_cache()  # 30.2 GB of weights and a 15 GB float32 expert draw
+    metrics, launches, windows, peak = serve_counted(dev, MLA_ARCH, layers=MLA_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()  # main's engine is gone; check_serve builds its own
+    t0 = time.perf_counter()
+    # the reference's init leaves a random 256-expert MoE layer ~1/16 of a
+    # dense layer's output, so greedy transcripts may repeat a token
+    served = check_serve(metrics, dev, spec=MLA_SERVE_SPEC, varied=False)
+    engine, req = served["engine"], served["requests"][0]
+    cfg = engine.cfg
+    assert cfg == get_config(MLA_ARCH).with_(n_layers=MLA_LAYERS), cfg  # widths kept
+    per_run = BATCH * cfg.n_layers
+    assert launches == {"delta_encode": 0, "colocate": 0, "flash_attention": per_run,
+                        "flash_attention_wgmma": per_run}, launches
+    assert windows == {0: per_run}, windows
+    check_s = time.perf_counter() - t0
+    resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
+    assert sorted(resume["cmi_cache_arrays"]) == ["caches/g0/ckv", "caches/g0/kr",
+                                                  "caches/g1/ckv", "caches/g1/kr"], resume
+    in_model = check_model_kernel_vs_plain(engine, req["prompt"])
+    trace = profile_serve(engine, req["prompt"])
+    for phase in ("prefill", "decode"):
+        for name in ("mla", "moe_dispatch", "moe_experts"):
+            assert trace[phase]["groups_ms"].get(RANGES[name], 0) > 0, (phase, name, trace)
+    leaves = _leaves(engine.params)
+    line = {**served["line"],
+            "config": {"arch": MLA_ARCH, "n_layers": cfg.n_layers,
+                       "depth_cut": {"layers": cfg.n_layers, "of": get_config(MLA_ARCH).n_layers},
+                       "d_model": cfg.d_model, "heads": cfg.n_heads,
+                       "mla": {"q_lora": cfg.q_lora_rank, "kv_lora": cfg.kv_lora_rank,
+                               "qk_nope": cfg.qk_nope_dim, "qk_rope": cfg.qk_rope_dim,
+                               "v_head": cfg.v_head_dim},
+                       "experts": [cfg.n_experts, cfg.top_k, cfg.resolved_moe_d_ff,
+                                   cfg.n_shared_experts], "router": cfg.router_type,
+                       "first_dense_layers": cfg.first_dense_layers, "d_ff": cfg.d_ff,
+                       "vocab": cfg.vocab, "dtype": cfg.dtype, "params": cfg.param_count(),
+                       "active_params": cfg.active_param_count()},
+            "param_bytes_on_card": sum(t.numel() * t.element_size() for t in leaves),
+            "capacity": {"prefill_per_expert": moe.capacity(PROMPT_LEN, cfg),
+                         "decode_per_expert": moe.capacity(1, cfg)},
+            "engine_rebuild_and_reference_s": check_s,
+            "resume": resume, "kernel_vs_plain_in_model": in_model,
+            "where_the_time_goes": trace, "launches": launches,
+            "k3_launches_per_prefill": cfg.n_layers, "peak_memory_bytes": peak}
+    del served, engine, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["mla_layer_on_card"] = check_mla_layer_on_device(dev, cfg, MLA_ON_CARD_TOKENS)
+    line["moe_on_card"] = check_moe_on_card(dev, cfg)
     return line
 
 
@@ -1813,6 +2001,15 @@ def run_chaos(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def k3_per_forward(cfg) -> int:
+    """K3 calls of one forward pass: one a layer with attention (the
+    mLSTM has none); the encoder-decoder's encoder layers and its decoder
+    layers' self and cross attention."""
+    if cfg.encdec:
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return 0 if cfg.mlstm else cfg.n_layers
+
+
 def state_bytes(cfg) -> int:
     """Bytes of the train state of ``cfg`` (params, master, moments)."""
     from repro_torch.distributed.steps import state_specs
@@ -1920,7 +2117,7 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
     assert all(math.isfinite(loss) for _, loss in steps["A"])
     starts = [(r["resumed"], r["step"]) for r in rec["B"] if r["event"] == "start"]
     assert starts == [(False, 0), (True, TRAIN_PREEMPT_AT)], starts
-    per_run = 2 * TRAIN_STEPS * cfg.n_layers  # forward + remat recompute, every layer
+    per_run = 2 * TRAIN_STEPS * k3_per_forward(cfg)  # forward + remat recompute
     for k in "AB":
         launched = end[k]["launches"]
         assert launched == {"flash_attention": per_run, "flash_attention_wgmma": per_run,
@@ -1947,6 +2144,8 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
                        "capacity_factor": cfg.capacity_factor} if cfg.moe else {}),
                    **({"window": cfg.window} if cfg.window else {}),
                    **({"ssm_state": cfg.ssm_state, "chunk": cfg.chunk} if cfg.ssm else {}),
+                   **({"enc_layers": cfg.enc_layers, "enc_seq": cfg.enc_seq, "d_ff": cfg.d_ff,
+                       "tie_embeddings": cfg.tie_embeddings} if cfg.encdec else {}),
                    "batch": batch, "seq_len": seq,
                    "steps": TRAIN_STEPS, "preempt_at": TRAIN_PREEMPT_AT},
         "depth_cut": None if not extra else {"layers": layers, "of": get_config(arch).n_layers},
@@ -2004,7 +2203,7 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     k3_launches = flash_attention.launches - before
-    want_k3 = 0 if cfg.mlstm else 2 * layers  # forward + remat recompute, every layer
+    want_k3 = 2 * k3_per_forward(cfg)  # forward + remat recompute
     assert k3_launches == want_k3, (k3_launches, want_k3)
     del state, tokens
     gc.collect()
@@ -2029,16 +2228,88 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
             "groups_ms": split["groups_ms"], "top_kernels_ms": split["top_kernels_ms"]}
 
 
-def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True,
-                      seq: int = TRAIN_SEQ, batches: tuple[int, ...] = (1, TRAIN_BATCH)) -> dict:
-    """K3 with lse against its plain version at ``arch``'s heads and window
-    and ``seq`` tokens; its time with and without lse, SDPA's forward
-    (saving its lse for a backward; a window as a boolean mask) and
-    backward, and the plain attention backward, at the serve and the
-    training batch; then (``gradients``) a 2-layer float32 model's
-    gradients with K3 against plain attention under autograd."""
+def k3_lse_case(dev, b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int,
+                causal: bool, win: int, seed: int) -> dict:
+    """K3 with lse (the training forward) at one shape against its plain
+    version (lse within LSE_TOL, the output within one bf16 rounding), its
+    time with and without lse, SDPA's forward (saving its lse for a
+    backward; a window as a boolean mask) and backward, and the plain
+    attention backward, beside the forward's and backward's bounds."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril().triu(-(win - 1)) if win else None
+    sdpa_kw = {"attn_mask": mask, "is_causal": causal and mask is None, "enable_gqa": True}
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        dev, torch.bfloat16) for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv),
+                                          (b, h, sq, dv)))
+    got, lse = flash_ops._forward(q, k, v, causal, win, None, True)
+    assert torch.equal(got, flash_ops.flash_attention(q, k, v, causal=causal, window=win))
+    t0 = time.perf_counter()
+    want, want_lse = flash_ops.flash_attention_plain(q, k, v, causal=causal, window=win,
+                                                     return_lse=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    lse_err = float((lse - want_lse).abs().max())
+    assert lse_err <= LSE_TOL, lse_err
+    rounding = one_bf16_rounding(got, flash_ops.flash_attention_plain(
+        q.float(), k.float(), v.float(), causal=causal, window=win))
+    t0 = time.perf_counter()
+    grads = flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout, causal=causal,
+                                                     window=win)
+    torch.cuda.synchronize()
+    bwd_first_ms = (time.perf_counter() - t0) * 1e3
+    assert all(torch.isfinite(g).all() for g in grads)
+    del grads
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+    work = k3_work(b, h, hkv, sq, sk, d, dv, causal, win)
+    pairs = work["visible_pairs"]
+    # the backward: S recomputed, dQ = dS K and dK = dS^T Q over D; dV = P^T
+    # dO and dP = dO V^T over Dv (10 D a pair where Dv = D)
+    bwd_flops = 2 * b * h * (3 * d + 2 * dv) * pairs
+    nbytes = work["bytes"]
+    out = {
+        "shape": f"q bf16[{b},{h},{sq},{d}], k bf16[{b},{hkv},{sk},{d}], "
+                 f"v bf16[{b},{hkv},{sk},{dv}], " + ("causal" if causal else "non-causal")
+                 + (f", window {win}" if win else ""),
+        "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+        "rounding_limit_use": rounding["rounding_limit_use"],
+        "ms": cuda_ms(lambda: flash_ops._forward(q, k, v, causal, win, None, False), 20),
+        "lse_ms": cuda_ms(lambda: flash_ops._forward(q, k, v, causal, win, None, True), 20),
+        "lse_kernel_only_ms": profiled_ms(
+            lambda: flash_ops._forward(q, k, v, causal, win, None, True),
+            "flash_fwd_kernel_wgmma", 20),
+        "plain_ms": plain_ms,
+        "library_sdpa_forward_with_lse_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(*leaves, **sdpa_kw), 20),
+        "library_sdpa_backend": sdpa_backend(
+            lambda: F.scaled_dot_product_attention(*leaves, **sdpa_kw)),
+        "library_sdpa_backward_ms": cuda_ms(
+            lambda: torch.autograd.grad(sdpa, leaves, dout, retain_graph=True), 10),
+        "attention_backward_plain_ms": cuda_ms(
+            lambda: flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout,
+                                                             causal=causal, window=win), 3),
+        "attention_backward_plain_first_ms": bwd_first_ms,
+        "visible_pairs": pairs,
+        "forward_bound_ms": work["bound_ms"],
+        "backward_bound_ms": max(bwd_flops / BF16_FLOPS,
+                                 (nbytes * 2 + b * h * sq * (dv * 2 + 4)) / HBM_BYTES_PER_S) * 1e3,
+        "backward_bound_by": "operations",
+    }
+    del q, k, v, dout, got, lse, want, want_lse, leaves, sdpa
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True,
+                      seq: int = TRAIN_SEQ, batches: tuple[int, ...] = (1, TRAIN_BATCH)) -> dict:
+    """K3 with lse (:func:`k3_lse_case`) at ``arch``'s heads and window and
+    ``seq`` tokens, at the serve and the training batch; then
+    (``gradients``) a 2-layer float32 model's gradients with K3 against
+    plain attention under autograd."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import Model
@@ -2047,66 +2318,8 @@ def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True,
 
     cfg = get_config(arch)
     h, hkv, d, win = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.window
-    mask = torch.ones(seq, seq, dtype=torch.bool, device=dev).tril().triu(-(win - 1)) if win else None
-    sdpa_kw = {"attn_mask": mask, "is_causal": mask is None, "enable_gqa": True}
-    out = {}
-    for label, b in zip(("serve_shape", "train_shape"), batches):
-        rng = np.random.default_rng(b)
-        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
-            dev, torch.bfloat16) for shape in ((b, h, seq, d), (b, hkv, seq, d),
-                                              (b, hkv, seq, d), (b, h, seq, d)))
-        got, lse = flash_ops._forward(q, k, v, True, win, None, True)
-        assert torch.equal(got, flash_ops.flash_attention(q, k, v, causal=True, window=win))
-        t0 = time.perf_counter()
-        want, want_lse = flash_ops.flash_attention_plain(q, k, v, causal=True, window=win,
-                                                         return_lse=True)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        lse_err = float((lse - want_lse).abs().max())
-        assert lse_err <= LSE_TOL, lse_err
-        rounding = one_bf16_rounding(got, flash_ops.flash_attention_plain(
-            q.float(), k.float(), v.float(), causal=True, window=win))
-        t0 = time.perf_counter()
-        grads = flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout, window=win)
-        torch.cuda.synchronize()
-        bwd_first_ms = (time.perf_counter() - t0) * 1e3
-        assert all(torch.isfinite(g).all() for g in grads)
-        del grads
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        sdpa = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
-        pairs = visible_pairs(seq, seq, True, win)
-        fwd_flops, bwd_flops = 4 * b * h * d * pairs, 10 * b * h * d * pairs
-        nbytes = (2 * b * h + 2 * b * hkv) * seq * d * 2
-        out[label] = {
-            "shape": f"q bf16[{b},{h},{seq},{d}], k/v bf16[{b},{hkv},{seq},{d}], causal"
-                     + (f", window {win}" if win else ""),
-            "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
-            "rounding_limit_use": rounding["rounding_limit_use"],
-            "ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, win, None, False), 20),
-            "lse_ms": cuda_ms(lambda: flash_ops._forward(q, k, v, True, win, None, True), 20),
-            "lse_kernel_only_ms": profiled_ms(
-                lambda: flash_ops._forward(q, k, v, True, win, None, True),
-                "flash_fwd_kernel_wgmma", 20),
-            "plain_ms": plain_ms,
-            "library_sdpa_forward_with_lse_ms": cuda_ms(
-                lambda: F.scaled_dot_product_attention(*leaves, **sdpa_kw), 20),
-            "library_sdpa_backend": sdpa_backend(
-                lambda: F.scaled_dot_product_attention(*leaves, **sdpa_kw)),
-            "library_sdpa_backward_ms": cuda_ms(
-                lambda: torch.autograd.grad(sdpa, leaves, dout, retain_graph=True), 10),
-            "attention_backward_plain_ms": cuda_ms(
-                lambda: flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout,
-                                                                 window=win), 3),
-            "attention_backward_plain_first_ms": bwd_first_ms,
-            "visible_pairs": pairs,
-            "forward_bound_ms": max(fwd_flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
-            "backward_bound_ms": max(bwd_flops / BF16_FLOPS,
-                                     (nbytes * 2 + b * h * seq * (d * 2 + 4))
-                                     / HBM_BYTES_PER_S) * 1e3,
-            "backward_bound_by": "operations",
-        }
-        del q, k, v, dout, got, lse, want, want_lse, leaves, sdpa
-        torch.cuda.empty_cache()
+    out = {label: k3_lse_case(dev, b, h, hkv, seq, seq, d, d, True, win, seed=b)
+           for label, b in zip(("serve_shape", "train_shape"), batches)}
     if not gradients:
         return out
 
@@ -2170,7 +2383,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_entries(_build.ptxas_report(name)) for name in _build.SOURCES}
     k3_wgmma = {entry: v for entry, v in ptxas["flash_attention"].items()
-                if "flash_fwd_kernel_wgmma" in entry}  # D = 64 and 128
+                if "flash_fwd_kernel_wgmma" in entry}  # (D, Dv) (64, 64), (128, 128), (192, 128)
     k3_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k3_wgmma.values())
     k2_entry = {entry: v for entry, v in ptxas["colocate"].items() if "colocate_kernel" in entry}
     k2_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k2_entry.values())
@@ -2198,6 +2411,12 @@ def main() -> int:
         k3_train_moe = check_k3_training(dev, MOE_ARCH, gradients=False)
         k3_train_hybrid = check_k3_training(dev, HYBRID_ARCH, gradients=False,
                                             seq=HYBRID_TRAIN_SEQ, batches=(1, HYBRID_TRAIN_BATCH))
+        # and at the new phases' shapes: deepseek's MLA prefill, whisper's
+        # encoder, cross and decoder attention (its training forward's)
+        k3_lse_new = {"mla": k3_lse_case(dev, 1, 128, 128, 2048, 2048, 192, 128, True, 0, 1),
+                      "whisper_encoder": k3_lse_case(dev, 4, 6, 6, 1500, 1500, 64, 64, False, 0, 4),
+                      "whisper_cross": k3_lse_case(dev, 4, 6, 6, 2048, 1500, 64, 64, False, 0, 5),
+                      "whisper_decoder": k3_lse_case(dev, 4, 6, 6, 2048, 2048, 64, 64, True, 0, 6)}
 
         # the main path: counts from 0 just before, read just after
         delta_ops.changed_blocks.launches = 0
@@ -2343,6 +2562,33 @@ def main() -> int:
         # after: it launches none) and a full-depth step in this process
         emit("xlstm", **run_xlstm(work / "xlstm", dev),
              disk=disk.mark("xlstm", dir_bytes(work / "xlstm")))
+
+        # MLA: deepseek-v3 at full width, depth cut to 4 layers, served
+        # (counts from 0 just before, read just after)
+        mla = run_serve_mla(work / "serve_mla", dev)
+        launches["flash_attention"] += mla["launches"]["flash_attention"]
+        by_path["serve_mla"] = {"flash_attention": mla["launches"]["flash_attention"]}
+        emit("serve_mla", **mla, k3=k3_lse_new["mla"],
+             disk=disk.mark("serve_mla", dir_bytes(work / "serve_mla")))
+        shutil.rmtree(work / "serve_mla", ignore_errors=True)
+        del mla
+
+        # the encoder-decoder: whisper-tiny through the launcher, each
+        # process counting its own K3 launches from 0
+        train = run_train(work / "train_encdec", ENCDEC_ARCH, ENCDEC_TRAIN_WRITE_BUDGET)
+        by_path["train_encdec"] = {"flash_attention": sum(
+            train["launches"][run]["flash_attention"] for run in ("A", "B"))}
+        launches["flash_attention"] += by_path["train_encdec"]["flash_attention"]
+        assert train["depth_cut"] is None, train["depth_cut"]  # full width and depth
+        torch.cuda.reset_peak_memory_stats(dev)
+        train["in_process_step"] = profile_train(dev, get_config(ENCDEC_ARCH).n_layers,
+                                                 ENCDEC_ARCH)
+        emit("train_encdec", **train,
+             k3={key: k3_lse_new[key] for key in ("whisper_encoder", "whisper_cross",
+                                                  "whisper_decoder")},
+             disk=disk.mark("train_encdec", train_files(work / "train_encdec", train)))
+        shutil.rmtree(work / "train_encdec", ignore_errors=True)
+        del train
         total = disk.total()
         emit("disk", phases=disk.phases, total_written_bytes=total, limit_bytes=DISK_WRITE_LIMIT)
         assert total < DISK_WRITE_LIMIT, (total, disk.phases)
@@ -2350,7 +2596,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     assert len(k2_entry) == 1 and k2_spills == 0, k2_entry  # K2 spills nothing
-    assert len(k3_wgmma) == 2 and k3_spills == 0, k3_wgmma  # the tensor-core K3 spills nothing
+    assert len(k3_wgmma) == 3 and k3_spills == 0, k3_wgmma  # the tensor-core K3 spills nothing
     rows = []
     parity = {"delta_encode": "bitmaps equal", "colocate": "idx equal, cos bitwise equal",
               "flash_attention": "within 2e-5 (f32) / 2e-2 (bf16) of the plain version; "
@@ -2371,8 +2617,12 @@ def main() -> int:
                      "kernel_ms": k["ms"], "kernel_only_ms": k["kernel_only_ms"],
                      "shape": k["shape"], "parity": parity[name],
                      **({"sass_per_pair": k["sass_per_pair"]} if "sass_per_pair" in k else {}),
-                     **({"at_d64": k["at_d64"], "at_hymba": k["at_hymba"], "training": k3_train,
-                         "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid}
+                     **({"at_d64": k["at_d64"], "at_hymba": k["at_hymba"], "at_mla": k["at_mla"],
+                         "at_whisper_encoder": k["at_whisper_encoder"],
+                         "at_whisper_cross": k["at_whisper_cross"],
+                         "at_whisper_decoder": k["at_whisper_decoder"], "training": k3_train,
+                         "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid,
+                         "lse_new_shapes": k3_lse_new}
                         if name == "flash_attention" else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

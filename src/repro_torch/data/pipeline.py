@@ -1,15 +1,21 @@
 """Deterministic, checkpointable data pipeline.
 
-A copy of the JAX package's ``repro/data/pipeline.py`` (numpy only): the
-cursor (seed + step counter) lives inside the training state, so a CMI
-restore resumes the exact token stream, and a batch is a pure function of
-the cursor. Batches are counter-based Philox draws with a zipf-ish marginal,
-bitwise equal to the reference's for the same seed and step.
+A copy of the JAX package's ``repro/data/pipeline.py``: the cursor (seed +
+step counter) lives inside the training state, so a CMI restore resumes
+the exact token stream, and a batch is a pure function of the cursor.
+Batches are counter-based Philox draws with a zipf-ish marginal, bitwise
+equal to the reference's for the same seed and step.
 
-The reference also draws modality stubs (vision patch embeddings, audio
-frames) as numpy bfloat16, which needs ``ml_dtypes``; the port's models
-refuse those configurations (``models.transformer.check_supported``), and so
-does this pipeline, until the model slice that runs them.
+The encoder-decoder's audio frames (``enc_frames``, (B, enc_seq, E)) are
+the reference's draw too: float32 Philox normals from the same generator,
+rounded to bf16 and multiplied by bf16 0.1. The reference rounds and
+multiplies with ``ml_dtypes``; here both are done on the bits with numpy,
+rounding to nearest even as ``ml_dtypes`` does (the product of two bf16
+values is exact in float32, so it is rounded once). Every leaf of a batch
+is a numpy array: the frames are their bf16 bits as uint16, bitwise the
+reference's array, and ``distributed.steps.batch_to_device`` views them as
+bf16. The vision patch stub is refused until the vision slice (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -20,13 +26,23 @@ import numpy as np
 
 from repro_torch.configs.base import ArchConfig
 
-_LATER = "is not ported yet (ROADMAP queue 1, item 11: models and training)"
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 (finite) -> the uint16 bits of its bf16 rounding to nearest even."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def bf16_values(bits: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bits -> their float32 values (exact)."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
 
 
 class TokenPipeline:
     def __init__(self, cfg: ArchConfig, seq_len: int, global_batch: int, seed: int = 0):
-        if cfg.vision_prefix or cfg.encdec:
-            raise NotImplementedError(f"{cfg.name}: the vision/audio input stubs {_LATER}")
+        if cfg.vision_prefix:
+            raise NotImplementedError(f"{cfg.name}: the vision input stub is not ported yet "
+                                      "(ROADMAP queue 1, item 11: next slices, item 3)")
         self.cfg = cfg
         self.seq_len = seq_len
         self.global_batch = global_batch
@@ -44,4 +60,8 @@ class TokenPipeline:
         raw = rng.zipf(1.3, size=(b, s + 1)).astype(np.int64)
         tokens_full = (raw % self.cfg.vocab).astype(np.int32)
         batch = {"tokens": tokens_full[:, :s], "labels": tokens_full[:, 1:]}
+        if self.cfg.encdec:
+            draw = rng.standard_normal((b, self.cfg.enc_seq, self.cfg.d_model), dtype=np.float32)
+            tenth = bf16_values(bf16_bits(np.float32(0.1)))
+            batch["enc_frames"] = bf16_bits(bf16_values(bf16_bits(draw)) * tenth)
         return batch, {"data_step": step + 1, "seed": state["seed"]}

@@ -73,8 +73,13 @@ def train_state_from_numpy(tree: Any, cfg: ArchConfig, opt_cfg: AdamWConfig,
 
 
 def batch_to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
-    """A pipeline batch (numpy) as tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    """A pipeline batch (numpy) as tensors on ``device``; uint16 arrays are
+    bf16 bits (the encoder's frames) and become bf16."""
+    def tensor(v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        return t.view(torch.bfloat16) if v.dtype == np.uint16 else t
+
+    return {k: tensor(v).to(device) for k, v in batch.items()}
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3e-4,
@@ -101,14 +106,18 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3
     import torch._dynamo  # noqa: F401
 
     model = Model(cfg)
+    selection_only = model.selection_only_paths()  # zero gradients, as jax.grad's
 
     def train_step(state: dict[str, Any], batch: dict[str, torch.Tensor]):
         params = state["params"]
         flat, treedef = flatten_with_paths(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
         loss = model.loss(treedef.unflatten(leaves), batch, n_groups=n_groups)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        grads = treedef.unflatten(dict(zip(leaves, grads)))
+        # every other leaf must reach the loss: autograd raises where one does not
+        reached = [k for k in leaves if k not in selection_only]
+        grads = dict(zip(reached, torch.autograd.grad(loss, [leaves[k] for k in reached])))
+        grads = treedef.unflatten({k: grads[k] if k in grads else torch.zeros_like(v)
+                                   for k, v in leaves.items()})
         lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup, total=total_steps)
         om = adamw_update(grads, state["opt"], params, lr, opt_cfg)
         del grads

@@ -2,12 +2,14 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // flash_attention.py (`_kernel`, launched by `flash_attention_padded`):
-// q (B, H, Sq, D), k and v (B, Hkv, Sk, D), float32 or bfloat16; query head
+// q (B, H, Sq, D), k (B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv) (Dv = D but for
+// MLA, whose qk head dim 192 is not its v head dim 128), float32 or
+// bfloat16; query head
 // h reads kv head h / (H / Hkv); scores, the online softmax (m, l, acc) and
 // the PV product in float32; keys at positions >= Sk masked, causal
 // kpos <= qpos and window kpos > qpos - window on absolute positions from 0
 // (top-left aligned when Sq != Sk); a row with no visible key is exactly 0;
-// the output in q's dtype. Where the caller asks (the training forward),
+// the output (B, H, Sq, Dv) in q's dtype. Where the caller asks (the training forward),
 // each kernel also writes the float32 log-sum-exp of each row's scaled
 // scores, lse = m + log l (+inf for a row with no visible key), (B, H, Sq)
 // dense: the statistics the Pallas kernel keeps as its m and l outputs, and
@@ -19,33 +21,41 @@
 // prefill (H = 16, Hkv = 8, Sq = Sk = 2048, D = 128, causal) that is 17.2
 // GFLOP against 25.2 MB of q, k, v and output, far above the ~295
 // operations per byte where the bf16 tensor cores (989 TFLOP/s) stop
-// waiting on memory: 0.0174 ms at the tensor-core rate.
+// waiting on memory: 0.0174 ms at the tensor-core rate. At deepseek-v3's MLA
+// prefill (H = Hkv = 128, S = 2048, D 192, Dv 128, causal) it is 2 (D + Dv)
+// operations a visible pair, 171.9 GFLOP against 335.5 MB: 0.174 ms.
 //
 // Two kernels, chosen by the caller from dtype and D before the launch:
 //
-// flash_fwd_kernel_wgmma (bf16, D = 64 or 128; entry flash_attention_fwd_wgmma)
+// flash_fwd_kernel_wgmma (bf16 at (D, Dv) = (64, 64), (128, 128) or (192,
+// 128); entry flash_attention_fwd_wgmma)
 //   runs both products on the tensor cores and keeps K3's float32
 //   probabilities. One bf16 rounding of P for the PV product would move the
 //   output by ~45 bf16 roundings of its float32 answer, so P is split into
 //   hi = bf16(P) and lo = bf16(P - hi), and P V = hi V + lo V: two PV
-//   products, 6 * D operations per visible pair (0.026 ms at the serve shape).
+//   products, 2 D + 4 Dv operations per visible pair (0.026 ms at the serve
+//   shape, 0.243 ms at MLA's).
 //  * One block of 384 threads per (b, h, 128-row q tile), heaviest causal
 //    tiles first: two consumer warpgroups of 64 q rows each and a producer
 //    warpgroup, one thread of which issues TMA loads: q once, then k and v
 //    tiles of 64 keys into a two-stage ring, each with its own full and
 //    empty mbarrier, so a k tile is replaced once both consumers read it.
-//    (96 KB of shared memory at D = 128.)
+//    (96 KB of shared memory at D = 128; at MLA's (192, 128) q takes 48 KB,
+//    the k ring 2 x 24 KB and the v ring 2 x 16 KB, 129 KB in all.)
 //  * Tiles are TMA boxes of 64 columns (128 bytes, the 128-byte swizzle
-//    span): a D = 128 tile is two boxes, and the wgmma descriptors step
-//    across them. The tensor maps cover the true Sq and Sk, so rows past
+//    span): a D = 128 tile is two boxes, a D = 192 one three, and the wgmma
+//    descriptors step across them. The tensor maps cover the true Sq and Sk, so rows past
 //    either load as zeros and output rows past Sq are never stored.
-//  * S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory.
+//  * S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory, a
+//    chain of D / 16 of them (12 at D = 192).
 //    Softmax on the accumulator's layout: each thread holds 2 rows, a row
 //    spans the 4 threads of a quad (two shfl_xor). Only tiles that cross
 //    the causal diagonal, the window's edge or Sk are masked elementwise.
 //  * P V: the S accumulator's layout is the A-fragment layout of the next
 //    wgmma, so hi and lo are packed in registers; two wgmma m64n{D}k16 per
 //    16 keys, V from shared memory as an MN-major operand (transposed B).
+//    The output accumulator is Dv wide, so at (192, 128) the registers are
+//    D = 128's.
 //  * Epilogue: O / max(l, 1e-30) in float32, rounded to bf16 once, staged
 //    in the warpgroup's own q buffer and written by a TMA store.
 //  * setmaxnreg moves registers from the producer warpgroup to the
@@ -55,7 +65,8 @@
 //    wgmmas, with and without the register moves; 64-key tiles (32 + 64 +
 //    32) spill nothing.
 //
-// flash_fwd_kernel (float32, and bf16 at other D; entry flash_attention_fwd)
+// flash_fwd_kernel (float32, and bf16 at other head dims; entry
+// flash_attention_fwd)
 //   is the first, CUDA-core design: the arithmetic runs on the fp32 CUDA
 //   cores (67 TFLOP/s), bf16 widened with __bfloat162float on load.
 //  * One block of 256 threads per (b, h, 64-row q tile); the TPU grid's
@@ -63,9 +74,11 @@
 //    bounded to the tiles with a visible pair (causal and window skip).
 //    The heaviest causal q tiles are launched first.
 //  * q, k and v tiles are staged in shared memory as float32 (q padded to
-//    DMAX + 4 and k to DMAX + 1 floats a row, so the column reads of the
-//    score loop hit distinct banks); P reuses k's buffer.
-//  * Thread (ty, tx) owns rows 4ty..4ty+3: 4 x 4 scores and 4 x DMAX/16
+//    DQK + 4 and k to DQK + 1 floats a row, so the column reads of the
+//    score loop hit distinct banks); P reuses k's buffer. Instances (DQK,
+//    DV) = (64, 64), (128, 128) and (192, 128); the last takes 64 x 196 +
+//    64 x 193 + 64 x 128 floats, 132 KB, so one block runs on an SM.
+//  * Thread (ty, tx) owns rows 4ty..4ty+3: 4 x 4 scores and 4 x DV/16
 //    output columns in registers. Row max and row sum reduce across the 16
 //    lanes of a row group with warp shuffles; m and l stay in registers.
 //  * Ragged edges (Sq, Sk, D below the tile sizes) are masked in the
@@ -93,7 +106,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int b, h, hkv, sq, sk, d;
+  int b, h, hkv, sq, sk, d, dv;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   float scale;
   int causal, window;
@@ -111,22 +124,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype(bfloat16)
 }
 
-template <int DMAX>
+template <int DQK, int DV>
 constexpr int smem_floats() {
-  return kBQ * (DMAX + 4) + kBK * (DMAX + 1) + kBK * DMAX;
+  return kBQ * (DQK + 4) + kBK * (DQK + 1) + kBK * DV;
 }
 
-template <typename T, int DMAX>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  static_assert(DMAX % 16 == 0, "DMAX must be a multiple of 16");
-  static_assert(kBK * (DMAX + 1) >= kBQ * kPP, "P must fit in the k buffer");
-  constexpr int QP = DMAX + 4;
-  constexpr int KP = DMAX + 1;
-  constexpr int NC = DMAX / 16;  // output columns per thread
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
+  static_assert(kBK * (DQK + 1) >= kBQ * kPP, "P must fit in the k buffer");
+  constexpr int QP = DQK + 4;
+  constexpr int KP = DQK + 1;
+  constexpr int NC = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;              // [kBQ][QP]
   float* sK = sQ + kBQ * QP;     // [kBK][KP], then P [kBQ][kPP]
-  float* sV = sK + kBK * KP;     // [kBK][DMAX]
+  float* sV = sK + kBK * KP;     // [kBK][DV]
   float* sP = sK;
   const float NEG_INF = __int_as_float(0xff800000);
 
@@ -136,15 +149,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const int bi = bh / p.h, hi = bh % p.h;
   const int kvh = hi / (p.h / p.hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest causal tiles first
-  const int d = p.d;
+  const int d = p.d, dv = p.dv;
 
   const T* qg = static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
   T* og = static_cast<T*>(p.o) + bi * p.o_sb + hi * p.o_sh;
 
-  for (int i = tid; i < kBQ * DMAX; i += kThreads) {
-    const int r = i / DMAX, c = i % DMAX;
+  for (int i = tid; i < kBQ * DQK; i += kThreads) {
+    const int r = i / DQK, c = i % DQK;
     float x = 0.f;
     if (q0 + r < p.sq && c < d) x = to_f32(qg[static_cast<long long>(q0 + r) * p.q_ss + c]);
     sQ[r * QP + c] = x;
@@ -167,15 +180,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's P and V are no longer read
-    for (int i = tid; i < kBK * DMAX; i += kThreads) {
-      const int r = i / DMAX, c = i % DMAX;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < p.sk && c < d) {
-        kx = to_f32(kg[static_cast<long long>(k0 + r) * p.k_ss + c]);
-        vx = to_f32(vg[static_cast<long long>(k0 + r) * p.v_ss + c]);
-      }
+    for (int i = tid; i < kBK * DQK; i += kThreads) {
+      const int r = i / DQK, c = i % DQK;
+      float kx = 0.f;
+      if (k0 + r < p.sk && c < d) kx = to_f32(kg[static_cast<long long>(k0 + r) * p.k_ss + c]);
       sK[r * KP + c] = kx;
-      sV[r * DMAX + c] = vx;
+    }
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int r = i / DV, c = i % DV;
+      float vx = 0.f;
+      if (k0 + r < p.sk && c < dv) vx = to_f32(vg[static_cast<long long>(k0 + r) * p.v_ss + c]);
+      sV[r * DV + c] = vx;
     }
     __syncthreads();
 
@@ -185,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < DMAX; ++c) {
+    for (int c = 0; c < DQK; ++c) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * QP + c];
@@ -240,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * kPP + kk];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float vv = sV[kk * DMAX + tx + 16 * c];
+        const float vv = sV[kk * DV + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -259,19 +274,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < d) og[static_cast<long long>(row) * p.o_ss + col] = from_f32<T>(acc[i][c] / den);
+      if (col < dv) og[static_cast<long long>(row) * p.o_ss + col] = from_f32<T>(acc[i][c] / den);
     }
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DQK, int DV>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<DMAX>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX>,
+  constexpr int bytes = smem_floats<DQK, DV>() * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DQK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(p.b * p.h), static_cast<unsigned>((p.sq + kBQ - 1) / kBQ));
-  flash_fwd_kernel<T, DMAX><<<grid, kThreads, bytes, stream>>>(p);
+  flash_fwd_kernel<T, DQK, DV><<<grid, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,8 +441,8 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&a)[4], uint64_t db);
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_m64n128k16(o, a, db);
@@ -437,16 +452,19 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)
   wgmma_rs_m64n64k16(o, a, db);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            const __grid_constant__ CUtensorMap tm_o, const WgmmaArgs a) {
-  static_assert(D == 64 || D == 128, "D is 64 or 128");
-  constexpr int NBOX = D / 64;              // 64-column boxes a row
+  static_assert((D == 64 && DV == 64) || (D == 128 && DV == 128) || (D == 192 && DV == 128),
+                "(D, Dv) is (64, 64), (128, 128) or (192, 128)");
+  constexpr int NBOX = D / 64;              // 64-column boxes a q or k row
+  constexpr int VBOX = DV / 64;             // 64-column boxes a v or output row
   constexpr int QW_BYTES = NBOX * kQBox;    // one warpgroup's 64 q rows
-  constexpr int KV_BYTES = NBOX * kKVBox;   // one k or v tile
+  constexpr int K_BYTES = NBOX * kKVBox;    // one k tile
+  constexpr int V_BYTES = VBOX * kKVBox;    // one v tile
   const float NEG_INF = __int_as_float(0xff800000);
 
   // shared memory, 1024-byte aligned for the swizzle: q (two warpgroups'
@@ -457,8 +475,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
   uint8_t* const gbase = smem_raw + (base - raw);  // the same bytes, generic address
   const uint32_t sQ = base;
   const uint32_t sK = sQ + 2 * QW_BYTES;
-  const uint32_t sV = sK + kStages * KV_BYTES;
-  const uint32_t bars = sV + kStages * KV_BYTES;
+  const uint32_t sV = sK + kStages * K_BYTES;
+  const uint32_t bars = sV + kStages * V_BYTES;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8u * (1 + s); };
   auto v_full = [&](int s) { return bars + 8u * (1 + kStages + s); };
@@ -507,13 +525,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
         const uint32_t parity = ((it / kStages) & 1) ^ 1;  // a stage's first use passes at once
         const int k0 = k_begin + it * kWBK;
         mbar_wait(k_empty(s), parity);
-        mbar_expect_tx(k_full(s), KV_BYTES);
+        mbar_expect_tx(k_full(s), K_BYTES);
         for (int x = 0; x < NBOX; ++x)
-          tma_load(sK + s * KV_BYTES + x * kKVBox, &tm_k, k_full(s), 64 * x, k0, kvh, bi);
+          tma_load(sK + s * K_BYTES + x * kKVBox, &tm_k, k_full(s), 64 * x, k0, kvh, bi);
         mbar_wait(v_empty(s), parity);
-        mbar_expect_tx(v_full(s), KV_BYTES);
-        for (int x = 0; x < NBOX; ++x)
-          tma_load(sV + s * KV_BYTES + x * kKVBox, &tm_v, v_full(s), 64 * x, k0, kvh, bi);
+        mbar_expect_tx(v_full(s), V_BYTES);
+        for (int x = 0; x < VBOX; ++x)
+          tma_load(sV + s * V_BYTES + x * kKVBox, &tm_v, v_full(s), 64 * x, k0, kvh, bi);
       }
     }
   } else {
@@ -525,9 +543,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
     const int qpos0 = wq_first + r0, qpos1 = qpos0 + 8;
     const uint32_t sQw = sQ + wg * QW_BYTES;
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sum
     mbar_wait(q_full, 0);
 
@@ -544,7 +562,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t step = (kk % 4) * 32;  // 16 columns within a 128-byte row
         wgmma_ss_m64n64k16(sc, smem_desc(sQw + (kk / 4) * kQBox + step, 16, 1024),
-                           smem_desc(sK + s * KV_BYTES + (kk / 4) * kKVBox + step, 16, 1024),
+                           smem_desc(sK + s * K_BYTES + (kk / 4) * kKVBox + step, 16, 1024),
                            kk > 0);
       }
       wgmma_commit();
@@ -600,7 +618,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       m0 = mn0;
       m1 = mn1;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? c1 : c0;
+      for (int i = 0; i < DV / 2; ++i) o[i] *= (i & 2) ? c1 : c0;
 
       // P = hi + lo in bf16, packed as the A fragments of 16-key slices:
       // slice kk's registers are sc[8kk .. 8kk + 7] in pairs
@@ -625,9 +643,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < kWBK / 16; ++kk) {
         // 16 keys = 16 rows of 128 bytes; the next 64 columns are the next box
-        const uint64_t dv = smem_desc(sV + s * KV_BYTES + kk * 16 * 128, kKVBox, 1024);
-        wgmma_pv<D>(o, ph[kk], dv);
-        wgmma_pv<D>(o, pl[kk], dv);
+        const uint64_t dv = smem_desc(sV + s * V_BYTES + kk * 16 * 128, kKVBox, 1024);
+        wgmma_pv<DV>(o, ph[kk], dv);
+        wgmma_pv<DV>(o, pl[kk], dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -655,7 +673,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     // the swizzled layout the output map's boxes have
     uint8_t* const stage = gbase + wg * QW_BYTES;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = r0 + 8 * half;
@@ -670,7 +688,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     if ((threadIdx.x & 127) == 0 && wq_first < a.sq) {
-      for (int x = 0; x < NBOX; ++x) tma_store(&tm_o, sQw + x * kQBox, 64 * x, wq_first, hi, bi);
+      for (int x = 0; x < VBOX; ++x) tma_store(&tm_o, sQw + x * kQBox, 64 * x, wq_first, hi, bi);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
@@ -727,71 +745,85 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int s, int heads, int b,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch_wgmma(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
                  const CUtensorMap& mo, const WgmmaArgs& args, int b, int sq, cudaStream_t stream) {
-  constexpr int nbox = D / 64;
-  constexpr int bytes = 1024 + 2 * nbox * kQBox + 2 * kStages * nbox * kKVBox + (1 + 4 * kStages) * 8;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_wgmma<D>,
+  constexpr int nbox = D / 64, vbox = DV / 64;
+  constexpr int bytes =
+      1024 + 2 * nbox * kQBox + kStages * (nbox + vbox) * kKVBox + (1 + 4 * kStages) * 8;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_wgmma<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(b * args.h), static_cast<unsigned>((sq + kWBQ - 1) / kWBQ));
-  flash_fwd_kernel_wgmma<D><<<grid, kWThreads, bytes, stream>>>(mq, mk, mv, mo, args);
+  flash_fwd_kernel_wgmma<D, DV><<<grid, kWThreads, bytes, stream>>>(mq, mk, mv, mo, args);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v, o: element strides (batch, head, seq) each, the last dimension
-// dense. dtype 0 = float32, 1 = bfloat16. lse: a dense float32 (B, H, Sq)
+// dense; d the q and k head dim, dv the v and output head dim (d <= 192,
+// dv <= 128). dtype 0 = float32, 1 = bfloat16. lse: a dense float32 (B, H, Sq)
 // output for each row's log-sum-exp, or null. Returns cudaGetLastError()
 // (or cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int b,
-                                   int h, int hkv, int sq, int sk, int d, long long q_sb,
+                                   int h, int hkv, int sq, int sk, int d, int dv, long long q_sb,
                                    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
                                    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
                                    long long o_sb, long long o_sh, long long o_ss, float scale,
                                    int causal, int window, int dtype, float* lse,
                                    void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return 0;
-  if (hkv <= 0 || h % hkv || d <= 0 || d > 128 || sk < 0 || (sq + kBQ - 1) / kBQ > 65535)
+  if (hkv <= 0 || h % hkv || d <= 0 || d > 192 || dv <= 0 || dv > 128 || sk < 0 ||
+      (sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, o, b, h, hkv, sq, sk, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+  const Params p{q, k, v, o, b, h, hkv, sq, sk, d, dv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                  v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, window, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return d <= 64 ? launch<float, 64>(p, s) : launch<float, 128>(p, s);
-  if (dtype == 1) return d <= 64 ? launch<__nv_bfloat16, 64>(p, s) : launch<__nv_bfloat16, 128>(p, s);
+  // the smallest instance that holds both head dims
+  const int inst = d <= 64 && dv <= 64 ? 64 : d <= 128 ? 128 : 192;
+  if (dtype == 0)
+    return inst == 64    ? launch<float, 64, 64>(p, s)
+           : inst == 128 ? launch<float, 128, 128>(p, s)
+                         : launch<float, 192, 128>(p, s);
+  if (dtype == 1)
+    return inst == 64    ? launch<__nv_bfloat16, 64, 64>(p, s)
+           : inst == 128 ? launch<__nv_bfloat16, 128, 128>(p, s)
+                         : launch<__nv_bfloat16, 192, 128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 kernel for D = 64 or 128 (flash_fwd_kernel_wgmma); arguments as
-// flash_attention_fwd's, without the dtype. Each of q, k, v, o needs a
+// The bf16 kernel for (d, dv) = (64, 64), (128, 128) or (192, 128)
+// (flash_fwd_kernel_wgmma); arguments as flash_attention_fwd's, without the
+// dtype. Each of q, k, v, o needs a
 // 16-byte aligned base and strides in whole 16-byte units (the TMA's rule);
 // the caller makes a dense copy where a tensor breaks it.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                                          int b, int h, int hkv, int sq, int sk, int d,
-                                         long long q_sb, long long q_sh, long long q_ss,
+                                         int dv, long long q_sb, long long q_sh, long long q_ss,
                                          long long k_sb, long long k_sh, long long k_ss,
                                          long long v_sb, long long v_sh, long long v_ss,
                                          long long o_sb, long long o_sh, long long o_ss, float scale,
                                          int causal, int window, float* lse, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return 0;
-  if (hkv <= 0 || h % hkv || (d != 64 && d != 128) || sk < 0 || (sq + kWBQ - 1) / kWBQ > 65535)
+  const bool taken = (d == 64 && dv == 64) || (d == 128 && dv == 128) || (d == 192 && dv == 128);
+  if (hkv <= 0 || h % hkv || !taken || sk < 0 || (sq + kWBQ - 1) / kWBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv, mo;
   bool ok = make_map(&mq, q, d, sq, h, b, q_ss, q_sh, q_sb, 64) &&
-            make_map(&mo, o, d, sq, h, b, o_ss, o_sh, o_sb, 64);
+            make_map(&mo, o, dv, sq, h, b, o_ss, o_sh, o_sb, 64);
   if (sk > 0) {
     ok = ok && make_map(&mk, k, d, sk, hkv, b, k_ss, k_sh, k_sb, kWBK) &&
-         make_map(&mv, v, d, sk, hkv, b, v_ss, v_sh, v_sb, kWBK);
-  } else {  // no key tile is loaded: the k and v maps only need to be valid
+         make_map(&mv, v, dv, sk, hkv, b, v_ss, v_sh, v_sb, kWBK);
+  } else {  // no key tile is loaded: the k and v maps only need to be valid (dv <= d)
     ok = ok && make_map(&mk, q, d, sq, h, b, q_ss, q_sh, q_sb, kWBK) &&
-         make_map(&mv, q, d, sq, h, b, q_ss, q_sh, q_sb, kWBK);
+         make_map(&mv, q, dv, sq, h, b, q_ss, q_sh, q_sb, kWBK);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const WgmmaArgs args{h, hkv, sq, sk, causal, window,
                        static_cast<float>(static_cast<double>(scale) * 1.4426950408889634), lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_wgmma<64>(mq, mk, mv, mo, args, b, sq, s)
-                 : launch_wgmma<128>(mq, mk, mv, mo, args, b, sq, s);
+  return d == 64    ? launch_wgmma<64, 64>(mq, mk, mv, mo, args, b, sq, s)
+         : d == 128 ? launch_wgmma<128, 128>(mq, mk, mv, mo, args, b, sq, s)
+                    : launch_wgmma<192, 128>(mq, mk, mv, mo, args, b, sq, s);
 }

@@ -5,12 +5,16 @@ Port of the Pallas kernel ``repro/kernels/flash_attention`` (wrapper
 ``ref.attention_ref``): online softmax over key tiles with float32 running
 ``(m, l, acc)``, key positions past ``s_k`` masked, a row with no visible
 key exactly 0, the output cast to q's dtype. Query head ``h`` reads kv
-head ``h // (H / Hkv)``.
+head ``h // (H / Hkv)``. v's head dim ``Dv`` may differ from q's and k's
+``D`` (MLA: qk 192, v 128); the output is ``(B, H, Sq, Dv)``, and the
+scale stays ``1/sqrt(D)``, as the reference's ``blockwise_attention``
+computes (the Pallas kernel and its oracle take ``Dv == D`` only).
 
 :func:`flash_attention` runs :func:`flash_attention_plain` for CPU tensors
 and a CUDA kernel of ``csrc/flash_attention.cu`` for CUDA tensors, chosen
-from dtype and head dim: bf16 at D = 64 or 128 goes to the tensor-core
-kernel (wgmma, TMA), everything else to the CUDA-core kernel. All keep the
+from dtype and head dims: bf16 at (D, Dv) = (64, 64), (128, 128) or (192,
+128) goes to the tensor-core kernel (wgmma, TMA), everything else (D <=
+192, Dv <= 128) to the CUDA-core kernel; other head dims raise. All keep the
 probabilities in float32 for the PV product, as K3 does (the tensor-core
 kernel as bf16 hi + lo halves, two PV products). The kernels mask the
 ragged edges themselves, so nothing is padded, and read q, k and v through
@@ -43,18 +47,19 @@ DEFAULT_BLOCK_K = 512
 # 2048) the backward runs in two groups
 BACKWARD_BLOCK_ELEMENTS = 1 << 27
 KERNEL_BLOCK_Q = 64  # the CUDA-core kernel's q tile (the tensor-core kernel's is 128)
-KERNEL_MAX_HEAD_DIM = 128
-WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims the tensor-core kernel takes
+KERNEL_MAX_HEAD_DIM = 192  # q and k
+KERNEL_MAX_V_HEAD_DIM = 128  # v and the output
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))  # bf16 (D, Dv) of the tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"need q (B,H,Sq,D) and k/v (B,Hkv,Sk,D), got {tuple(q.shape)} "
-                         f"{tuple(k.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need q (B,H,Sq,D), k (B,Hkv,Sk,D) and v (B,Hkv,Sk,Dv), got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     b, h, _, d = q.shape
     bk, hkv, _, dk = k.shape
-    if (bk, dk) != (b, d) or v.shape != k.shape:
+    if (bk, dk) != (b, d) or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     if hkv == 0 or h % hkv:
         raise ValueError(f"n_heads {h} not a multiple of n_kv_heads {hkv}")
@@ -82,7 +87,7 @@ def _visible(sq: int, sk: int, causal: bool, window: int, device) -> torch.Tenso
 def flash_attention_plain(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
     *,
     causal: bool = True,
     window: int = 0,
@@ -100,7 +105,7 @@ def flash_attention_plain(
     ``(out, lse)``. float64 inputs compute in float64."""
     _check(q, k, v)
     b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     ct = _compute_dtype(q.dtype)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -108,14 +113,14 @@ def flash_attention_plain(
     block_k = min(block_k, max(16, sk))
     qf = q.reshape(b, hkv, g, sq, d).to(ct)
     kf, vf = k.to(ct), v.to(ct)
-    out = torch.empty((b, hkv, g, sq, d), dtype=ct, device=q.device)
+    out = torch.empty((b, hkv, g, sq, dv), dtype=ct, device=q.device)
     lse = torch.empty((b, hkv, g, sq, 1), dtype=ct, device=q.device) if return_lse else None
     for q0 in range(0, sq, block_q):
         q1 = min(sq, q0 + block_q)
         qb = qf[:, :, :, q0:q1]  # (B, Hkv, G, tq, D)
         m = torch.full(qb.shape[:-1] + (1,), float("-inf"), dtype=ct, device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros(qb.shape, dtype=ct, device=q.device)
+        acc = torch.zeros(qb.shape[:-1] + (dv,), dtype=ct, device=q.device)
         qpos = torch.arange(q0, q1, device=q.device)[:, None]
         for k0 in range(0, sk, block_k):
             # tile skip, as the Pallas kernel's (tiles of the padded grid)
@@ -143,17 +148,17 @@ def flash_attention_plain(
         out[:, :, :, q0:q1] = acc / torch.clamp(l, min=1e-30)
         if return_lse:
             lse[:, :, :, q0:q1] = torch.where(l > 0, m + torch.log(l), float("inf"))
-    out = out.reshape(b, h, sq, d).to(q.dtype)
+    out = out.reshape(b, h, sq, dv).to(q.dtype)
     return (out, lse.reshape(b, h, sq)) if return_lse else out
 
 
 def flash_attention_backward_plain(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
-    v: torch.Tensor,
-    o: torch.Tensor,  # (B, H, Sq, D): the forward's output
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
+    o: torch.Tensor,  # (B, H, Sq, Dv): the forward's output
     lse: torch.Tensor,  # (B, H, Sq): the forward's row log-sum-exp
-    do: torch.Tensor,  # (B, H, Sq, D): the output's gradient
+    do: torch.Tensor,  # (B, H, Sq, Dv): the output's gradient
     *,
     causal: bool = True,
     window: int = 0,
@@ -168,18 +173,19 @@ def flash_attention_backward_plain(
     time)."""
     _check(q, k, v)
     b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     ct = _compute_dtype(q.dtype)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     n = b * hkv
-    qf, of, dof = (t.reshape(n, g, sq, d) for t in (q, o, do))
-    kf, vf = (t.reshape(n, sk, d) for t in (k, v))
+    qf = q.reshape(n, g, sq, d)
+    of, dof = (t.reshape(n, g, sq, d_v) for t in (o, do))
+    kf, vf = k.reshape(n, sk, d), v.reshape(n, sk, d_v)
     lsef = lse.reshape(n, g, sq, 1)
     hidden = ~_visible(sq, sk, causal, window, q.device)
     dq = torch.empty((n, g, sq, d), dtype=ct, device=q.device)
     dk = torch.empty((n, sk, d), dtype=ct, device=q.device)
-    dv = torch.empty((n, sk, d), dtype=ct, device=q.device)
+    dv = torch.empty((n, sk, d_v), dtype=ct, device=q.device)
     step = max(1, BACKWARD_BLOCK_ELEMENTS // max(1, g * sq * sk))
     for i0 in range(0, n, step):
         sl = slice(i0, i0 + step)
@@ -195,7 +201,7 @@ def flash_attention_backward_plain(
         dk[sl] = torch.matmul(ds.transpose(-1, -2), qc).mul_(scale).sum(1)
         del ds
     return (dq.reshape(b, h, sq, d).to(q.dtype), dk.reshape(b, hkv, sk, d).to(k.dtype),
-            dv.reshape(b, hkv, sk, d).to(v.dtype))
+            dv.reshape(b, hkv, sk, d_v).to(v.dtype))
 
 
 @functools.cache
@@ -204,7 +210,7 @@ def _kernel(entry: str):
     ``flash_attention_fwd_wgmma`` (bf16 only)."""
     fn = getattr(_build.load("flash_attention"), entry)
     dtype = [ctypes.c_int] if entry == "flash_attention_fwd" else []
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + dtype
                    + [ctypes.c_void_p, ctypes.c_void_p])  # lse (or None), stream
     fn.restype = ctypes.c_int
@@ -234,23 +240,25 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
     if q.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
     b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if d > KERNEL_MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, got {d}")
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if d > KERNEL_MAX_HEAD_DIM or dv > KERNEL_MAX_V_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head dims D <= {KERNEL_MAX_HEAD_DIM} and "
+                         f"Dv <= {KERNEL_MAX_V_HEAD_DIM}, got {d} and {dv}")
     if b * h >= 2**31 or sq > 65535 * KERNEL_BLOCK_Q or sk >= 2**31:
         raise ValueError(f"flash_attention shapes beyond the kernel's grid: "
                          f"q{tuple(q.shape)} k{tuple(k.shape)}")
-    wgmma = q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+    wgmma = q.dtype == torch.bfloat16 and (d, dv) in WGMMA_HEAD_DIMS
     # the kernels read rows through strides; each row's D values must be dense
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if wgmma:
         q, k, v = (_tma_ready(t) for t in (q, k, v))
-    out = torch.empty_like(q)  # keeps q's dense layout: (B,S,H,D) storage stays so
+    # q's dense layout at Dv columns: (B,S,H,D) storage gives (B,S,H,Dv)
+    out = torch.empty_like(q if dv == d else q[..., :dv])
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if out.numel():
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, sq, sk, d,
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, sq, sk, d, dv,
                 *strides, scale, int(bool(causal)), window]
         entry = "flash_attention_fwd_wgmma" if wgmma else "flash_attention_fwd"
         if not wgmma:
@@ -292,15 +300,16 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
     *,
     causal: bool = True,
     window: int = 0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """(B, H, Sq, D) in q's dtype — the plain version (512 x 512 tiles) on
+    """(B, H, Sq, Dv) in q's dtype — the plain version (512 x 512 tiles) on
     the CPU; on CUDA the tensor-core kernel (128 x 64 tiles) for bf16 at
-    D = 64 or 128, the CUDA-core kernel (64 x 64 tiles) otherwise. Where an
+    (D, Dv) in :data:`WGMMA_HEAD_DIMS`, the CUDA-core kernel (64 x 64 tiles)
+    otherwise. Where an
     input requires grad (and grad mode is on), through :class:`FlashAttention`."""
     _check(q, k, v)
     window = int(window)

@@ -10,13 +10,18 @@ process (``--workers 0``) or is spread over N serving worker processes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --workers 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 4
 
 The model runs on the CUDA card unless ``--device cpu`` is given, in this
 process or in every worker; asking for the card where there is none raises
 (a worker exits non-zero before it serves). Reports per-phase throughput:
 prefill tok/s (prompt tokens / prefill wall time) and decode tok/s
 (generated tokens past the first / decode wall time), plus TTFT p50/max
-when routing over workers. ``main`` returns the metrics dict.
+when routing over workers. ``--layers N`` cuts the model's depth to N
+layers, widths kept (deepseek-v3-671b at 4: its 3 dense layers and one
+MoE layer); the engine spec carries the cut (``model:<arch>:full:layers=4:
+seed=0``), so every worker builds the same weights. ``main`` returns the
+metrics dict.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ def _engine_spec(args) -> tuple[str, int]:
 
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
         mode = "smoke" if args.smoke else "full"
-        return f"model:{args.arch}:{mode}:seed={args.seed}", cfg.vocab
+        cut = f":layers={args.layers}" if args.layers else ""
+        return f"model:{args.arch}:{mode}{cut}:seed={args.seed}", cfg.vocab
     return f"toy:seed={args.seed}", 512
 
 
@@ -135,6 +141,8 @@ def main(argv=None) -> dict:
                     help="model arch (empty: deterministic toy engine)")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke-sized model config (with --arch)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model's depth to this many layers (0: keep it); widths stay")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)

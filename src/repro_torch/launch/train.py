@@ -85,16 +85,43 @@ def causal_pairs(seq_len: int, window: int = 0) -> int:
 
 def token_params(cfg) -> int:
     """Parameters one token multiplies: the configuration's analytic count
-    (``active_param_count``: a MoE layer's top-k experts, not all of them),
-    which gives every layer the GQA projections; an mLSTM block has none of
-    those, and five (E, H·Dh) projections (q, k, v, the output gate, o)
-    where that count takes four."""
+    (``active_param_count``: a MoE layer's top-k experts, not all of them;
+    an MLA layer's five LoRA and projection matrices), which gives every
+    other layer the GQA projections; an mLSTM block has none of those, and
+    five (E, H·Dh) projections (q, k, v, the output gate, o) where that
+    count takes four. The encoder-decoder: :func:`encdec_token_params`."""
+    if cfg.encdec:
+        raise ValueError("the encoder-decoder's tokens and frames differ: encdec_token_params")
     n = cfg.active_param_count()
     if cfg.mlstm:
         e, dh = cfg.d_model, cfg.resolved_head_dim
         gqa = 2 * e * cfg.n_heads * dh + 2 * e * cfg.n_kv_heads * dh
         n += cfg.n_layers * (e * cfg.n_heads * dh - gqa)
     return n
+
+
+def encdec_token_params(cfg) -> tuple[int, int]:
+    """(parameters an encoder frame multiplies, parameters a decoder token
+    multiplies) of the encoder-decoder: a frame every encoder layer's q, k,
+    v, o and MLP, and every decoder layer's cross-attention k and v (they
+    project the encoder's output); a token every decoder layer's self q,
+    k, v, o, cross q and o and MLP, and the (tied) unembedding. The
+    learned position tables are added, not multiplied."""
+    e, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                       cfg.d_ff)
+    qo, kv_proj, mlp = 2 * e * h * dh, 2 * e * kv * dh, 2 * e * f
+    frame = cfg.enc_layers * (qo + kv_proj + mlp) + cfg.n_layers * kv_proj
+    token = cfg.n_layers * (qo + kv_proj + qo + mlp) + cfg.vocab * e
+    return frame, token
+
+
+def attention_pair_flops(cfg) -> int:
+    """Forward FLOPs of softmax attention a visible (q, k) pair, all heads:
+    QK^T over the qk head dim and PV over the v head dim (MLA: nope + rope
+    192 and v 128; else both the head dim)."""
+    if cfg.mla:
+        return 2 * cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim)
+    return 4 * cfg.n_heads * cfg.resolved_head_dim
 
 
 def recurrence_flops(cfg, batch: int, seq_len: int) -> int:
@@ -118,14 +145,24 @@ def step_flops(cfg, batch: int, seq_len: int) -> int:
     """Model FLOPs of one training step: 6 N T, N the parameters a token
     multiplies (:func:`token_params`), plus, in every layer, three times
     (forward, and backward twice) each mixer's own products: softmax
-    attention's 4 B H D operations a visible (q, k) pair (12 in all) where
-    the mixer has attention (all but the mLSTM; within the sliding window
-    when one is set), and the chunked recurrence's (:func:`recurrence_flops`)
-    where it has one (hybrid's SSD, the mLSTM)."""
+    attention's :func:`attention_pair_flops` a visible (q, k) pair times B
+    where the mixer has attention (all but the mLSTM; within the sliding
+    window when one is set), and the chunked recurrence's
+    (:func:`recurrence_flops`) where it has one (hybrid's SSD, the mLSTM).
+    The encoder-decoder counts its B x enc_seq frames and B x S tokens
+    (:func:`encdec_token_params`) and three attentions: the encoder's over
+    enc_seq^2 pairs, the decoder's causal one and the cross-attention's S x
+    enc_seq pairs."""
+    if cfg.encdec:
+        frame, token = encdec_token_params(cfg)
+        pairs = (cfg.enc_layers * cfg.enc_seq ** 2
+                 + cfg.n_layers * (causal_pairs(seq_len) + seq_len * cfg.enc_seq))
+        return (6 * batch * (frame * cfg.enc_seq + token * seq_len)
+                + 3 * batch * attention_pair_flops(cfg) * pairs)
     per_layer = 3 * recurrence_flops(cfg, batch, seq_len)
     if not cfg.mlstm:
         pairs = causal_pairs(seq_len, cfg.window)
-        per_layer += 12 * batch * cfg.n_heads * cfg.resolved_head_dim * pairs
+        per_layer += 3 * batch * attention_pair_flops(cfg) * pairs
     return 6 * token_params(cfg) * batch * seq_len + per_layer * cfg.n_layers
 
 

@@ -1,6 +1,6 @@
-"""Attention: GQA, train/prefill through K3 and one-token decode.
+"""Attention: GQA and MLA, train/prefill through K3 and one-token decode.
 
-Port of the GQA half of the JAX package's ``repro/models/attention.py``.
+Port of the JAX package's ``repro/models/attention.py``.
 Layouts are the reference's: activations (B, S, E); q (B, S, H, Dh); k and
 v (B, S, KV, Dh), where query head ``h`` reads kv head ``h // G`` with
 G = n_heads // n_kv_heads, so k/v are never physically repeated.
@@ -15,9 +15,20 @@ copy.
 KV cache: ``{"k": (B, S_max, KV, Dh), "v": ...}``; with a sliding window
 S_max = window and slot = pos % W. Decode writes its one position into
 the cache in place (the reference returns an updated copy): the cache is
-the request's state and is never read at an older version.
+the request's state and is never read at an older version. Cross
+attention (the encoder-decoder's) takes k/v from ``kv_source``.
 
-MLA (``init_mla``, ``mla_*``) comes with a later slice.
+MLA (deepseek): q through a LoRA (``wq_a``, RMSNorm, ``wq_b``), k/v from a
+compressed latent ``ckv`` (``wkv_a``, RMSNorm) expanded per head by
+``wkv_b``, and a RoPE key shared by every head. Train and prefill expand
+it: q and k are (B, S, H, nope + rope) = 192 wide and v is 128, and K3
+takes both head dims (scale 1/sqrt(192)); the shared rope key is
+concatenated into one dense k, so the kernel reads no zero-stride head.
+Decode is the absorbed form over the latent cache ``{"ckv": (B, S_max,
+KVr), "kr": (B, S_max, Rr)}``, with the reference's roundings: ``q_lat``
+a bf16 product, the scores float32, the probabilities rounded to the
+cache's dtype before the latent product. The projections and the
+absorbed decode run in the profiler range ``mla`` (K3 outside it).
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -60,8 +72,10 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.reshape(e, -1)).unflatten(-1, w.shape[1:])
 
 
-def _proj_qkv(p, x, cfg: ArchConfig):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _proj_qkv(p, x, cfg: ArchConfig, src=None):
+    """q from ``x``; k and v from ``src`` (cross attention) or ``x``."""
+    src = x if src is None else src
+    q, k, v = _proj(x, p["wq"]), _proj(src, p["wk"]), _proj(src, p["wv"])
     if cfg.attn_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -78,12 +92,11 @@ def _out(p, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return y + p["bo"] if cfg.attn_bias else y
 
 
-def _rope_qkv(p, x, cfg: ArchConfig, use_rope: bool):
-    q, k, v = _proj_qkv(p, x, cfg)
+def _rope_qkv(p, x, cfg: ArchConfig, use_rope: bool, src=None):
+    q, k, v = _proj_qkv(p, x, cfg, src)
     if use_rope:
-        pos = torch.arange(x.shape[1], device=x.device)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+        q = apply_rope(q, torch.arange(q.shape[1], device=x.device), cfg.rope_theta)
+        k = apply_rope(k, torch.arange(k.shape[1], device=x.device), cfg.rope_theta)
     return q, k, v
 
 
@@ -114,11 +127,13 @@ def _cache_from(k: torch.Tensor, v: torch.Tensor, s: int, s_max: int, cfg: ArchC
     return {"k": kc, "v": vc}
 
 
-def gqa_train(p, x, cfg: ArchConfig, *, causal: bool = True, use_rope: bool = True):
-    """Self-attention (B, S, E) -> (B, S, E) through K3: the training
-    forward's attention. Under autograd K3 also writes its row statistics
-    and its gradient is the plain backward (``FlashAttention``)."""
-    q, k, v = _rope_qkv(p, x, cfg, use_rope)
+def gqa_train(p, x, cfg: ArchConfig, *, causal: bool = True, use_rope: bool = True,
+              kv_source: torch.Tensor | None = None):
+    """Attention (B, S, E) -> (B, S, E) through K3: the training forward's
+    (and the encoder's) self-attention, or cross attention with k/v from
+    ``kv_source`` (B, T, E). Under autograd K3 also writes its row
+    statistics and its gradient is the plain backward (``FlashAttention``)."""
+    q, k, v = _rope_qkv(p, x, cfg, use_rope, kv_source)
     return _attend(p, q, k, v, cfg, causal)
 
 
@@ -161,3 +176,101 @@ def gqa_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, *, use_rope: bool =
     out = torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])  # (B,KV,G,1,Dh)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s1, cfg.n_heads, dh)
     return _out(p, out, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek): expanded train/prefill through K3, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
+    e, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = pdtype(cfg)
+    p = {"wq_a": init_dense(gen, (n_layers, e, qr), ("layers", "embed", "q_lora"), dt, device),
+         "q_ln": torch.ones((n_layers, qr), dtype=dt, device=device)}
+    p["wq_b"] = init_dense(gen, (n_layers, qr, h, nd + rd),
+                           ("layers", "q_lora", "heads", "head_dim"), dt, device)
+    p["wkv_a"] = init_dense(gen, (n_layers, e, kvr + rd), ("layers", "embed", None), dt, device)
+    p["kv_ln"] = torch.ones((n_layers, kvr), dtype=dt, device=device)
+    p["wkv_b"] = init_dense(gen, (n_layers, kvr, h, nd + vd), ("layers", None, "heads", "head_dim"),
+                            dt, device)
+    p["wo"] = init_dense(gen, (n_layers, h, vd, e), ("layers", "heads", "head_dim", "embed"), dt,
+                         device)
+    return p
+
+
+def _mla_qkv(p, x, cfg: ArchConfig, positions: torch.Tensor):
+    """(q_nope (B,S,H,nd), q_rope (B,S,H,rd), ckv (B,S,KVr), k_rope (B,S,rd))."""
+    nd, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
+    cq = rmsnorm(torch.matmul(x, p["wq_a"]), p["q_ln"], cfg.norm_eps)
+    q = _proj(cq, p["wq_b"])  # (B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
+    ckv_full = torch.matmul(x, p["wkv_a"])
+    ckv = rmsnorm(ckv_full[..., :kvr], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., kvr:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_attend(p, x, cfg: ArchConfig, causal: bool):
+    """The expanded attention through K3 and its latent cache rows:
+    (y (B,S,E), ckv (B,S,KVr), k_rope (B,S,rd))."""
+    b, s, _ = x.shape
+    nd = cfg.qk_nope_dim
+    with record_function("mla"):
+        q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, torch.arange(s, device=x.device))
+        kvx = _proj(ckv, p["wkv_b"])  # (B, S, H, nd + vd)
+        k_nope, v = kvx[..., :nd], kvx[..., nd:]
+        # MHA == GQA with KV == H, G == 1; the rope key copied into every
+        # head of one dense k (an expand's zero head stride would cost K3 a copy)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, cfg.n_heads, -1)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
+    with record_function("mla"):
+        y = torch.matmul(o.transpose(1, 2).flatten(-2), p["wo"].flatten(0, 1))
+    return y, ckv, k_rope
+
+
+def mla_train(p, x, cfg: ArchConfig, *, causal: bool = True):
+    """MLA (B, S, E) -> (B, S, E), expanded, through K3 at qk 192 / v 128."""
+    return _mla_attend(p, x, cfg, causal)[0]
+
+
+def mla_prefill(p, x, cfg: ArchConfig, s_max: int):
+    """The prefill's attention output and its latent decode cache (padded
+    to s_max) from one projection: the reference's ``mla_train`` and
+    ``mla_prefill_cache``."""
+    b, s, _ = x.shape
+    y, ckv, k_rope = _mla_attend(p, x, cfg, True)
+    ckv_c = ckv.new_zeros((b, s_max, cfg.kv_lora_rank))
+    kr_c = k_rope.new_zeros((b, s_max, cfg.qk_rope_dim))
+    ckv_c[:, :s] = ckv
+    kr_c[:, :s] = k_rope
+    return y, {"ckv": ckv_c, "kr": kr_c}
+
+
+@record_function("mla")
+def mla_decode(p, x, cache: dict, pos: int, cfg: ArchConfig):
+    """Absorbed one-token decode: scores and output in the latent space, so
+    a step reads O(S (KVr + Rr)) of cache, not O(S H Dh). Writes ``ckv``
+    and ``kr`` at ``pos`` in place."""
+    b, s1, _ = x.shape
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    posv = torch.full((s1,), pos, device=x.device)
+    q_nope, q_rope, ckv_new, kr_new = _mla_qkv(p, x, cfg, posv)
+    ckv, kr = cache["ckv"], cache["kr"]
+    ckv[:, pos:pos + s1] = ckv_new
+    kr[:, pos:pos + s1] = kr_new
+    wkv_k, wkv_v = p["wkv_b"][..., :nd], p["wkv_b"][..., nd:]  # (KVr, H, nd), (KVr, H, vd)
+    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, wkv_k)  # absorb the k expansion
+    # (B,H,q,KVr) x (B,1,KVr,S) and (B,H,q,rd) x (B,1,rd,S): float32 scores
+    sc = torch.matmul(q_lat.transpose(1, 2).float(), ckv.float().transpose(1, 2)[:, None])
+    sc = sc + torch.matmul(q_rope.transpose(1, 2).float(), kr.float().transpose(1, 2)[:, None])
+    sc = sc / math.sqrt(nd + rd)
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    probs = torch.softmax(torch.where(valid, sc, NEG), dim=-1).to(ckv.dtype)
+    o_lat = torch.matmul(probs, ckv[:, None]).transpose(1, 2)  # (B, q, H, KVr)
+    out = torch.einsum("bqhk,khv->bqhv", o_lat, wkv_v)
+    y = torch.matmul(out.flatten(-2), p["wo"].flatten(0, 1))
+    return y, cache

@@ -1,0 +1,218 @@
+"""Encoder-decoder backbone (whisper-style): LayerNorm + GELU MLP + biases,
+learned positions, bidirectional encoder, causal decoder with cross-attention.
+
+Port of the JAX package's ``repro/models/encdec.py``. The conv frontend is
+a stub: the encoder consumes precomputed frame embeddings (B, enc_seq, E)
+(``data.pipeline``'s ``enc_frames``). The decoder's learned position table
+has ``MAX_DEC_POS`` rows, the reference's.
+
+Every attention of the training forward and the prefill goes through K3
+(``attention.gqa_train`` with no RoPE): the encoder's self-attention
+non-causal over the frames, the decoder's causal self-attention, and its
+cross-attention non-causal with k/v from the encoder's output (Sq != Sk).
+Each layer of the training forward runs under ``torch.utils.checkpoint``,
+as the reference's under ``jax.checkpoint``, so its backward recomputes
+the layer. The decode step's self and cross attention stay plain PyTorch,
+as the reference's are; self k/v are written in place at ``pos``.
+
+Parameters are the reference's tree: ``embed`` (tied), ``pos_enc``,
+``pos_dec``, ``enc/{ln1_s, ln1_b, attn/{wq, wk, wv, wo, bq, bk, bv, bo},
+ln2_s, ln2_b, mlp/{w_in, b_in, w_out, b_out}}``, ``enc_final_s/_b``,
+``dec/{ln1_*, self_attn, lnx_*, cross_attn, ln2_*, mlp}``, ``final_s/_b``,
+stacked on L. The decode caches are one flat dict, ``{"k", "v"}: (L, B,
+S, KV, Dh)`` and the cross k/v ``{"xk", "xv"}: (L, B, enc_seq, KV, Dh)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import embed, gelu_mlp, init_dense, init_embedding, layernorm, pdtype
+from repro_torch.models.transformer import _layer, _unbind_layers
+
+MAX_DEC_POS = 32768  # the reference's decoder position table
+
+
+def _table(gen, shape, dt, device) -> torch.Tensor:
+    """A learned position table: normal times 0.01, drawn in float32."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    if w.device.type != "meta":
+        w.normal_(0.0, 1.0, generator=gen).mul_(0.01)
+    return w.to(dt)
+
+
+def _init_ln(n: int, e: int, dt, name: str, p: dict, device) -> None:
+    p[f"{name}_s"] = torch.ones((n, e), dtype=dt, device=device)
+    p[f"{name}_b"] = torch.zeros((n, e), dtype=dt, device=device)
+
+
+def _init_mlp(gen, cfg: ArchConfig, n: int, device) -> dict:
+    e, f, dt = cfg.d_model, cfg.d_ff, pdtype(cfg)
+    p = {"w_in": init_dense(gen, (n, e, f), ("layers", "embed", "mlp"), dt, device),
+         "b_in": torch.zeros((n, f), dtype=dt, device=device)}
+    p["w_out"] = init_dense(gen, (n, f, e), ("layers", "mlp", "embed"), dt, device)
+    p["b_out"] = torch.zeros((n, e), dtype=dt, device=device)
+    return p
+
+
+def init_encdec(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[str, Any]:
+    """The parameter tree, weights drawn from ``gen`` in the reference's
+    order; on the ``meta`` device only shapes and dtypes are made."""
+    dt, e = pdtype(cfg), cfg.d_model
+    params: dict[str, Any] = {"embed": init_embedding(gen, cfg, device)}
+    params["pos_enc"] = _table(gen, (cfg.enc_seq, e), dt, device)
+    params["pos_dec"] = _table(gen, (MAX_DEC_POS, e), dt, device)
+    enc: dict[str, Any] = {}
+    _init_ln(cfg.enc_layers, e, dt, "ln1", enc, device)
+    enc["attn"] = attn.init_gqa(gen, cfg, cfg.enc_layers, device)
+    _init_ln(cfg.enc_layers, e, dt, "ln2", enc, device)
+    enc["mlp"] = _init_mlp(gen, cfg, cfg.enc_layers, device)
+    params["enc"] = enc
+    params["enc_final_s"] = torch.ones((e,), dtype=dt, device=device)
+    params["enc_final_b"] = torch.zeros((e,), dtype=dt, device=device)
+    dec: dict[str, Any] = {}
+    _init_ln(cfg.n_layers, e, dt, "ln1", dec, device)
+    dec["self_attn"] = attn.init_gqa(gen, cfg, cfg.n_layers, device)
+    _init_ln(cfg.n_layers, e, dt, "lnx", dec, device)
+    dec["cross_attn"] = attn.init_gqa(gen, cfg, cfg.n_layers, device)
+    _init_ln(cfg.n_layers, e, dt, "ln2", dec, device)
+    dec["mlp"] = _init_mlp(gen, cfg, cfg.n_layers, device)
+    params["dec"] = dec
+    params["final_s"] = torch.ones((e,), dtype=dt, device=device)
+    params["final_b"] = torch.zeros((e,), dtype=dt, device=device)
+    return params
+
+
+def _mlp(pl, x):
+    m = pl["mlp"]
+    return gelu_mlp(x, m["w_in"], m["b_in"], m["w_out"], m["b_out"])
+
+
+def _layers(fn, h, stacked: dict, n: int, *extra):
+    """``h`` through ``fn(layer_params, h, *extra)`` for each of ``n``
+    stacked layers, each under ``torch.utils.checkpoint`` where autograd
+    records (the reference's per-layer ``jax.checkpoint``)."""
+    remat = torch.is_grad_enabled()
+    for pl in _unbind_layers(stacked, n):
+        h = checkpoint(fn, pl, h, *extra, use_reentrant=False) if remat else fn(pl, h, *extra)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+
+def _enc_block(pl, h, cfg: ArchConfig):
+    eps = cfg.norm_eps
+    a_in = layernorm(h, pl["ln1_s"], pl["ln1_b"], eps)
+    h = h + attn.gqa_train(pl["attn"], a_in, cfg, causal=False, use_rope=False)
+    return h + _mlp(pl, layernorm(h, pl["ln2_s"], pl["ln2_b"], eps))
+
+
+def encode(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """frames: (B, T_enc, E) stub embeddings -> encoder states."""
+    x = frames + params["pos_enc"][None, :frames.shape[1]]
+    x = _layers(lambda pl, h: _enc_block(pl, h, cfg), x, params["enc"], cfg.enc_layers)
+    return layernorm(x, params["enc_final_s"], params["enc_final_b"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+
+def _embed_dec(params, tokens: torch.Tensor) -> torch.Tensor:
+    return embed(tokens, params["embed"]) + params["pos_dec"][None, :tokens.shape[1]]
+
+
+def _cross_cache(pl, enc_out: torch.Tensor, cfg: ArchConfig) -> dict:
+    """The cross-attention's k/v of the encoder's output: (B, T_enc, KV, Dh)."""
+    p = pl["cross_attn"]
+    k, v = attn._proj(enc_out, p["wk"]), attn._proj(enc_out, p["wv"])
+    if cfg.attn_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return {"xk": k, "xv": v}
+
+
+def _dec_block(pl, h, enc_out, cfg: ArchConfig, s_max: int = 0):
+    """One decoder layer of the training forward (``s_max`` 0) or of the
+    prefill, which also returns the layer's decode cache {k, v, xk, xv}
+    (self k/v padded to ``s_max``) from the same projections."""
+    eps = cfg.norm_eps
+    a_in = layernorm(h, pl["ln1_s"], pl["ln1_b"], eps)
+    cache = None
+    if s_max:
+        y, cache = attn.gqa_prefill(pl["self_attn"], a_in, cfg, s_max, use_rope=False)
+    else:
+        y = attn.gqa_train(pl["self_attn"], a_in, cfg, causal=True, use_rope=False)
+    h = h + y
+    x_in = layernorm(h, pl["lnx_s"], pl["lnx_b"], eps)
+    h = h + attn.gqa_train(pl["cross_attn"], x_in, cfg, causal=False, use_rope=False,
+                           kv_source=enc_out)
+    h = h + _mlp(pl, layernorm(h, pl["ln2_s"], pl["ln2_b"], eps))
+    if s_max:
+        cache = {**cache, **_cross_cache(pl, enc_out, cfg)}
+    return h, cache
+
+
+def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    x = _embed_dec(params, tokens)
+    x = _layers(lambda pl, h, e: _dec_block(pl, h, e, cfg)[0], x, params["dec"], cfg.n_layers,
+                enc_out)
+    return layernorm(x, params["final_s"], params["final_b"], cfg.norm_eps)
+
+
+def prefill(params, tokens, enc_out, cfg: ArchConfig, s_max: int):
+    """Returns (hidden, caches): self k/v (padded to s_max) + cross k/v,
+    stacked on L."""
+    x = _embed_dec(params, tokens)
+    layer_caches = []
+    for pl in _unbind_layers(params["dec"], cfg.n_layers):
+        x, cache = _dec_block(pl, x, enc_out, cfg, s_max)
+        layer_caches.append(cache)
+    caches = {key: torch.stack([c[key] for c in layer_caches]) for key in ("k", "v", "xk", "xv")}
+    return layernorm(x, params["final_s"], params["final_b"], cfg.norm_eps), caches
+
+
+def _cross_decode(pl, x, cache, cfg: ArchConfig):
+    """One token's cross-attention over the cached encoder k/v, plain
+    PyTorch: float32 scores, the probabilities rounded to v's dtype."""
+    b, s1, _ = x.shape
+    kv_n, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    p = pl["cross_attn"]
+    q = attn._proj(x, p["wq"])
+    if cfg.attn_bias:
+        q = q + p["bq"]
+    qg = q.reshape(b, s1, kv_n, g, dh)
+    xk, xv = cache["xk"], cache["xv"]
+    # (B,KV,G,1,Dh) x (B,KV,Dh,T) -> (B,KV,G,1,T) float32 scores
+    sc = torch.matmul(qg.permute(0, 2, 3, 1, 4).float(),
+                      xk.permute(0, 2, 3, 1).float()[:, :, None]) / math.sqrt(dh)
+    probs = torch.softmax(sc, dim=-1).to(xv.dtype)
+    out = torch.matmul(probs, xv.permute(0, 2, 1, 3)[:, :, None])  # (B,KV,G,1,Dh)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s1, cfg.n_heads, dh)
+    return attn._out(p, out, cfg)
+
+
+def decode_step(params, x, caches, pos: int, cfg: ArchConfig):
+    """x: (B, 1, E) embedded token (+ its position). Returns (hidden, the
+    caches with self k/v written at ``pos`` in place)."""
+    eps = cfg.norm_eps
+    for i, pl in enumerate(_unbind_layers(params["dec"], cfg.n_layers)):
+        cache = _layer(caches, i)
+        a_in = layernorm(x, pl["ln1_s"], pl["ln1_b"], eps)
+        y, _ = attn.gqa_decode(pl["self_attn"], a_in, {"k": cache["k"], "v": cache["v"]}, pos,
+                               cfg, use_rope=False)
+        x = x + y
+        x = x + _cross_decode(pl, layernorm(x, pl["lnx_s"], pl["lnx_b"], eps), cache, cfg)
+        x = x + _mlp(pl, layernorm(x, pl["ln2_s"], pl["ln2_b"], eps))
+    return layernorm(x, params["final_s"], params["final_b"], cfg.norm_eps), caches

@@ -1,11 +1,12 @@
-"""Shared layers: norms, RoPE, embeddings, SwiGLU.
+"""Shared layers: norms, RoPE, embeddings, SwiGLU and the GELU MLP.
 
 Port of the JAX package's ``repro/models/layers.py`` with its float32
 upcasts kept: norms and RoPE compute in float32 and round once to the
 activation dtype, and the unembedding returns float32 logits from bf16
 operands. ``softmax_xent_chunked`` keeps the reference's float32 logits
 per sequence chunk, each chunk recomputed in the backward pass.
-``layernorm`` and ``gelu_mlp`` come with the encoder slice.
+``gelu_mlp`` uses GELU's tanh approximation, ``jax.nn.gelu``'s default
+(PyTorch's default is the exact erf form).
 """
 
 from __future__ import annotations
@@ -55,6 +56,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu).square(), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -151,3 +160,9 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
     return torch.matmul(F.silu(g) * u, w_down)
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+             b_out: torch.Tensor) -> torch.Tensor:
+    h = torch.matmul(x, w_in) + b_in
+    return torch.matmul(F.gelu(h, approximate="tanh"), w_out) + b_out

@@ -1,5 +1,5 @@
-"""Model facade for the decoder-only configurations: GQA (dense or MoE FFN),
-the hybrid (attention ‖ SSD, hymba) and the mLSTM (xLSTM).
+"""Model facade: GQA and MLA (dense or MoE FFN), the hybrid (attention ‖
+SSD, hymba), the mLSTM (xLSTM) and the encoder-decoder (whisper).
 
 Port of the JAX package's ``repro/models/model.py``::
 
@@ -16,12 +16,16 @@ q_norm, k_norm}, ffn/{wg, wu, wd}}``, stacked on L; a MoE group's ``ffn``
 is ``{w_router (float32), [router_bias], wg, wu, wd, [ws_g, ws_u, ws_d]}``;
 a hybrid block adds ``ssd/{wx, wB, wC, w_dt, dt_bias, A_log, D, wo}``; an
 mLSTM block is ``{ln1, mlstm/{wq, wk, wv, w_i, w_f, f_bias, w_og, ln_out,
-wo}}`` with no FFN), and the caches are the reference's per layer group:
-``{"k", "v"}: (L, B, S, KV, Dh)`` for GQA, ``{"attn": {"k", "v"}, "ssd":
+wo}}`` with no FFN; an MLA block's ``attn`` is ``{wq_a, q_ln, wq_b, wkv_a,
+kv_ln, wkv_b, wo}``; the encoder-decoder's tree is ``models/encdec.py``'s),
+and the caches are the reference's per layer group: ``{"k", "v"}: (L, B,
+S, KV, Dh)`` for GQA, ``{"ckv": (L, B, S, KVr), "kr": (L, B, S, Rr)}`` for
+MLA (never windowed), ``{"attn": {"k", "v"}, "ssd":
 (L, B, H, N, Dh) float32}`` for the hybrid, ``{"mlstm": (L, B, H, Dh, Dh +
-1) float32}`` for the mLSTM, so the serve CMI of a request published by one
-package resumes in the other. :func:`params_from_numpy`
-carries the JAX package's parameters across. :func:`input_specs` gives the
+1) float32}`` for the mLSTM, and for the encoder-decoder one flat ``{"k",
+"v", "xk", "xv"}`` (the cross k/v over the encoder's frames), so the serve
+CMI of a request published by one package resumes in the other.
+:func:`params_from_numpy` carries the JAX package's parameters across. :func:`input_specs` gives the
 inputs of a shape as :class:`TensorSpec` stand-ins (the reference's
 ``ShapeDtypeStruct``).
 """
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed, pdtype, softmax_xent_chunked, unembed_logits
 from repro_torch.utils import flatten_with_paths, numpy_to_tensor
@@ -57,13 +62,28 @@ class Model:
     # -- init ---------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict[str, Any]:
         """Parameters on ``gen``'s device, drawn from ``gen``."""
-        return tf.init_lm(gen, self.cfg, gen.device)
+        return self._init(gen, gen.device)
+
+    def _init(self, gen, device):
+        if self.cfg.encdec:
+            return encdec_mod.init_encdec(gen, self.cfg, device)
+        return tf.init_lm(gen, self.cfg, device)
 
     def param_specs(self) -> dict[str, Any]:
         """The parameter tree's shapes and dtypes, nothing allocated."""
-        meta = tf.init_lm(None, self.cfg, "meta")
+        meta = self._init(None, "meta")
         flat, treedef = flatten_with_paths(meta)
         return treedef.unflatten({k: TensorSpec(tuple(v.shape), v.dtype) for k, v in flat.items()})
+
+    def selection_only_paths(self) -> set[str]:
+        """Flat paths of the parameters the loss reaches only through a
+        selection, so their gradient is zero (``jax.grad`` gives zeros): a
+        sigmoid router's bias, which picks each token's top-k experts and
+        weights none of them."""
+        if self.cfg.encdec or self.cfg.router_type != "sigmoid":
+            return set()
+        return {f"blocks/{g}/ffn/router_bias" for g, _, _, ffn in tf.block_groups(self.cfg)
+                if ffn == "moe"}
 
     def _unembed(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
@@ -71,9 +91,14 @@ class Model:
     # -- train --------------------------------------------------------------
     def loss(self, params, batch, *, n_groups: int = 0) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
-        (B, S) int; label -1 ignored), a 0-d float32 tensor. ``n_groups``:
+        (B, S) int; label -1 ignored; the encoder-decoder's also
+        "enc_frames" (B, enc_seq, E)), a 0-d float32 tensor. ``n_groups``:
         MoE routing groups (0: one per sequence)."""
         cfg = self.cfg
+        if cfg.encdec:
+            enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg)
+            h = encdec_mod.decode_train(params, batch["tokens"], enc_out, cfg)
+            return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk)
         x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
         h = tf.forward_train(params, x, cfg, n_groups=n_groups)
         return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk)
@@ -81,15 +106,25 @@ class Model:
     # -- serve --------------------------------------------------------------
     def prefill(self, params, batch, s_max: int, *, n_groups: int = 0):
         """Returns (last-position logits (B, V) float32, caches)."""
-        x = embed(batch["tokens"], params["embed"]).to(pdtype(self.cfg))
-        h, caches = tf.forward_prefill(params, x, self.cfg, s_max, n_groups=n_groups)
+        cfg = self.cfg
+        if cfg.encdec:
+            enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg)
+            h, caches = encdec_mod.prefill(params, batch["tokens"], enc_out, cfg, s_max)
+        else:
+            x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
+            h, caches = tf.forward_prefill(params, x, cfg, s_max, n_groups=n_groups)
         return unembed_logits(h[:, -1], self._unembed(params)), caches
 
     def decode(self, params, caches, tokens, pos: int, *, n_groups: int = 0):
         """One decode step. tokens (B, 1) int; pos the absolute position.
         The caches are written in place and returned."""
         x = embed(tokens, params["embed"]).to(pdtype(self.cfg))
-        h, caches = tf.forward_decode(params, x, caches, int(pos), self.cfg, n_groups=n_groups)
+        if self.cfg.encdec:
+            x = x + params["pos_dec"][int(pos)][None]
+            h, caches = encdec_mod.decode_step(params, x, caches, int(pos), self.cfg)
+        else:
+            h, caches = tf.forward_decode(params, x, caches, int(pos), self.cfg,
+                                          n_groups=n_groups)
         return unembed_logits(h, self._unembed(params)), caches
 
     # -- caches ---------------------------------------------------------------
@@ -100,12 +135,20 @@ class Model:
         kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
         s_kv = min(s_ctx, cfg.window) if cfg.window else s_ctx
         f32 = torch.float32
+        if cfg.encdec:
+            n, cross = cfg.n_layers, (cfg.n_layers, batch, cfg.enc_seq, kv, dh)
+            return {"k": TensorSpec((n, batch, s_kv, kv, dh), dt),
+                    "v": TensorSpec((n, batch, s_kv, kv, dh), dt),
+                    "xk": TensorSpec(cross, dt), "xv": TensorSpec(cross, dt)}
         out = {}
         for gname, n, mixer, _ in tf.block_groups(cfg):
             kv_cache = {"k": TensorSpec((n, batch, s_kv, kv, dh), dt),
                         "v": TensorSpec((n, batch, s_kv, kv, dh), dt)}
             if mixer == "gqa":
                 out[gname] = kv_cache
+            elif mixer == "mla":
+                out[gname] = {"ckv": TensorSpec((n, batch, s_ctx, cfg.kv_lora_rank), dt),
+                              "kr": TensorSpec((n, batch, s_ctx, cfg.qk_rope_dim), dt)}
             elif mixer == "hybrid":
                 out[gname] = {"attn": kv_cache,
                               "ssd": TensorSpec((n, batch, cfg.n_heads, cfg.ssm_state, dh), f32)}
@@ -122,17 +165,19 @@ class Model:
 def input_specs(cfg: ArchConfig, shape: InputShape) -> dict[str, Any]:
     """Model inputs for (cfg, shape) as TensorSpecs, nothing allocated.
 
-    train:   tokens/labels (B, S)
-    prefill: tokens (B, S)
+    train:   tokens/labels (B, S) [+ the encoder's frames]
+    prefill: tokens (B, S) [+ the encoder's frames]
     decode:  tokens (B, 1), pos scalar, caches for a seq_len context
     """
     tf.check_supported(cfg)
     b, s = shape.global_batch, shape.seq_len
     i32 = torch.int32
+    frames = ({"enc_frames": TensorSpec((b, cfg.enc_seq, cfg.d_model), pdtype(cfg))}
+              if cfg.encdec else {})
     if shape.kind == "train":
-        return {"tokens": TensorSpec((b, s), i32), "labels": TensorSpec((b, s), i32)}
+        return {"tokens": TensorSpec((b, s), i32), "labels": TensorSpec((b, s), i32), **frames}
     if shape.kind == "prefill":
-        return {"tokens": TensorSpec((b, s), i32)}
+        return {"tokens": TensorSpec((b, s), i32), **frames}
     if shape.kind == "decode":
         return {"tokens": TensorSpec((b, 1), i32), "pos": TensorSpec((), i32),
                 "caches": Model(cfg).cache_struct(b, s)}

@@ -1,7 +1,7 @@
 """Decoder-only transformer assembly: layer groups, stacked layers, caches.
 
 Port of the JAX package's ``repro/models/transformer.py`` for the mixers
-gqa, hybrid (attention ‖ SSD, hymba) and mlstm (xLSTM), with the dense
+gqa, mla (deepseek), hybrid (attention ‖ SSD, hymba) and mlstm (xLSTM), with the dense
 (SwiGLU), the MoE or no FFN (an mLSTM block owns its projections). Layers
 with identical structure are stacked on a leading ``L`` axis, as in the
 reference; each ``lax.scan`` over that axis is a Python loop over its
@@ -9,8 +9,8 @@ slices here. ``block_groups`` is the reference's grouping (a MoE config's
 ``first_dense_layers`` form a dense group ``g0`` before the MoE group
 ``g1``), so parameter paths and cache paths are the same in both packages.
 ``n_groups`` is the MoE routing groups of every call (0: one per
-sequence). MLA and the encoder/vision front ends raise
-``NotImplementedError`` (ROADMAP queue 1, item 11).
+sequence). The vision prefix raises ``NotImplementedError`` (ROADMAP queue
+1, item 11); the encoder-decoder is ``models/encdec.py``.
 
 Decode writes every cache in place, as ``gqa_decode`` writes k/v: a hybrid
 layer's SSD state and an mLSTM layer's matrix memory are copied into their
@@ -40,7 +40,8 @@ from repro_torch.utils import flatten_with_paths
 
 _LATER = "is not ported yet (ROADMAP queue 1, item 11: models and training)"
 # the FFN kinds each ported mixer runs with (the configurations that exist)
-_FFNS = {"gqa": ("dense", "moe"), "hybrid": ("dense",), "mlstm": ("none",)}
+_FFNS = {"gqa": ("dense", "moe"), "mla": ("dense", "moe"), "hybrid": ("dense",),
+         "mlstm": ("none",)}
 
 
 def block_groups(cfg: ArchConfig) -> list[tuple[str, int, str, str]]:
@@ -64,8 +65,11 @@ def block_groups(cfg: ArchConfig) -> list[tuple[str, int, str, str]]:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.encdec or cfg.vision_prefix:
-        raise NotImplementedError(f"{cfg.name}: the encoder/vision front ends {_LATER}")
+    if cfg.vision_prefix:
+        raise NotImplementedError(f"{cfg.name}: the vision prefix is not ported yet "
+                                  "(ROADMAP queue 1, item 11: next slices, item 3)")
+    if cfg.encdec:
+        return  # models/encdec.py: its own blocks
     for _, _, mixer, ffn in block_groups(cfg):
         if mixer not in _FFNS:
             raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} {_LATER}")
@@ -104,6 +108,8 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[str, A
         bp = {"ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device)}
         if mixer in ("gqa", "hybrid"):
             bp["attn"] = attn.init_gqa(gen, cfg, n, device)
+        if mixer == "mla":
+            bp["attn"] = attn.init_mla(gen, cfg, n, device)
         if mixer == "hybrid":
             bp["ssd"] = ssm_mod.init_ssd(gen, cfg, n, device)
         if mixer == "mlstm":
@@ -138,6 +144,8 @@ def _ffn(pl, h, cfg: ArchConfig, ffn: str, n_groups: int):
 def _mixer_train(pl, x, cfg: ArchConfig, mixer: str):
     if mixer == "gqa":
         return attn.gqa_train(pl["attn"], x, cfg)
+    if mixer == "mla":
+        return attn.mla_train(pl["attn"], x, cfg)
     if mixer == "hybrid":
         return (attn.gqa_train(pl["attn"], x, cfg) + ssm_mod.ssd_train(pl["ssd"], x, cfg)) * 0.5
     return ssm_mod.mlstm_train(pl["mlstm"], x, cfg)
@@ -151,10 +159,13 @@ def block_train(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int):
 
 def block_prefill(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, s_max: int):
     """One layer of the prefill; also returns its decode cache: k/v, for
-    hybrid ``{"attn": {k, v}, "ssd": state}``, for mlstm ``{"mlstm": state}``."""
+    mla ``{ckv, kr}``, for hybrid ``{"attn": {k, v}, "ssd": state}``, for
+    mlstm ``{"mlstm": state}``."""
     xin = rmsnorm(x, pl["ln1"], cfg.norm_eps)
     if mixer == "gqa":
         y, cache = attn.gqa_prefill(pl["attn"], xin, cfg, s_max)
+    elif mixer == "mla":
+        y, cache = attn.mla_prefill(pl["attn"], xin, cfg, s_max)
     elif mixer == "hybrid":
         ya, ac = attn.gqa_prefill(pl["attn"], xin, cfg, s_max)
         ys, sstate = ssm_mod.ssd_apply(pl["ssd"], xin, cfg)
@@ -172,6 +183,8 @@ def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, mixer: str, ffn: str, 
     xin = rmsnorm(x, pl["ln1"], cfg.norm_eps)
     if mixer == "gqa":
         y, cache = attn.gqa_decode(pl["attn"], xin, cache, pos, cfg)
+    elif mixer == "mla":
+        y, cache = attn.mla_decode(pl["attn"], xin, cache, pos, cfg)
     elif mixer == "hybrid":
         ya, _ = attn.gqa_decode(pl["attn"], xin, cache["attn"], pos, cfg)
         ys, sstate = ssm_mod.ssd_decode(pl["ssd"], xin, cache["ssd"], cfg)

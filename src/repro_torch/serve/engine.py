@@ -131,18 +131,24 @@ class ModelEngine:
     so a migrated/resumed request decodes against identical weights without
     the weights ever traveling — only the per-request caches move (they are
     the CMI; the params are the "restart script" every instance already
-    has). ``device`` defaults to the CUDA card.
+    has). ``device`` defaults to the CUDA card. ``layers`` cuts the
+    configuration's depth to that many layers (0 keeps it), widths kept;
+    the spec carries it, so every process that builds the spec serves the
+    same cut.
     """
 
     kind = "model"
 
-    def __init__(self, arch: str, smoke: bool = True, seed: int = 0, device=None):
+    def __init__(self, arch: str, smoke: bool = True, seed: int = 0, device=None,
+                 layers: int = 0):
         from repro_torch.configs import get_config, get_smoke_config
         from repro_torch.models import Model
 
-        self.arch, self.smoke, self.seed = arch, bool(smoke), int(seed)
+        self.arch, self.smoke, self.seed, self.layers = arch, bool(smoke), int(seed), int(layers)
         self.device = resolve_device(device)
         self.cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        if self.layers:
+            self.cfg = self.cfg.with_(n_layers=self.layers)
         if self.cfg.vision_prefix or self.cfg.encdec:
             raise ValueError(f"serving supports decoder-only archs, not {arch!r}")
         self.model = Model(self.cfg)
@@ -150,7 +156,8 @@ class ModelEngine:
         self.vocab = self.cfg.vocab
 
     def spec(self) -> str:
-        return f"model:{self.arch}:{'smoke' if self.smoke else 'full'}:seed={self.seed}"
+        cut = f":layers={self.layers}" if self.layers else ""
+        return f"model:{self.arch}:{'smoke' if self.smoke else 'full'}{cut}:seed={self.seed}"
 
     def prefill(self, prompt, max_new: int) -> dict:
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
@@ -184,7 +191,8 @@ def make_engine(spec: str, device=None) -> Any:
 
     ``toy`` / ``toy:d=64,vocab=512,seed=0`` /
     ``model:<arch>`` / ``model:<arch>:smoke|full`` /
-    ``model:<arch>:smoke:seed=1``
+    ``model:<arch>:smoke:seed=1`` / ``model:<arch>:full:layers=4:seed=0``
+    (``layers=N``: the depth cut to N layers, widths kept)
     """
     parts = spec.split(":")
     kind = parts[0]
@@ -202,13 +210,15 @@ def make_engine(spec: str, device=None) -> Any:
             raise ValueError("model spec needs an arch: model:<arch>[:smoke|full][:seed=N]")
         arch = parts[1]
         smoke = True
-        seed = 0
+        seed = layers = 0
         for part in parts[2:]:
             if part in ("smoke", "full"):
                 smoke = part == "smoke"
             elif part.startswith("seed="):
                 seed = int(part[5:])
-        return ModelEngine(arch, smoke=smoke, seed=seed, device=device)
+            elif part.startswith("layers="):
+                layers = int(part[7:])
+        return ModelEngine(arch, smoke=smoke, seed=seed, device=device, layers=layers)
     raise ValueError(f"unknown engine spec {spec!r}")
 
 

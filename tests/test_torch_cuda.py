@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_backward_plain,
     flash_attention_plain,
 )
+from repro_torch.kernels.flash_attention.ops import WGMMA_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import _forward as flash_attention_forward
 
 pytestmark = pytest.mark.cuda
@@ -84,9 +85,15 @@ def test_colocate_kernel_tie_rule(dev, label):
 # visible key, no key at all, a bf16 head dim it does not take, the MoE
 # model's prefill shape at D = 64, and groups of 5 q heads a kv head with
 # a window (hymba-1.5b's 25 q / 5 kv heads at D = 64): small, a window
-# across tile edges, and hymba's prefill past its 2048-token window
+# across tile edges, and hymba's prefill past its 2048-token window; then
+# v's head dim Dv apart from D (a 10th entry; MLA's qk 192 / v 128 on both
+# kernels, ragged and at deepseek-v3's prefill, and a CUDA-core (96, 64)),
+# and whisper-tiny's shapes at D = 64, 6 heads: its non-causal encoder over
+# 1,500 frames (23 full 64-key tiles and 28 keys), its non-causal cross
+# attention of 2,048 tokens against them (no causal skip, rows past Sq
+# clipped) and its decoder's causal self-attention over 2,048 tokens
 _FLASH_CASES = [
-    # (b, h, hkv, sq, sk, d, causal, window, dtype)
+    # (b, h, hkv, sq, sk, d, causal, window, dtype[, dv])
     (2, 4, 4, 128, 128, 64, True, 0, "float32"),
     (1, 8, 2, 257, 257, 64, True, 0, "float32"),
     (2, 4, 2, 200, 200, 128, True, 64, "float32"),
@@ -106,7 +113,22 @@ _FLASH_CASES = [
     (2, 10, 2, 333, 333, 64, True, 100, "bfloat16"),
     (1, 5, 1, 700, 700, 64, True, 300, "bfloat16"),
     (1, 25, 5, 4096, 4096, 64, True, 2048, "bfloat16"),  # hymba-1.5b's prefill
+    (1, 4, 4, 200, 200, 192, True, 0, "bfloat16", 128),
+    (1, 4, 4, 300, 300, 192, True, 0, "float32", 128),
+    (2, 2, 2, 130, 70, 192, False, 0, "bfloat16", 128),
+    (1, 2, 1, 100, 100, 96, True, 0, "bfloat16", 64),
+    (1, 128, 128, 2048, 2048, 192, True, 0, "bfloat16", 128),  # deepseek-v3's MLA prefill
+    (4, 6, 6, 1500, 1500, 64, False, 0, "bfloat16"),  # whisper-tiny's encoder
+    (4, 6, 6, 2048, 1500, 64, False, 0, "bfloat16"),  # whisper-tiny's cross attention
+    (4, 6, 6, 2048, 2048, 64, True, 0, "bfloat16"),  # whisper-tiny's decoder
+    (1, 6, 6, 100, 1500, 64, False, 0, "bfloat16"),
 ]
+
+
+def _case(case):
+    """(b, h, hkv, sq, sk, d, dv, causal, window, dtype name)."""
+    b, h, hkv, sq, sk, d, causal, window, dt, *rest = case
+    return b, h, hkv, sq, sk, d, rest[0] if rest else d, causal, window, dt
 
 
 def _bshd(t):
@@ -116,7 +138,7 @@ def _bshd(t):
 
 @pytest.mark.parametrize("case", _FLASH_CASES, ids=[str(c) for c in _FLASH_CASES])
 def test_flash_attention_kernel_equals_plain(dev, case):
-    b, h, hkv, sq, sk, d, causal, window, dt = case
+    b, h, hkv, sq, sk, d, dv, causal, window, dt = _case(case)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
     rng = np.random.default_rng(sq * 7 + d)
     dtype = getattr(torch, dt)
@@ -124,15 +146,16 @@ def test_flash_attention_kernel_equals_plain(dev, case):
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, d)
+    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, dv)
     before, before_wgmma = flash_attention.launches, flash_attention.wgmma_launches
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == before + 1
-    # bf16 at D = 64 or 128 goes through the tensor-core kernel, all else not
-    wgmma = dt == "bfloat16" and d in (64, 128)
+    # bf16 at (D, Dv) = (64, 64), (128, 128) or (192, 128) goes through the
+    # tensor-core kernel, all else not
+    wgmma = dt == "bfloat16" and (d, dv) in WGMMA_HEAD_DIMS
     assert flash_attention.wgmma_launches == before_wgmma + wgmma
-    assert got.dtype == dtype and got.shape == q.shape
+    assert got.dtype == dtype and got.shape == (b, h, sq, dv)
     # float32: sums in another order (2e-5); bfloat16: one rounding of the
     # output apart at most (2e-2), the tolerances of tests/test_kernels.py
     tol = 2e-2 if dt == "bfloat16" else 2e-5
@@ -164,7 +187,7 @@ def test_flash_attention_kernel_lse_equals_plain(dev, case):
     1e-4 of the plain version's (scores summed in another order; the
     tensor-core kernel works in exp2/log2). A row that sees no key has +inf
     in both."""
-    b, h, hkv, sq, sk, d, causal, window, dt = case
+    b, h, hkv, sq, sk, d, dv, causal, window, dt = _case(case)
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(sq * 7 + d)
     dtype = getattr(torch, dt)
@@ -172,7 +195,7 @@ def test_flash_attention_kernel_lse_equals_plain(dev, case):
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, d)
+    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, dv)
     before = flash_attention.lse_launches
     got, lse = flash_attention_forward(q, k, v, causal, window, None, True)
     assert flash_attention.lse_launches == before + 1
@@ -198,7 +221,7 @@ def _attention_f32(q, k, v, causal, window):
     if window > 0:
         mask &= kpos > qpos - window
     p = torch.softmax(torch.where(mask, s, float("-inf")), dim=-1)
-    return torch.matmul(p, v.float()[:, :, None]).reshape(b, h, sq, d)
+    return torch.matmul(p, v.float()[:, :, None]).reshape(b, h, sq, v.shape[-1])
 
 
 @pytest.mark.parametrize("case", [c for c in _FLASH_CASES if c[4] >= c[3] and c[4] > 0],
@@ -210,7 +233,7 @@ def test_flash_attention_gradient_on_the_card(dev, case):
     output and the gradients round to bf16 once, 2e-2 of each gradient's
     largest magnitude. The backward matches :func:`flash_attention_backward_plain`
     fed the plain version's output and lse."""
-    b, h, hkv, sq, sk, d, causal, window, dt = case
+    b, h, hkv, sq, sk, d, dv, causal, window, dt = _case(case)
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(sq * 11 + d)
     dtype = getattr(torch, dt)
@@ -218,8 +241,8 @@ def test_flash_attention_gradient_on_the_card(dev, case):
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
-    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, d)
-    dout = rand(b, h, sq, d)
+    q, k, v = rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, dv)
+    dout = rand(b, h, sq, dv)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = flash_attention.lse_launches
     out = flash_attention(*leaves, causal=causal, window=window)
@@ -451,3 +474,26 @@ def test_moe_serve_and_train_on_the_card(dev, tmp_path):
         losses[name] = [r["loss"] for r in map(json.loads, metrics.read_text().splitlines())
                         if r["event"] == "step"]
     assert digests["a"] == digests["b"] and losses["a"] == losses["b"] and len(losses["a"]) == 4
+
+
+# ---------------------------------------------------------------------------
+# MLA on the card
+# ---------------------------------------------------------------------------
+
+
+def test_mla_layer_on_the_card_equals_cpu(dev):
+    """One dense deepseek-v3 layer at full width (MLA, then the SwiGLU FFN;
+    random weights from seed 20) over 96 tokens and one absorbed decode
+    step on the card against the port's CPU path in float32 (which
+    tests/test_torch_mla.py holds against the JAX package), from the same
+    bf16 values: the outputs and the latent cache. bf16 on the card (K3's
+    tensor-core kernel at qk 192 / v 128) within 2e-2 of each one's
+    largest magnitude; float32 (its CUDA-core kernel, TF32 off) within
+    1e-4 (``repro_torch.models.cases``, which chip_smoke.py runs at 256
+    tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.cases import check_mla_layer_on_device
+
+    got = check_mla_layer_on_device(dev, get_config("deepseek-v3-671b"), 96)
+    assert set(got["bfloat16"]) == set(got["float32"]) == {"tol", "out", "decode_out", "ckv",
+                                                           "kr"}

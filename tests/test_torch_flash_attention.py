@@ -231,3 +231,68 @@ def test_wrapper_checks_and_no_fallback():
     before = flash_attention.launches
     flash_attention(q, torch.zeros(1, 2, 8, 16), torch.zeros(1, 2, 8, 16))
     assert flash_attention.launches == before  # the plain version is no launch
+
+
+# MLA's shape in miniature: qk head dim D (nope + rope) apart from v's Dv,
+# G = 1; and deepseek-v3's widths (192, 128) at a short sequence
+_DV_CASES = [
+    # (b, h, sq, d, dv, causal, dtype)
+    (2, 3, 40, 24, 16, True, "float32"),
+    (1, 4, 70, 48, 32, True, "float32"),
+    (1, 2, 64, 192, 128, True, "float32"),
+    (1, 2, 33, 24, 16, False, "float32"),
+    (1, 4, 64, 192, 128, True, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", _DV_CASES, ids=[str(c) for c in _DV_CASES])
+def test_plain_with_v_head_dim_apart_matches_blockwise_attention(case):
+    """v's head dim apart from q's and k's (MLA): the plain version (what
+    K3 runs on the CPU, and the CUDA kernels' yardstick) against the
+    model's ``blockwise_attention``, scale 1/sqrt(D), the output Dv wide.
+    The Pallas kernel and ``attention_ref`` take Dv == D only, so the
+    reference here is ``blockwise_attention``. float32: 2e-5; bf16: one
+    rounding apart (2e-2), the reference rounding P to bf16 first."""
+    b, h, s, d, dv, causal, dt = case
+    rng = np.random.default_rng(s + d + dv)
+    dtype = getattr(torch, dt)
+    q, k = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(2))
+    v = rng.standard_normal((b, s, h, dv)).astype(np.float32)
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    ref = blockwise_attention(*(jnp.asarray(x.float().numpy(), dtype=dt) for x in
+                                (q[:, :, :, None], k, v)), causal=causal, q_block=16)
+    got = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          causal=causal)
+    assert got.shape == (b, h, s, dv) and got.dtype == dtype
+    tol = 2e-2 if dt == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_f32(got.transpose(1, 2)), _f32(ref)[:, :, :, 0], atol=tol,
+                               rtol=tol)
+    # the lse the training forward keeps, against a float64 logsumexp
+    _, lse = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=causal, return_lse=True, block_q=16, block_k=16)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / d ** 0.5
+    if causal:
+        sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), float("-inf"))
+    np.testing.assert_allclose(lse.double().numpy(), torch.logsumexp(sc, -1).numpy(), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_with_v_head_dim_apart_gradcheck_float64(causal):
+    """K3 under autograd with Dv != D (the plain forward's lse, the plain
+    backward's dV at Dv) against float64 finite differences."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+
+    rng = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).requires_grad_(True)
+               for shape in ((1, 2, 7, 6), (1, 2, 7, 6), (1, 2, 7, 4)))
+    assert torch.autograd.gradcheck(
+        lambda q_, k_, v_: FlashAttention.apply(q_, k_, v_, causal, 0, None), (q, k, v))
+
+
+def test_wrapper_refuses_v_that_differs_beyond_its_head_dim():
+    q = torch.zeros(1, 2, 8, 24)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        flash_attention(q, torch.zeros(1, 2, 8, 24), torch.zeros(1, 2, 9, 16))
+    assert flash_attention(q, torch.zeros(1, 2, 8, 24), torch.zeros(1, 2, 8, 16)).shape == \
+        (1, 2, 8, 16)
