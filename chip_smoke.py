@@ -191,6 +191,9 @@ MLA_SERVE_SPEC = f"model:{MLA_ARCH}:full:layers={MLA_LAYERS}:seed=0"
 MLA_ON_CARD_TOKENS = 256  # the MLA layer checked against the float32 CPU path
 # train_encdec: whisper-tiny, 4 x 2048 decoder tokens and 4 x 1500 frames
 ENCDEC_ARCH = "whisper-tiny"
+VISION_ARCH = "internvl2-76b"
+VISION_LAYERS = 8  # the prefill/decode model's depth cut (of 80); widths are the config's
+VISION_PROMPT, VISION_DECODE = 2048, 8  # tokens after the 256 patch embeddings; decode steps
 
 
 def serve_argv(arch: str, prompt_len: int = PROMPT_LEN, layers: int = 0) -> list[str]:
@@ -683,7 +686,8 @@ def check_flash_attention(dev) -> dict:
     # window), deepseek-v3's MLA prefill (128 heads, qk 192, v 128) and
     # whisper-tiny's three: its encoder (1,500 frames) and cross attention
     # (2,048 tokens against them), both non-causal, and its decoder's
-    # causal self-attention (2,048 tokens)
+    # causal self-attention (2,048 tokens); internvl2-76b's prefill (256
+    # patch embeddings + 2,048 tokens, 64 q / 8 kv heads: G = 8)
     shapes = [(2, 4, 4, 128, 128, 64, 64, True, 0, "float32", None),
               (1, 8, 2, 257, 257, 64, 64, True, 0, "float32", None),
               (2, 4, 2, 200, 200, 128, 128, True, 64, "float32", None),
@@ -697,7 +701,8 @@ def check_flash_attention(dev) -> dict:
               (1, 128, 128, 2048, 2048, 192, 128, True, 0, "bfloat16", "mla"),
               (4, 6, 6, 1500, 1500, 64, 64, False, 0, "bfloat16", "whisper_encoder"),
               (4, 6, 6, 2048, 1500, 64, 64, False, 0, "bfloat16", "whisper_cross"),
-              (4, 6, 6, 2048, 2048, 64, 64, True, 0, "bfloat16", "whisper_decoder")]
+              (4, 6, 6, 2048, 2048, 64, 64, True, 0, "bfloat16", "whisper_decoder"),
+              (1, 64, 8, 2304, 2304, 128, 128, True, 0, "bfloat16", "internvl2")]
     timed = {}
     for i, (b, h, hkv, sq, sk, d, dv, causal, window, dt, label) in enumerate(shapes):
         rng = np.random.default_rng(i)
@@ -777,7 +782,9 @@ def check_flash_attention(dev) -> dict:
                                           "non-causal",
                                  **{key: timed["whisper_cross"][key] for key in more}},
             "at_whisper_decoder": {"shape": "q/k/v bf16[4,6,2048,64], causal",
-                                   **{key: timed["whisper_decoder"][key] for key in more}}}
+                                   **{key: timed["whisper_decoder"][key] for key in more}},
+            "at_internvl2": {"shape": "q bf16[1,64,2304,128], k/v bf16[1,8,2304,128], causal",
+                             **{key: timed["internvl2"][key] for key in more}}}
 
 
 # ---------------------------------------------------------------------------
@@ -2162,6 +2169,7 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
         "wall_s": wall, "peak_memory_bytes": {k: end[k]["peak_memory_bytes"] for k in "AB"},
         "incarnations": {k: end[k]["incarnations"] for k in "AB"}, "leases": leases,
         "launches": {k: end[k]["launches"] for k in "AB"},
+        "final_cmis": {k: [job[k].job_id, job[k].cmi] for k in "AB"},
     }
 
 
@@ -2226,6 +2234,243 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
             "kernel_launches": len(device), "k3_launches": k3_launches,
             "k3_kernels_in_trace": k3_kernels, "k3_wgmma_kernels_in_trace": k3_wgmma,
             "groups_ms": split["groups_ms"], "top_kernels_ms": split["top_kernels_ms"]}
+
+
+def vision_train_depth(cfg, free_bytes: int) -> int:
+    """The most layers of ``cfg`` whose train step fits ``free_bytes`` of
+    the card with 4 GB to spare: the state (params, master, moments), a
+    gradient per param, and AdamW's five float32 temporaries of the
+    largest leaf. A cut of depth, never of width."""
+    from repro_torch.models import Model
+    from repro_torch.utils import flatten_with_paths
+
+    for layers in range(cfg.n_layers, 0, -1):
+        c = cfg.with_(n_layers=layers)
+        specs = flatten_with_paths(Model(c).param_specs())[0].values()
+        params = sum(math.prod(s.shape) * torch.empty((), dtype=s.dtype).element_size()
+                     for s in specs)
+        largest = max(math.prod(s.shape) for s in specs)
+        if state_bytes(c) + params + 5 * 4 * largest + 4e9 <= free_bytes:
+            return layers
+    raise RuntimeError(f"no depth of {cfg.name} trains in {free_bytes} bytes")
+
+
+def run_vision(dev) -> dict:
+    """internvl2-76b at full width, in this process (the engines refuse a
+    vision prefix, in both packages): ``VISION_LAYERS`` layers prefill the
+    pipeline's 256 patch embeddings + ``VISION_PROMPT`` tokens (K3 at q
+    64 / kv 8 heads, G = 8, in every layer; its counts set to 0 just
+    before and read just after) and decode ``VISION_DECODE`` greedy
+    tokens; the prefill's top-1 with K3 equals its top-1 with plain
+    attention; where the time goes (a profiled prefill and decode); then
+    one timed training step at the depth the card's memory allows
+    (:func:`vision_train_depth`). Nothing is published."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.steps import batch_to_device
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+
+    full = get_config(VISION_ARCH)
+    cfg = full.with_(n_layers=VISION_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = batch_to_device(TokenPipeline(cfg, VISION_PROMPT, 1, seed=0)
+                            .batch_at({"data_step": 0, "seed": 0})[0], dev)
+    inputs = {"tokens": batch["tokens"], "vis_embeds": batch["vis_embeds"]}
+    assert inputs["vis_embeds"].shape == (1, cfg.vision_prefix, cfg.d_model)
+    assert inputs["vis_embeds"].dtype == torch.bfloat16
+    total = cfg.vision_prefix + VISION_PROMPT
+    s_max = total + VISION_DECODE
+
+    def generate():
+        logits, caches = model.prefill(params, inputs, s_max)
+        toks = [int(torch.argmax(logits[0]))]
+        for i in range(VISION_DECODE - 1):
+            lg, caches = model.decode(params, caches, torch.tensor([[toks[-1]]], device=dev),
+                                      total + i)
+            toks.append(int(torch.argmax(lg[0, -1])))
+        return logits, caches, toks
+
+    generate()  # warm: the first calls load kernels and size the allocator
+    kernel, shapes = attn.flash_attention, Counter()
+
+    def seen(q, k, v, **kw):  # records the call, then the wrapper launches and counts
+        shapes[(tuple(q.shape), tuple(k.shape), str(q.dtype), kw.get("causal"))] += 1
+        return kernel(q, k, v, **kw)
+
+    # the main path: counts from 0 just before, read just after
+    flash_ops.flash_attention.launches = 0
+    flash_ops.flash_attention.wgmma_launches = 0
+    attn.flash_attention = seen
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, inputs, s_max)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches_prefill = flash_ops.flash_attention.launches
+        toks = [int(torch.argmax(logits[0]))]
+        t0 = time.perf_counter()
+        for i in range(VISION_DECODE):
+            lg, caches = model.decode(params, caches, torch.tensor([[toks[-1]]], device=dev),
+                                      total + i)
+            toks.append(int(torch.argmax(lg[0, -1])))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finally:
+        attn.flash_attention = kernel
+    launches = {"flash_attention": flash_ops.flash_attention.launches,
+                "flash_attention_wgmma": flash_ops.flash_attention.wgmma_launches}
+    assert launches_prefill == launches["flash_attention"] == cfg.n_layers, launches
+    assert launches["flash_attention_wgmma"] == cfg.n_layers, launches  # decode runs none
+    want_shape = ((1, cfg.n_heads, total, cfg.resolved_head_dim),
+                  (1, cfg.n_kv_heads, total, cfg.resolved_head_dim), "torch.bfloat16", True)
+    assert dict(shapes) == {want_shape: cfg.n_layers}, shapes
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) == \
+        (full.d_model, full.n_heads, full.n_kv_heads, full.d_ff, full.vocab)  # full width
+    assert caches["g0"]["k"].shape[2] == s_max and torch.isfinite(logits).all()
+
+    # K3 against plain attention inside the model: the same prefill's top-1
+    attn.flash_attention = flash_attention_plain
+    try:
+        plain, _ = model.prefill(params, inputs, s_max)
+    finally:
+        attn.flash_attention = kernel
+    top1 = bool(torch.argmax(logits[0]) == torch.argmax(plain[0]))
+    assert top1 and torch.isfinite(plain).all()
+    in_model = {"prompt_positions": total, "logits_max_abs_diff": float((logits - plain)
+                                                                        .abs().max()),
+                "logits_max_abs": float(plain.abs().max()), "top1_agree": top1}
+    del plain, caches
+
+    where = {}
+    for phase in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if phase == "prefill":
+                model.prefill(params, inputs, s_max)
+            else:
+                generate()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        split = device_groups(prof)
+        busy = split["busy_us"]
+        where[phase] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                        "device_idle_share": 1 - busy / wall_us if split["device"] else None,
+                        "kernel_launches": len(split["device"]),
+                        "groups_ms": split["groups_ms"],
+                        "top_kernels_ms": split["top_kernels_ms"],
+                        "covers": "one prefill" if phase == "prefill"
+                        else f"one prefill + {VISION_DECODE - 1} decode steps"}
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    del params, logits, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    free = torch.cuda.mem_get_info(dev)[0]
+    layers = vision_train_depth(full, free)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = profile_train(dev, layers, VISION_ARCH, VISION_PROMPT, 1)
+    return {
+        "config": {"arch": VISION_ARCH, "d_model": cfg.d_model,
+                   "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+                   "gqa_group": cfg.n_heads // cfg.n_kv_heads,
+                   "d_ff": cfg.d_ff, "vocab": cfg.vocab, "vision_prefix": cfg.vision_prefix,
+                   "dtype": cfg.dtype, "tie_embeddings": cfg.tie_embeddings},
+        "depth_cut": {"prefill_decode_layers": VISION_LAYERS, "train_layers": layers,
+                      "of": full.n_layers},
+        "init_s": init_s, "prefill_positions": total,
+        "prefill_s": prefill_s, "prefill_tok_s": total / prefill_s,
+        "decode_steps": VISION_DECODE, "decode_s": decode_s,
+        "decode_tok_s": VISION_DECODE / decode_s, "tokens": toks,
+        "k3_calls": {f"q{list(q)} k/v{list(k)} {dt} causal={c}": n
+                     for (q, k, dt, c), n in shapes.items()},
+        "launches": launches, "kernel_vs_plain_in_model": in_model,
+        "where_the_time_goes": where, "peak_memory_bytes": serve_peak,
+        "train_step": step, "train_free_bytes": free, "cmi_written": False,
+    }
+
+
+def run_mesh(root: Path, dev, no_mesh: dict) -> dict:
+    """whisper-tiny through the launcher on a 1×1 ``("data", "model")`` cuda
+    mesh, an NCCL group of one, at train_encdec's arguments, reclaimed at
+    step 2 and resumed (``--remesh 1x1,1x1``): its final CMI is bitwise the
+    same arguments' uninterrupted run without a mesh (train_encdec's A:
+    ``no_mesh``'s chunk digests and losses; the placements are trivial);
+    the state it resumed from is its step-2 CMI; every array's sharding
+    record names ``mesh_shape [1, 1]`` and the rules' spec. The launcher
+    counts its own K3 launches from 0."""
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.configs import get_config
+    from repro_torch.core import JobStore
+    from repro_torch.core.cmi import restore_cmi
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.distributed.steps import train_state_shardings
+    from repro_torch.launch.train import state_digest
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils import flatten_with_paths
+
+    root.mkdir(parents=True, exist_ok=True)
+    store = root / "jobs"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = _launch_train(root, "B", store, train_argv(ENCDEC_ARCH) + [
+        "--remesh", "1x1,1x1", "--preempt-at", str(TRAIN_PREEMPT_AT)])
+    wall = time.perf_counter() - t0
+    js = JobStore(store)
+    end = rec[-1]
+    job = js.read_job(end["job_id"])
+    man = load_manifest(js.cmi_root(job.job_id), job.cmi)
+    assert _digests(man) == no_mesh["digests"], "the mesh run's state differs from no mesh's"
+    losses = [r["loss"] for r in rec if r["event"] == "step"]
+    assert losses == no_mesh["losses"] and len(losses) == TRAIN_STEPS, (losses, no_mesh["losses"])
+    starts = [(r["mesh"], r["resumed"], r["step"]) for r in rec if r["event"] == "start"]
+    assert starts == [("1x1", False, 0), ("1x1", True, TRAIN_PREEMPT_AT)], starts
+    assert end["incarnations"] == 2 and job.status == "finished"
+    resumed = next(r for r in rec if r["event"] == "start" and r["resumed"])
+    published = next(r["cmi"] for r in rec
+                     if r["event"] == "publish" and r["step"] == TRAIN_PREEMPT_AT)
+    state, _ = restore_cmi(js.cmi_root(job.job_id), published, device="cpu")
+    assert resumed["restored_digest"] == state_digest(state)
+    del state
+    cfg = get_config(ENCDEC_ARCH)
+    want = flatten_with_paths(train_state_shardings(
+        cfg, AdamWConfig(moment_dtype=cfg.opt_moment_dtype),
+        AbstractMesh((1, 1), ("data", "model"))))[0]
+    records = {p: e.sharding for p, e in man.arrays.items()}
+    assert sorted(records) == sorted(want)
+    for path, got in records.items():
+        assert (got.mesh_shape, got.mesh_axes) == ([1, 1], ["data", "model"]), path
+        assert got.pspec == want[path].record().pspec, path
+    per_run = 2 * TRAIN_STEPS * k3_per_forward(cfg)  # forward + remat recompute
+    assert end["launches"]["flash_attention"] == per_run, end["launches"]
+    return {"arch": ENCDEC_ARCH, "mesh": "1x1 (data, model), cuda, nccl, world 1",
+            "remesh": "1x1,1x1", "preempt_at": TRAIN_PREEMPT_AT,
+            "vs": "train_encdec.A (no mesh, uninterrupted)",
+            "bitwise_equal_no_mesh_uninterrupted": True, "losses": losses,
+            "restored_equals_published": True,
+            "sharding_record": {"mesh_shape": [1, 1], "mesh_axes": ["data", "model"],
+                                "params/embed": records["params/embed"].pspec,
+                                "step": records["step"].pspec},
+            "step_s": [r["s"] for r in rec if r["event"] == "step"],
+            "publish_s": [r["s"] for r in rec if r["event"] == "publish"],
+            "restart_s": resumed["s"], "wall_s": wall, "incarnations": end["incarnations"],
+            "launches": end["launches"], "peak_memory_bytes": end["peak_memory_bytes"]}
 
 
 def k3_lse_case(dev, b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int,
@@ -2418,6 +2663,14 @@ def main() -> int:
                       "whisper_cross": k3_lse_case(dev, 4, 6, 6, 2048, 1500, 64, 64, False, 0, 5),
                       "whisper_decoder": k3_lse_case(dev, 4, 6, 6, 2048, 2048, 64, 64, True, 0, 6)}
 
+        # the vision prefix: internvl2-76b at full width in process (its
+        # train step needs the card nearly empty, so it runs first), K3's
+        # counts from 0 just before, read just after; nothing published
+        vision = run_vision(dev)
+        by_path = {"vision": {"flash_attention": vision["launches"]["flash_attention"]}}
+        emit("vision", **vision, k3=k3["at_internvl2"], disk=disk.mark("vision", 0))
+        del vision
+
         # the main path: counts from 0 just before, read just after
         delta_ops.changed_blocks.launches = 0
         colocate_ops.colocate_match.launches = 0
@@ -2445,10 +2698,11 @@ def main() -> int:
         # the fabric path: run_fabric sets the counts (here and in each
         # worker) to 0 just before each of its runs and reads them just after
         fab = run_fabric(work / "fabric", dev, calm)
-        by_path = {"itinerary+publish": dict(launches),
-                   "fabric": {k: sum(fab[run]["launches"][k]
-                                     for run in ("calm", "calm_warm", "interrupted", "delta"))
-                              for k in ("delta_encode", "colocate")}}
+        by_path.update({"itinerary+publish": dict(launches),
+                        "fabric": {k: sum(fab[run]["launches"][k]
+                                          for run in ("calm", "calm_warm", "interrupted",
+                                                      "delta"))
+                                   for k in ("delta_encode", "colocate")}})
         for k in ("delta_encode", "colocate"):
             launches[k] += by_path["fabric"][k]
         emit("fabric", workers=fab["workers"], startup_s=fab["startup_s"],
@@ -2462,8 +2716,9 @@ def main() -> int:
 
         # the serve path: counts from 0 just before, read just after
         metrics, serve_launches, windows, _ = serve_counted(dev, SERVE_ARCH)
-        launches["flash_attention"] = serve_launches["flash_attention"]
-        by_path["serve"] = {"flash_attention": launches["flash_attention"]}
+        launches["flash_attention"] = (by_path["vision"]["flash_attention"]
+                                       + serve_launches["flash_attention"])
+        by_path["serve"] = {"flash_attention": serve_launches["flash_attention"]}
         served = check_serve(metrics, dev)
         cfg = served["engine"].cfg
         assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -2587,8 +2842,24 @@ def main() -> int:
              k3={key: k3_lse_new[key] for key in ("whisper_encoder", "whisper_cross",
                                                   "whisper_decoder")},
              disk=disk.mark("train_encdec", train_files(work / "train_encdec", train)))
+        from repro_torch.checkpoint import load_manifest
+        from repro_torch.core import JobStore
+
+        job_id, cmi = train["final_cmis"]["A"]
+        no_mesh = {"losses": train["losses"], "digests": _digests(load_manifest(
+            JobStore(work / "train_encdec" / "jobs").cmi_root(job_id), cmi))}
         shutil.rmtree(work / "train_encdec", ignore_errors=True)
         del train
+
+        # the mesh: whisper-tiny through the launcher on a 1x1 cuda mesh,
+        # each process counting its own K3 launches from 0
+        mesh = run_mesh(work / "mesh", dev, no_mesh)
+        by_path["mesh"] = {"flash_attention": mesh["launches"]["flash_attention"]}
+        launches["flash_attention"] += by_path["mesh"]["flash_attention"]
+        emit("mesh", **mesh, disk=disk.mark("mesh", dir_bytes(work / "mesh")))
+        shutil.rmtree(work / "mesh", ignore_errors=True)
+        del mesh
+
         total = disk.total()
         emit("disk", phases=disk.phases, total_written_bytes=total, limit_bytes=DISK_WRITE_LIMIT)
         assert total < DISK_WRITE_LIMIT, (total, disk.phases)
@@ -2620,7 +2891,8 @@ def main() -> int:
                      **({"at_d64": k["at_d64"], "at_hymba": k["at_hymba"], "at_mla": k["at_mla"],
                          "at_whisper_encoder": k["at_whisper_encoder"],
                          "at_whisper_cross": k["at_whisper_cross"],
-                         "at_whisper_decoder": k["at_whisper_decoder"], "training": k3_train,
+                         "at_whisper_decoder": k["at_whisper_decoder"],
+                         "at_internvl2": k["at_internvl2"], "training": k3_train,
                          "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid,
                          "lse_new_shapes": k3_lse_new}
                         if name == "flash_attention" else {})})

@@ -5,7 +5,10 @@ Save path
 ---------
 Each tensor (CPU or CUDA) or numpy leaf is one shard covering the whole
 array (``ShardingRecord`` ``None``); a :class:`HostShards` snapshot keeps
-the shards it was given. Each shard is split into ~``chunk_bytes`` axis-0
+the shards it was given. A DTensor is gathered to rank 0 first
+(:func:`dtensor_to_host`): one host copy per *distinct* shard index, with
+its mesh's sharding record, as the reference writes a sharded
+``jax.Array`` (replicas are written once). Each shard is split into ~``chunk_bytes`` axis-0
 row blocks and each block is hashed. When a ``parent`` CMI is given, blocks
 whose (path, slice, hash) match the parent are recorded as *references*
 into the parent instead of being rewritten — the paper's §Q3 incremental
@@ -38,8 +41,10 @@ Restore path
 ``load_checkpoint`` plans coalesced byte-range reads per (owner CMI, data
 file), runs them on a thread pool with CRC validation per chunk, and
 allocates each array on the device its resolver names (host CPU tensors
-when there is none). A CMI saved with a sharding record (by the JAX
-package, on a mesh) restores onto the one device all the same.
+when there is none). A CMI saved with a sharding record (by either
+package, on a mesh) restores onto one device all the same, or, given
+``shardings``, as DTensors on a ``DeviceMesh``: each rank reads only the
+chunks that meet its own shard.
 """
 
 from __future__ import annotations
@@ -151,14 +156,70 @@ def leaf_dtype(x: Any) -> str:
     return x.dtype if isinstance(x, HostShards) else dtype_to_str(x.dtype)
 
 
+def _is_dtensor(x: Any) -> bool:
+    # by name: importing torch.distributed.tensor would cost every process
+    # that never holds one (the fabric's workers)
+    return type(x).__name__ == "DTensor" and isinstance(x, torch.Tensor)
+
+
+def dtensor_to_host(t: Any) -> "HostShards | None":
+    """A DTensor's host snapshot, on rank 0: one copy per distinct shard
+    index (JAX's ``addressable_shards`` indices), sorted, and the mesh's
+    sharding record. A collective over the default group: every rank calls
+    it, each shard's lowest rank sends it to rank 0 (unless it is rank 0),
+    and the others get ``None``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import mesh_coordinate, sharding_of
+
+    sh = sharding_of(t)
+    shape = tuple(int(n) for n in t.shape)
+    grid = sh.mesh.mesh
+    owners: dict[tuple, int] = {}
+    for coord in sh.coords():
+        idx, r = sh.shard_index(shape, coord), int(grid[coord])
+        owners[idx] = min(r, owners.get(idx, r))
+    me = dist.get_rank() if dist.is_initialized() else 0
+    local = t.to_local()
+    dtype = dtype_to_str(t.dtype)
+    shards = []
+    for idx in sorted(owners):
+        owner = owners[idx]
+        if owner == me == 0:
+            host = tensor_to_storage(local)
+            shards.append((idx, host.copy() if local.device.type == "cpu" else host))
+        elif me == 0:
+            bshape = tuple(b - a for a, b in idx)
+            n = int(np.prod(bshape, dtype=np.int64)) * dtype_itemsize(dtype)
+            buf = torch.empty(n, dtype=torch.uint8, device=local.device)
+            dist.recv(buf, src=owner)
+            host = buf.cpu().numpy().view(storage_dtype(dtype)).reshape(bshape)
+            shards.append((idx, host))
+        elif owner == me:
+            if sh.shard_index(shape, mesh_coordinate(sh.mesh)) != idx:
+                raise AssertionError("a rank owns a shard it does not hold")
+            dist.send(local.contiguous().reshape(-1).view(torch.uint8), dst=0)
+    if me != 0:
+        return None
+    return HostShards(shape, dtype, shards, sh.record())
+
+
 def _unique_shards(x: Any) -> list[tuple[tuple[tuple[int, int], ...], Any]]:
     """Return [(full-array slice, data)]: one shard per tensor or ndarray.
 
     Tensor data stays where it lives (a CUDA tensor stays on the card);
-    :func:`_byte_view` brings each block to the host as it is needed.
+    :func:`_byte_view` brings each block to the host as it is needed. A
+    DTensor on a one-rank mesh is snapshot here; on a larger mesh every
+    rank must call :func:`dtensor_to_host` (``core.cmi.snapshot_to_host``)
+    first.
     """
     if isinstance(x, HostShards):
         return x.shards
+    if _is_dtensor(x):
+        if x.device_mesh.size() != 1:
+            raise ValueError("a DTensor on a mesh of several ranks: snapshot_to_host(state) "
+                             "on every rank first, and save rank 0's snapshot")
+        return dtensor_to_host(x).shards
     full = tuple((0, int(d)) for d in x.shape)
     if isinstance(x, torch.Tensor):
         return [(full, x.detach().contiguous())]
@@ -187,7 +248,13 @@ def _byte_view(block: Any):
 
 
 def _sharding_record(x: Any) -> ShardingRecord | None:
-    return x.record if isinstance(x, HostShards) else None
+    if isinstance(x, HostShards):
+        return x.record
+    if _is_dtensor(x):
+        from repro_torch.distributed.sharding import sharding_of
+
+        return sharding_of(x).record()
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -1216,11 +1283,39 @@ def _materialize(entry: ArrayEntry, reader: _ChunkReader, device) -> torch.Tenso
     return t if device is None else t.to(device)
 
 
+def _materialize_sharded(entry: ArrayEntry, reader: _ChunkReader, sharding) -> torch.Tensor:
+    """This rank's shard of the array under ``sharding`` (a
+    ``distributed.sharding.NamedSharding``) as a DTensor: only the chunks
+    that meet the shard are read."""
+    from repro_torch.distributed.sharding import from_local, mesh_coordinate, mesh_device
+
+    index = sharding.shard_index(entry.shape, mesh_coordinate(sharding.mesh))
+    local = storage_to_tensor(_assemble(entry, index, reader), entry.dtype)
+    return from_local(local.to(mesh_device(sharding.mesh)), entry.shape, sharding)
+
+
+def _load_one(apath: str, entry: ArrayEntry, reader: _ChunkReader, shardings, devices):
+    """One array: placed by ``shardings`` (a mapping or a resolver giving a
+    NamedSharding or None) where it names one, else on ``devices``' device."""
+    sharding = None
+    if callable(shardings):
+        sharding = shardings(apath, tuple(entry.shape), entry.dtype, entry.sharding)
+    elif shardings is not None:
+        sharding = shardings.get(apath)
+    if sharding is not None:
+        return _materialize_sharded(entry, reader, sharding)
+    device = devices
+    if callable(devices):
+        device = devices(apath, tuple(entry.shape), entry.dtype, entry.sharding)
+    return _materialize(entry, reader, device)
+
+
 def load_checkpoint(
     store_root: str | os.PathLike,
     name: str,
     *,
     devices: DeviceResolver | None = None,
+    shardings: Mapping[str, Any] | Callable | None = None,
     validate_crc: bool = True,
     io_threads: int = 0,
 ) -> tuple[Any, Manifest]:
@@ -1228,21 +1323,19 @@ def load_checkpoint(
 
     ``devices`` is None (host CPU tensors) or a resolver callback
     ``(path, shape, dtype, saved_sharding_record) -> device``, as
-    ``core.cmi.device_resolver`` builds. ``io_threads`` bounds the
-    concurrent-read pool (0 = min(8, cpu_count), 1 = serial).
+    ``core.cmi.device_resolver`` builds. ``shardings`` places arrays as
+    DTensors: a mapping from array path to a ``NamedSharding``, or a
+    resolver callback with ``devices``' arguments giving one or None
+    (``core.cmi.mesh_resharding_resolver``); an array it gives none goes
+    to ``devices``. ``io_threads`` bounds the concurrent-read pool (0 =
+    min(8, cpu_count), 1 = serial).
     """
     store_root = Path(store_root)
     manifest = load_manifest(store_root, name)
     reader = _ChunkReader(store_root, name, validate_crc, io_threads)
     try:
-        arrays = {
-            apath: _materialize(
-                entry, reader,
-                None if devices is None
-                else devices(apath, tuple(entry.shape), entry.dtype, entry.sharding),
-            )
-            for apath, entry in manifest.arrays.items()
-        }
+        arrays = {apath: _load_one(apath, entry, reader, shardings, devices)
+                  for apath, entry in manifest.arrays.items()}
         return decode_structure(manifest.structure, arrays), manifest
     finally:
         reader.close()
@@ -1259,18 +1352,14 @@ def load_arrays(
     io_threads: int = 0,
 ) -> dict[str, torch.Tensor]:
     """Partial restore: just the named arrays (all, for ``paths=None``) as a
-    flat ``{path: tensor}`` dict, on ``device`` (None: host CPU tensors).
-    Only the chunks of the named arrays are read. ``shardings`` (the
-    reference's sharded restore) comes with the multi-card slice."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "sharded partial restore is not ported yet: it comes with the multi-card "
-            "slice (ROADMAP queue 1, item 11: distributed/*); pass device=")
+    flat ``{path: tensor}`` dict, on ``device`` (None: host CPU tensors), or
+    placed as DTensors by ``shardings`` (as in :func:`load_checkpoint`).
+    Only the chunks of the named arrays (of this rank's shards) are read."""
     store_root = Path(store_root)
     manifest = load_manifest(store_root, name)
     reader = _ChunkReader(store_root, name, validate_crc, io_threads)
     try:
-        return {apath: _materialize(manifest.arrays[apath], reader, device)
+        return {apath: _load_one(apath, manifest.arrays[apath], reader, shardings, device)
                 for apath in (paths if paths is not None else list(manifest.arrays))}
     finally:
         reader.close()

@@ -1,23 +1,34 @@
 """CMI: the Checkpoint Memory Image as a tree of tensors.
 
 The CMI holds *only application state* — a tree of tensors, arrays and
-scalars — plus sharding records (the JAX package writes them; the port
-writes ``None``, one device holding the whole tensor). The runtime is
-reconstructed at the destination, as DMTCP's restart script reloads local
-shared libraries.
+scalars — plus sharding records: a DTensor on a ``DeviceMesh`` records its
+mesh and PartitionSpec as the JAX package records a ``NamedSharding``
+(``ShardingRecord``), and a tensor on one device records ``None``. The
+runtime is reconstructed at the destination, as DMTCP's restart script
+reloads local shared libraries.
 
 Restore onto a device
 ---------------------
 ``device_resolver(device)`` places every array on one device, whatever
-sharding record the CMI carries: a CMI the JAX package wrote on a mesh
-restores onto the one card. Sharded restores (``DeviceMesh``) come with the
-distributed slice of the port.
+sharding record the CMI carries: a CMI written on a mesh restores onto
+one card.
+
+Elastic restore
+---------------
+``mesh_resharding_resolver(mesh)`` re-maps each saved array's
+PartitionSpec onto the *destination* mesh by axis name, dropping axes the
+new mesh lacks and falling back to replication when a dimension no longer
+divides (the reference's resolver, copied). ``restore_cmi(mesh=...)``
+places every array as a DTensor by it, each rank reading only the chunks
+that meet its own shard: a CMI published on a 2×2 mesh resumes on 2×1
+after a spot reclaim.
 """
 
 from __future__ import annotations
 
+import math
 import time
-from typing import Any
+from typing import Any, Mapping
 
 import torch
 
@@ -25,6 +36,8 @@ from repro_torch.checkpoint.format import ShardingRecord, dtype_to_str, tensor_t
 from repro_torch.checkpoint.serializer import (
     HostShards,
     SaveOptions,
+    _is_dtensor,
+    dtensor_to_host,
     load_checkpoint,
     save_checkpoint,
 )
@@ -42,12 +55,18 @@ def snapshot_to_host(tree: Any) -> Any:
     Each copy is ``tensor.cpu()`` in the storage dtype, one after another on
     the current stream (pinned staging buffers and copies that overlap
     compute are later work); a CPU tensor is copied too, so later in-place
-    updates never reach the snapshot.
+    updates never reach the snapshot. A DTensor leaf is gathered to rank 0
+    (``serializer.dtensor_to_host``: one copy per distinct shard and the
+    sharding record), so with DTensor leaves every rank of the group calls
+    this, in the same tree order, and only rank 0's snapshot holds them
+    (other ranks get ``None`` leaves).
     """
 
     def snap(t: Any) -> Any:
         if not isinstance(t, torch.Tensor):
             return t
+        if _is_dtensor(t):
+            return dtensor_to_host(t)
         shape = tuple(int(d) for d in t.shape)
         host = tensor_to_storage(t)  # a copy for CUDA, a view of a CPU tensor
         if t.device.type == "cpu":
@@ -97,20 +116,71 @@ def device_resolver(device: torch.device | str | None):
     return resolver
 
 
+def mesh_resharding_resolver(
+    mesh: Any,
+    overrides: Mapping[str, Any] | None = None,
+    *,
+    default_replicated: bool = True,
+):
+    """Build a sharding resolver that re-maps saved specs onto ``mesh``.
+
+    For each array: an explicit override wins; otherwise the saved
+    PartitionSpec is filtered to axis names present in ``mesh`` with
+    per-dimension divisibility checks (non-dividing dims are replicated).
+    With ``mesh=None`` the resolver gives ``None`` (no sharding).
+    """
+    from repro_torch.distributed.sharding import NamedSharding, P, axis_sizes
+
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+
+    def resolver(path: str, shape: tuple[int, ...], dtype: str, rec: ShardingRecord | None):
+        if overrides is not None and path in overrides:
+            return overrides[path]
+        if mesh is None:
+            return None
+        if rec is None:
+            return NamedSharding(mesh, P()) if default_replicated else None
+        entries = []
+        for dim, entry in enumerate(rec.pspec):
+            if entry is None:
+                entries.append(None)
+                continue
+            names = entry if isinstance(entry, (list, tuple)) else [entry]
+            kept = [n for n in names if n in sizes]
+            factor = math.prod(sizes[n] for n in kept) if kept else 1
+            if not kept or dim >= len(shape) or shape[dim] % factor != 0:
+                entries.append(None)
+            else:
+                entries.append(tuple(kept) if len(kept) > 1 else kept[0])
+        entries = entries[: len(shape)]  # pad/trim to rank
+        while len(entries) < len(shape):
+            entries.append(None)
+        return NamedSharding(mesh, P(*entries))
+
+    return resolver
+
+
 def restore_cmi(
     store_root,
     name: str,
     *,
     device: torch.device | str | None = None,
+    mesh: Any = None,
+    shardings: Mapping[str, Any] | None = None,
     validate_crc: bool = True,
     io_threads: int = 0,
 ) -> tuple[Any, Any]:
-    """Restore a CMI onto ``device`` (default: the CUDA card).
+    """Restore a CMI onto ``device`` (default: the CUDA card), or onto a
+    (possibly different) ``mesh``.
 
-    Returns ``(state, manifest)``. ``io_threads`` sizes the concurrent-read
+    Returns ``(state, manifest)``. With ``mesh``, arrays land as DTensors
+    placed by the remapped saved specs; with ``shardings`` (flat path ->
+    ``NamedSharding``), those win. ``io_threads`` sizes the concurrent-read
     pool (0 = min(8, cpu_count), 1 = serial).
     """
+    resolver = (mesh_resharding_resolver(mesh, overrides=shardings) if mesh is not None
+                else shardings)
     return load_checkpoint(
-        store_root, name, devices=device_resolver(device),
-        validate_crc=validate_crc, io_threads=io_threads,
+        store_root, name, devices=None if mesh is not None else device_resolver(device),
+        shardings=resolver, validate_crc=validate_crc, io_threads=io_threads,
     )

@@ -49,11 +49,14 @@ import torch
 
 from repro_torch.chaos import faults
 from repro_torch.checkpoint.serializer import SaveOptions
-from repro_torch.core.cmi import restore_cmi, save_cmi, snapshot_to_host
+from repro_torch.core.cmi import (mesh_resharding_resolver, restore_cmi, save_cmi,
+                                  snapshot_to_host)
 from repro_torch.core.delta import DeltaPolicy, DeltaTracker
 from repro_torch.core.jobstore import STATUS_CKPT, STATUS_FINISHED, JobStore
 from repro_torch.core.nbs import NBS, RemoteStateRef
-from repro_torch.utils import logger, resolve_device, tree_map
+from repro_torch.checkpoint.format import dtype_to_str
+from repro_torch.utils import (flatten_with_paths, logger, resolve_device, tree_map,
+                               unflatten_from_paths)
 
 
 class Preempted(RuntimeError):
@@ -129,11 +132,15 @@ class DHP:
                 via = "store"
         self.nbs.plugins.emit("on_hop", src=src, dest=dest, via=via, cmi=None)
         if via == "live":
-            # §Q5: the state goes straight onto the destination device
+            # §Q5: the state goes straight onto the destination device, or
+            # is resharded onto the destination mesh
             if dest_node.device is None:
                 raise ValueError(f"hop(via='live') needs an in-process node; {dest!r} "
                                  "is served by another process")
-            out = _to_device_tree(state, dest_node.device)
+            if dest_node.mesh is not None:
+                out = _reshard_tree(state, mesh_resharding_resolver(dest_node.mesh))
+            else:
+                out = _to_device_tree(state, dest_node.device)
             self.node = dest
             logger.info("hop(live) %s -> %s", src, dest)
             return out
@@ -230,6 +237,8 @@ class DHP:
             # destination lives in THIS process: the tour comes home
             self.nbs.plugins.emit("on_hop", src=src, dest=dest, via="fetch", cmi=None)
             state = self.fetch(ref, via=via, device=dest_node.device)
+            if dest_node.mesh is not None:
+                state = _reshard_tree(state, mesh_resharding_resolver(dest_node.mesh))
             self.node = dest
             logger.info("hop(fetch) %s -> %s", src, dest)
             return state
@@ -450,10 +459,11 @@ class DHP:
         if job.cmi is None:
             raise ValueError(f"job {job_id} has no published CMI")
         # a process-backed node has no device here: the state lands as a
-        # fetched one does
+        # fetched one does; a node on a mesh gets DTensors placed on it
+        home = self.nbs.node(node)
         state, manifest = restore_cmi(
             self.jobstore.cmi_root(job_id), job.cmi,
-            device=self.nbs.node(node).device or self._landing_device(),
+            device=home.device or self._landing_device(), mesh=home.mesh,
             io_threads=self.io_threads,
         )
         self.nbs.plugins.emit("on_restart", node=node, cmi=job.cmi, step=manifest.step)
@@ -535,3 +545,21 @@ class DHP:
 def _to_device_tree(state: Any, device: torch.device) -> Any:
     """Every tensor leaf on ``device`` (live migration)."""
     return tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor) else v, state)
+
+
+def _reshard_tree(state: Any, resolver) -> Any:
+    """Every tensor leaf placed per the resolver (live migration onto a
+    mesh): a DTensor is redistributed from its recorded spec's remap, a
+    tensor every rank holds whole is split into each rank's block."""
+    from repro_torch.distributed.sharding import redistribute, sharding_of
+
+    def put(path: str, leaf: Any) -> Any:
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        cur = sharding_of(leaf)
+        sh = resolver(path, tuple(leaf.shape), dtype_to_str(leaf.dtype),
+                      None if cur is None else cur.record())
+        return leaf if sh is None else redistribute(leaf, sh)
+
+    flat, treedef = flatten_with_paths(state)
+    return unflatten_from_paths(treedef, {k: put(k, v) for k, v in flat.items()})

@@ -63,13 +63,15 @@ class Node:
 
     A process-backed node (``repro_torch.fabric.proxy.RemoteNode``) has no
     device in this process (``device`` is ``None``): its worker names its
-    own in ``svc/ping``.
+    own in ``svc/ping``. A node on a ``DeviceMesh`` (``mesh``) holds its
+    state as DTensors; ``device`` is then this rank's device of the mesh.
     """
 
     name: str
     device: torch.device | None
     services: dict[str, Callable] = field(default_factory=dict)
     meta: dict[str, Any] = field(default_factory=dict)
+    mesh: Any = None
 
     # Process-backed subclasses that can receive a state stream over their
     # socket (``repro_torch.fabric.proxy.RemoteNode``) flip these; ``dhp.hop``
@@ -105,12 +107,18 @@ class NBS:
         self.plugins = PluginBus()
 
     # -- topology ----------------------------------------------------------
-    def add_node(self, name: str, device: torch.device | str | None = None, **meta) -> Node:
+    def add_node(self, name: str, device: torch.device | str | None = None, *,
+                 mesh: Any = None, **meta) -> Node:
         """Register an in-process node on ``device`` (default: the CUDA card;
-        raises where there is none)."""
+        raises where there is none), or on ``mesh`` (a ``DeviceMesh``: state
+        restored or hopped onto the node is placed on it)."""
         if name in self.nodes:
             raise ValueError(f"node {name!r} already registered")
-        node = Node(name=name, device=resolve_device(device), meta=meta)
+        if mesh is not None:
+            from repro_torch.distributed.sharding import mesh_device
+
+            device = mesh_device(mesh)
+        node = Node(name=name, device=resolve_device(device), meta=meta, mesh=mesh)
         self._install_default_services(node)
         self.nodes[name] = node
         return node
@@ -154,7 +162,8 @@ class NBS:
     # -- default services ----------------------------------------------------
     def _install_default_services(self, node: Node) -> None:
         def svc_ping() -> dict:
-            return {"node": node.name, "device": str(node.device)}
+            return {"node": node.name, "device": str(node.device),
+                    "mesh": None if node.mesh is None else list(node.mesh.shape)}
 
         def svc_hop(
             cmi: str,
@@ -162,14 +171,16 @@ class NBS:
             io_threads: int = 0,
             gc: bool = True,
         ) -> Any:
-            """Figure 4: restore the named CMI onto this node's device.
+            """Figure 4: restore the named CMI onto this node's device (its
+            mesh, when it has one).
 
             Hop CMIs are transit baggage, not published products: once the
             state is live on this node the image is deleted (``gc=False`` to
             keep it), else long itineraries grow the store without bound.
             """
             root = Path(store_root) if store_root else self.store_root / HOP_NAMESPACE
-            state, manifest = restore_cmi(root, cmi, device=node.device, io_threads=io_threads)
+            state, manifest = restore_cmi(root, cmi, device=node.device, mesh=node.mesh,
+                                          io_threads=io_threads)
             self.plugins.emit("on_restart", node=node.name, cmi=cmi, step=manifest.step)
             if gc:
                 shutil.rmtree(root / cmi, ignore_errors=True)

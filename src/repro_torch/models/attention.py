@@ -40,7 +40,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, init_dense, pdtype, rmsnorm
+from repro_torch.models.layers import apply_rope, init_const, init_dense, pdtype, rmsnorm
 
 NEG = -1e30
 
@@ -56,13 +56,15 @@ def init_gqa(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
         "wo": init_dense(gen, (n_layers, h, dh, e), ("layers", "heads", "head_dim", "embed"), dt, device),
     }
     if cfg.attn_bias:
-        p["bq"] = torch.zeros((n_layers, h, dh), dtype=dt, device=device)
-        p["bk"] = torch.zeros((n_layers, kv, dh), dtype=dt, device=device)
-        p["bv"] = torch.zeros((n_layers, kv, dh), dtype=dt, device=device)
-        p["bo"] = torch.zeros((n_layers, e), dtype=dt, device=device)
+        p["bq"] = init_const((n_layers, h, dh), 0.0, ("layers", "heads", "head_dim"), dt, device)
+        p["bk"] = init_const((n_layers, kv, dh), 0.0, ("layers", "kv_heads", "head_dim"), dt,
+                             device)
+        p["bv"] = init_const((n_layers, kv, dh), 0.0, ("layers", "kv_heads", "head_dim"), dt,
+                             device)
+        p["bo"] = init_const((n_layers, e), 0.0, ("layers", "embed"), dt, device)
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((n_layers, dh), dtype=dt, device=device)
-        p["k_norm"] = torch.ones((n_layers, dh), dtype=dt, device=device)
+        p["q_norm"] = init_const((n_layers, dh), 1.0, ("layers", "head_dim"), dt, device)
+        p["k_norm"] = init_const((n_layers, dh), 1.0, ("layers", "head_dim"), dt, device)
     return p
 
 
@@ -189,11 +191,11 @@ def init_mla(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     dt = pdtype(cfg)
     p = {"wq_a": init_dense(gen, (n_layers, e, qr), ("layers", "embed", "q_lora"), dt, device),
-         "q_ln": torch.ones((n_layers, qr), dtype=dt, device=device)}
+         "q_ln": init_const((n_layers, qr), 1.0, ("layers", "q_lora"), dt, device)}
     p["wq_b"] = init_dense(gen, (n_layers, qr, h, nd + rd),
                            ("layers", "q_lora", "heads", "head_dim"), dt, device)
     p["wkv_a"] = init_dense(gen, (n_layers, e, kvr + rd), ("layers", "embed", None), dt, device)
-    p["kv_ln"] = torch.ones((n_layers, kvr), dtype=dt, device=device)
+    p["kv_ln"] = init_const((n_layers, kvr), 1.0, ("layers", None), dt, device)
     p["wkv_b"] = init_dense(gen, (n_layers, kvr, h, nd + vd), ("layers", None, "heads", "head_dim"),
                             dt, device)
     p["wo"] = init_dense(gen, (n_layers, h, vd, e), ("layers", "heads", "head_dim", "embed"), dt,

@@ -33,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import embed, gelu_mlp, init_dense, init_embedding, layernorm, pdtype
+from repro_torch.models.layers import (embed, gelu_mlp, init_const, init_dense, init_embedding,
+                                        layernorm, pdtype, with_axes)
 from repro_torch.models.transformer import _layer, _unbind_layers
 
 MAX_DEC_POS = 32768  # the reference's decoder position table
@@ -44,20 +45,20 @@ def _table(gen, shape, dt, device) -> torch.Tensor:
     w = torch.empty(shape, dtype=torch.float32, device=device)
     if w.device.type != "meta":
         w.normal_(0.0, 1.0, generator=gen).mul_(0.01)
-    return w.to(dt)
+    return with_axes(w.to(dt), (None, "embed"))
 
 
 def _init_ln(n: int, e: int, dt, name: str, p: dict, device) -> None:
-    p[f"{name}_s"] = torch.ones((n, e), dtype=dt, device=device)
-    p[f"{name}_b"] = torch.zeros((n, e), dtype=dt, device=device)
+    p[f"{name}_s"] = init_const((n, e), 1.0, ("layers", "embed"), dt, device)
+    p[f"{name}_b"] = init_const((n, e), 0.0, ("layers", "embed"), dt, device)
 
 
 def _init_mlp(gen, cfg: ArchConfig, n: int, device) -> dict:
     e, f, dt = cfg.d_model, cfg.d_ff, pdtype(cfg)
     p = {"w_in": init_dense(gen, (n, e, f), ("layers", "embed", "mlp"), dt, device),
-         "b_in": torch.zeros((n, f), dtype=dt, device=device)}
+         "b_in": init_const((n, f), 0.0, ("layers", "mlp"), dt, device)}
     p["w_out"] = init_dense(gen, (n, f, e), ("layers", "mlp", "embed"), dt, device)
-    p["b_out"] = torch.zeros((n, e), dtype=dt, device=device)
+    p["b_out"] = init_const((n, e), 0.0, ("layers", "embed"), dt, device)
     return p
 
 
@@ -74,8 +75,8 @@ def init_encdec(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[st
     _init_ln(cfg.enc_layers, e, dt, "ln2", enc, device)
     enc["mlp"] = _init_mlp(gen, cfg, cfg.enc_layers, device)
     params["enc"] = enc
-    params["enc_final_s"] = torch.ones((e,), dtype=dt, device=device)
-    params["enc_final_b"] = torch.zeros((e,), dtype=dt, device=device)
+    params["enc_final_s"] = init_const((e,), 1.0, ("embed",), dt, device)
+    params["enc_final_b"] = init_const((e,), 0.0, ("embed",), dt, device)
     dec: dict[str, Any] = {}
     _init_ln(cfg.n_layers, e, dt, "ln1", dec, device)
     dec["self_attn"] = attn.init_gqa(gen, cfg, cfg.n_layers, device)
@@ -84,8 +85,8 @@ def init_encdec(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[st
     _init_ln(cfg.n_layers, e, dt, "ln2", dec, device)
     dec["mlp"] = _init_mlp(gen, cfg, cfg.n_layers, device)
     params["dec"] = dec
-    params["final_s"] = torch.ones((e,), dtype=dt, device=device)
-    params["final_b"] = torch.zeros((e,), dtype=dt, device=device)
+    params["final_s"] = init_const((e,), 1.0, ("embed",), dt, device)
+    params["final_b"] = init_const((e,), 0.0, ("embed",), dt, device)
     return params
 
 

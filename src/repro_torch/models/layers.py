@@ -11,6 +11,8 @@ per sequence chunk, each chunk recomputed in the backward pass.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -29,6 +31,37 @@ def pdtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+# While a recording is on, every parameter the init functions make is
+# recorded with its logical axes (``Model.param_axes``), by identity.
+_AXES: contextvars.ContextVar[dict | None] = contextvars.ContextVar("param_axes", default=None)
+
+
+@contextlib.contextmanager
+def recording_axes():
+    """Yields ``{id(parameter): axes}``, filled by the inits in the body."""
+    rec: dict[int, tuple] = {}
+    token = _AXES.set(rec)
+    try:
+        yield rec
+    finally:
+        _AXES.reset(token)
+
+
+def with_axes(t: torch.Tensor, axes) -> torch.Tensor:
+    """``t``, its logical axes recorded when a recording is on."""
+    rec = _AXES.get()
+    if rec is not None:
+        rec[id(t)] = tuple(axes)
+    return t
+
+
+def init_const(shape, value: float, axes, dtype: torch.dtype,
+               device: torch.device | str) -> torch.Tensor:
+    """A parameter filled with ``value`` (norm scales, biases), with its
+    logical axes."""
+    return with_axes(torch.full(shape, value, dtype=dtype, device=device), axes)
+
+
 def init_dense(gen: torch.Generator | None, shape, axes, dtype: torch.dtype,
                device: torch.device | str, scale: float | None = None) -> torch.Tensor:
     """Truncated normal in [-2, 2] times ``scale`` (fan-in scaling by
@@ -40,7 +73,7 @@ def init_dense(gen: torch.Generator | None, shape, axes, dtype: torch.dtype,
     if w.device.type != "meta":
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
         w.mul_(scale)
-    return w.to(dtype)
+    return with_axes(w.to(dtype), axes)
 
 
 def init_embedding(gen: torch.Generator | None, cfg: ArchConfig,
@@ -48,7 +81,7 @@ def init_embedding(gen: torch.Generator | None, cfg: ArchConfig,
     emb = torch.empty((cfg.vocab, cfg.d_model), dtype=torch.float32, device=device)
     if emb.device.type != "meta":
         emb.normal_(0.0, 1.0, generator=gen).mul_(0.02)
-    return emb.to(pdtype(cfg))
+    return with_axes(emb.to(pdtype(cfg)), ("vocab", "embed"))
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

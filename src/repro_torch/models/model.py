@@ -41,7 +41,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import embed, pdtype, softmax_xent_chunked, unembed_logits
+from repro_torch.models.layers import (embed, pdtype, recording_axes, softmax_xent_chunked,
+                                        unembed_logits)
 from repro_torch.utils import flatten_with_paths, numpy_to_tensor
 
 
@@ -75,6 +76,18 @@ class Model:
         flat, treedef = flatten_with_paths(meta)
         return treedef.unflatten({k: TensorSpec(tuple(v.shape), v.dtype) for k, v in flat.items()})
 
+    def param_axes(self) -> dict[str, Any]:
+        """The parameters' logical-axes tree (a tuple of axis names a leaf;
+        the reference's ``Model.init`` second output), nothing allocated:
+        each init records the axes it is given."""
+        with recording_axes() as rec:
+            meta = self._init(None, "meta")
+        flat, treedef = flatten_with_paths(meta)
+        missing = [k for k, v in flat.items() if id(v) not in rec]
+        if missing:
+            raise KeyError(f"parameters made without logical axes: {missing}")
+        return treedef.unflatten({k: rec[id(v)] for k, v in flat.items()})
+
     def selection_only_paths(self) -> set[str]:
         """Flat paths of the parameters the loss reaches only through a
         selection, so their gradient is zero (``jax.grad`` gives zeros): a
@@ -88,20 +101,34 @@ class Model:
     def _unembed(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
 
+    def _embed_inputs(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (x (B, S_tot, E), labels (B, S_tot)): the vision prefix's
+        patch embeddings go before the tokens, labelled -1 so the loss
+        skips them."""
+        cfg = self.cfg
+        x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
+        labels = batch["labels"]
+        if cfg.vision_prefix:
+            vis = batch["vis_embeds"].to(x.dtype)  # (B, P, E) stub frontend
+            x = torch.cat([vis, x], dim=1)
+            labels = torch.cat([labels.new_full(vis.shape[:2], -1), labels], dim=1)
+        return x, labels
+
     # -- train --------------------------------------------------------------
     def loss(self, params, batch, *, n_groups: int = 0) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
         (B, S) int; label -1 ignored; the encoder-decoder's also
-        "enc_frames" (B, enc_seq, E)), a 0-d float32 tensor. ``n_groups``:
+        "enc_frames" (B, enc_seq, E), the vision prefix's "vis_embeds" (B,
+        P, E)), a 0-d float32 tensor. ``n_groups``:
         MoE routing groups (0: one per sequence)."""
         cfg = self.cfg
         if cfg.encdec:
             enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg)
             h = encdec_mod.decode_train(params, batch["tokens"], enc_out, cfg)
             return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk)
-        x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
+        x, labels = self._embed_inputs(params, batch)
         h = tf.forward_train(params, x, cfg, n_groups=n_groups)
-        return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk)
+        return softmax_xent_chunked(h, self._unembed(params), labels, cfg.loss_chunk)
 
     # -- serve --------------------------------------------------------------
     def prefill(self, params, batch, s_max: int, *, n_groups: int = 0):
@@ -112,6 +139,8 @@ class Model:
             h, caches = encdec_mod.prefill(params, batch["tokens"], enc_out, cfg, s_max)
         else:
             x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
+            if cfg.vision_prefix:  # the cache holds P + S positions
+                x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
             h, caches = tf.forward_prefill(params, x, cfg, s_max, n_groups=n_groups)
         return unembed_logits(h[:, -1], self._unembed(params)), caches
 
@@ -165,15 +194,18 @@ class Model:
 def input_specs(cfg: ArchConfig, shape: InputShape) -> dict[str, Any]:
     """Model inputs for (cfg, shape) as TensorSpecs, nothing allocated.
 
-    train:   tokens/labels (B, S) [+ the encoder's frames]
-    prefill: tokens (B, S) [+ the encoder's frames]
+    train:   tokens/labels (B, S) [+ the patch embeddings or the encoder's frames]
+    prefill: tokens (B, S) [+ the patch embeddings or the encoder's frames]
     decode:  tokens (B, 1), pos scalar, caches for a seq_len context
     """
     tf.check_supported(cfg)
     b, s = shape.global_batch, shape.seq_len
     i32 = torch.int32
-    frames = ({"enc_frames": TensorSpec((b, cfg.enc_seq, cfg.d_model), pdtype(cfg))}
-              if cfg.encdec else {})
+    frames = {}
+    if cfg.vision_prefix:
+        frames["vis_embeds"] = TensorSpec((b, cfg.vision_prefix, cfg.d_model), pdtype(cfg))
+    if cfg.encdec:
+        frames["enc_frames"] = TensorSpec((b, cfg.enc_seq, cfg.d_model), pdtype(cfg))
     if shape.kind == "train":
         return {"tokens": TensorSpec((b, s), i32), "labels": TensorSpec((b, s), i32), **frames}
     if shape.kind == "prefill":

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import init_dense, pdtype, swiglu
+from repro_torch.models.layers import init_const, init_dense, pdtype, swiglu
 
 
 def init_moe(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
@@ -48,7 +48,8 @@ def init_moe(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
     p = {"w_router": init_dense(gen, (n_layers, e, x_), ("layers", "embed", None),
                                 torch.float32, device)}
     if cfg.router_type == "sigmoid":
-        p["router_bias"] = torch.zeros((n_layers, x_), dtype=torch.float32, device=device)
+        p["router_bias"] = init_const((n_layers, x_), 0.0, ("layers", None), torch.float32,
+                                      device)
     p["wg"] = init_dense(gen, (n_layers, x_, e, f), ("layers", "experts", "embed", "moe_mlp"), dt, device)
     p["wu"] = init_dense(gen, (n_layers, x_, e, f), ("layers", "experts", "embed", "moe_mlp"), dt, device)
     p["wd"] = init_dense(gen, (n_layers, x_, f, e), ("layers", "experts", "moe_mlp", "embed"), dt, device)
@@ -108,6 +109,9 @@ def _moe_groups(xg: torch.Tensor, p: dict, cfg: ArchConfig, capacity: int) -> to
         buf = torch.zeros((x_, g_ * capacity, e), dtype=xg.dtype, device=dev)
         buf = buf.index_put((eid_s.reshape(-1), row.reshape(-1)), vals_in.reshape(-1, e),
                             accumulate=True)
+        from repro_torch.distributed.ctx import constrain
+
+        buf = constrain(buf, "moe_buf")
 
     with record_function("moe_experts"):
         hg = torch.bmm(buf, p["wg"])
@@ -144,6 +148,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, *, n_groups: int = 0) -> 
     assert t % g == 0, (t, g)
     t_g = t // g
     out = _moe_groups(x.reshape(g, t_g, e), p, cfg, capacity(t_g, cfg)).reshape(b, s, e)
+    from repro_torch.distributed.ctx import constrain
+
+    out = constrain(out, "resid")
     if cfg.n_shared_experts:
         out = out + swiglu(x, p["ws_g"], p["ws_u"], p["ws_d"])
     return out

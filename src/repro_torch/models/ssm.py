@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import init_dense, pdtype, rmsnorm
+from repro_torch.models.layers import init_const, init_dense, pdtype, rmsnorm
 
 
 def chunked_linear_recurrence(
@@ -135,9 +135,9 @@ def init_ssd(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
         "wB": init_dense(gen, (n_layers, e, h, n), ("layers", "embed", "heads", None), dt, device),
         "wC": init_dense(gen, (n_layers, e, h, n), ("layers", "embed", "heads", None), dt, device),
         "w_dt": init_dense(gen, (n_layers, e, h), ("layers", "embed", "heads"), dt, device),
-        "dt_bias": torch.zeros((n_layers, h), **f32),
-        "A_log": torch.zeros((n_layers, h), **f32),
-        "D": torch.ones((n_layers, h), **f32),
+        "dt_bias": init_const((n_layers, h), 0.0, ("layers", "heads"), **f32),
+        "A_log": init_const((n_layers, h), 0.0, ("layers", "heads"), **f32),
+        "D": init_const((n_layers, h), 1.0, ("layers", "heads"), **f32),
         "wo": init_dense(gen, (n_layers, h, dh, e), ("layers", "heads", "head_dim", "embed"), dt, device),
     }
 
@@ -202,9 +202,9 @@ def init_mlstm(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
     p = {nm: init_dense(gen, (n_layers, e, h, dh), heads, dt, device) for nm in ("wq", "wk", "wv")}
     p["w_i"] = init_dense(gen, (n_layers, e, h), ("layers", "embed", "heads"), dt, device)
     p["w_f"] = init_dense(gen, (n_layers, e, h), ("layers", "embed", "heads"), dt, device)
-    p["f_bias"] = torch.full((n_layers, h), 4.0, dtype=torch.float32, device=device)
+    p["f_bias"] = init_const((n_layers, h), 4.0, ("layers", "heads"), torch.float32, device)
     p["w_og"] = init_dense(gen, (n_layers, e, h, dh), heads, dt, device)
-    p["ln_out"] = torch.ones((n_layers, h * dh), dtype=dt, device=device)
+    p["ln_out"] = init_const((n_layers, h * dh), 1.0, ("layers", None), dt, device)
     p["wo"] = init_dense(gen, (n_layers, h, dh, e), ("layers", "heads", "head_dim", "embed"), dt, device)
     return p
 

@@ -9,8 +9,8 @@ slices here. ``block_groups`` is the reference's grouping (a MoE config's
 ``first_dense_layers`` form a dense group ``g0`` before the MoE group
 ``g1``), so parameter paths and cache paths are the same in both packages.
 ``n_groups`` is the MoE routing groups of every call (0: one per
-sequence). The vision prefix raises ``NotImplementedError`` (ROADMAP queue
-1, item 11); the encoder-decoder is ``models/encdec.py``.
+sequence). The vision prefix is a stack of patch embeddings before the
+tokens (``models/model.py``); the encoder-decoder is ``models/encdec.py``.
 
 Decode writes every cache in place, as ``gqa_decode`` writes k/v: a hybrid
 layer's SSD state and an mLSTM layer's matrix memory are copied into their
@@ -35,7 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import init_dense, init_embedding, pdtype, rmsnorm, swiglu
+from repro_torch.models.layers import init_const, init_dense, init_embedding, pdtype, rmsnorm, swiglu
 from repro_torch.utils import flatten_with_paths
 
 _LATER = "is not ported yet (ROADMAP queue 1, item 11: models and training)"
@@ -65,9 +65,6 @@ def block_groups(cfg: ArchConfig) -> list[tuple[str, int, str, str]]:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.vision_prefix:
-        raise NotImplementedError(f"{cfg.name}: the vision prefix is not ported yet "
-                                  "(ROADMAP queue 1, item 11: next slices, item 3)")
     if cfg.encdec:
         return  # models/encdec.py: its own blocks
     for _, _, mixer, ffn in block_groups(cfg):
@@ -102,10 +99,10 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[str, A
     params: dict[str, Any] = {"embed": init_embedding(gen, cfg, device)}
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(gen, cfg, device)
-    params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+    params["final_norm"] = init_const((cfg.d_model,), 1.0, ("embed",), dt, device)
     params["blocks"] = {}
     for gname, n, mixer, ffn in block_groups(cfg):
-        bp = {"ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device)}
+        bp = {"ln1": init_const((n, cfg.d_model), 1.0, ("layers", "embed"), dt, device)}
         if mixer in ("gqa", "hybrid"):
             bp["attn"] = attn.init_gqa(gen, cfg, n, device)
         if mixer == "mla":
@@ -115,7 +112,7 @@ def init_lm(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[str, A
         if mixer == "mlstm":
             bp["mlstm"] = ssm_mod.init_mlstm(gen, cfg, n, device)
         if ffn != "none":
-            bp["ln2"] = torch.ones((n, cfg.d_model), dtype=dt, device=device)
+            bp["ln2"] = init_const((n, cfg.d_model), 1.0, ("layers", "embed"), dt, device)
             bp["ffn"] = _init_ffn(gen, cfg, n, ffn, device)
         params["blocks"][gname] = bp
     return params
@@ -248,11 +245,14 @@ def _stack_layers(trees: list) -> Any:
 
 def forward_train(params, x, cfg: ArchConfig, *, n_groups: int = 0):
     """x: (B, S, E) embedded inputs -> final hidden (B, S, E)."""
+    from repro_torch.distributed.ctx import constrain
+
+    x = constrain(x, "resid")
     for gname, n, mixer, ffn in block_groups(cfg):
         body = _remat(functools.partial(block_train, cfg=cfg, mixer=mixer, ffn=ffn,
                                         n_groups=n_groups), cfg)
         for pl in _unbind_layers(params["blocks"][gname], n):
-            x = body(pl, x)
+            x = constrain(body(pl, x), "resid")
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -49,6 +49,16 @@ def init_opt_state(params: Any, cfg: AdamWConfig) -> dict:
     }
 
 
+def opt_axes(param_axes: Any) -> dict:
+    """Logical axes for the optimizer state (mirrors the param axes)."""
+    return {
+        "mu": param_axes,
+        "nu": param_axes,
+        "master": param_axes,
+        "count": (),
+    }
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, leaves summed
     in path order."""
@@ -57,6 +67,40 @@ def global_norm(tree: Any) -> torch.Tensor:
         sq = torch.sum(torch.square(x.float()))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def adamw_scalars(gnorm: torch.Tensor, count: torch.Tensor, cfg: AdamWConfig):
+    """(clip scale, 1 - b1^t, 1 - b2^t) of a step; ``count`` already
+    advanced to t."""
+    clip = gnorm.new_tensor(cfg.clip_norm) / torch.clamp(gnorm, min=1e-9)
+    scale = torch.clamp(clip, max=1.0)
+    cf = count.float()
+    return scale, 1.0 - torch.pow(cfg.b1, cf), 1.0 - torch.pow(cfg.b2, cf)
+
+
+@torch.no_grad()
+def adamw_leaf(g, mu, nu, master, scale, c1, c2, lr, cfg: AdamWConfig) -> None:
+    """One leaf's update, in place on ``mu``, ``nu`` and ``master`` (any
+    block of the leaf, all four the same block)."""
+    g = g.float() * scale
+    mu32 = mu.float() * cfg.b1
+    mu32 += g * (1 - cfg.b1)
+    nu32 = nu.float() * cfg.b2
+    g2 = g * (1 - cfg.b2)
+    g2 *= g
+    nu32 += g2
+    del g2
+    step = mu32 / c1
+    den = nu32 / c2
+    den.sqrt_()
+    den += cfg.eps
+    step /= den
+    del den
+    step += master * cfg.weight_decay
+    step *= lr
+    master -= step
+    mu.copy_(mu32)
+    nu.copy_(nu32)
 
 
 @torch.no_grad()
@@ -80,31 +124,9 @@ def adamw_update(grads: Any, opt_state: dict, params: Any, lr, cfg: AdamWConfig)
         count = opt_state["count"]
         count += 1
         gnorm = global_norm(grads)
-        clip = gnorm.new_tensor(cfg.clip_norm) / torch.clamp(gnorm, min=1e-9)
-        scale = torch.clamp(clip, max=1.0)
-        cf = count.float()
-        c1 = 1.0 - torch.pow(cfg.b1, cf)
-        c2 = 1.0 - torch.pow(cfg.b2, cf)
+        scale, c1, c2 = adamw_scalars(gnorm, count, cfg)
         for path, g in g_flat.items():
-            mu, nu, master = mu_flat[path], nu_flat[path], m_flat[path]
-            g = g.float() * scale
-            mu32 = mu.float() * cfg.b1
-            mu32 += g * (1 - cfg.b1)
-            nu32 = nu.float() * cfg.b2
-            g2 = g * (1 - cfg.b2)
-            g2 *= g
-            nu32 += g2
-            del g2
-            step = mu32 / c1
-            den = nu32 / c2
-            den.sqrt_()
-            den += cfg.eps
-            step /= den
-            del den
-            step += master * cfg.weight_decay
-            step *= lr
-            master -= step
-            mu.copy_(mu32)
-            nu.copy_(nu32)
+            master = m_flat[path]
+            adamw_leaf(g, mu_flat[path], nu_flat[path], master, scale, c1, c2, lr, cfg)
             p_flat[path].copy_(master)
     return {"grad_norm": gnorm}

@@ -91,8 +91,9 @@ def _children(node: Any) -> list[tuple[str, Any]] | None:
 class TreeDef:
     """The structure of a flattened tree; :meth:`unflatten` rebuilds it."""
 
-    def __init__(self, tree: Any):
+    def __init__(self, tree: Any, is_leaf=None):
         self._tree = tree
+        self._is_leaf = is_leaf
         self.paths: list[str] = []
 
     @property
@@ -100,7 +101,7 @@ class TreeDef:
         return len(self.paths)
 
     def unflatten(self, flat: dict[str, Any]) -> Any:
-        return _unflatten(self._tree, "", flat)
+        return _unflatten(self._tree, "", flat, self._is_leaf)
 
 
 # The walks are module-level functions, not closures that call themselves: a
@@ -109,16 +110,17 @@ class TreeDef:
 # garbage collector runs.
 
 
-def _unflatten(node: Any, path: str, flat: dict[str, Any]) -> Any:
-    if node is None:
+def _unflatten(node: Any, path: str, flat: dict[str, Any], is_leaf=None) -> Any:
+    leaf = is_leaf is not None and is_leaf(node)
+    if node is None and not leaf:
         return None
-    kids = _children(node)
+    kids = None if leaf else _children(node)
     if kids is None:
         key = path or "."
         if key not in flat:
             raise KeyError(f"missing leaf {key!r} during unflatten")
         return flat[key]
-    built = {k: _unflatten(v, f"{path}/{k}" if path else k, flat) for k, v in kids}
+    built = {k: _unflatten(v, f"{path}/{k}" if path else k, flat, is_leaf) for k, v in kids}
     if isinstance(node, dict):
         return type(node)((k, built[str(k)]) for k in node)
     if _is_namedtuple(node):
@@ -127,10 +129,12 @@ def _unflatten(node: Any, path: str, flat: dict[str, Any]) -> Any:
     return tuple(items) if isinstance(node, tuple) else items
 
 
-def _flatten_into(node: Any, path: str, flat: dict[str, Any], paths: list[str]) -> None:
-    if node is None:
+def _flatten_into(node: Any, path: str, flat: dict[str, Any], paths: list[str],
+                  is_leaf=None) -> None:
+    leaf = is_leaf is not None and is_leaf(node)
+    if node is None and not leaf:
         return
-    kids = _children(node)
+    kids = None if leaf else _children(node)
     if kids is None:
         key = path or "."
         if key in flat:
@@ -139,15 +143,23 @@ def _flatten_into(node: Any, path: str, flat: dict[str, Any], paths: list[str]) 
         paths.append(key)
         return
     for k, v in kids:
-        _flatten_into(v, f"{path}/{k}" if path else k, flat, paths)
+        _flatten_into(v, f"{path}/{k}" if path else k, flat, paths, is_leaf)
 
 
-def flatten_with_paths(tree: Any) -> tuple[dict[str, Any], TreeDef]:
-    """Flatten ``tree`` to ``{path: leaf}`` plus the treedef for unflattening."""
-    treedef = TreeDef(tree)
+def flatten_with_paths(tree: Any, is_leaf=None) -> tuple[dict[str, Any], TreeDef]:
+    """Flatten ``tree`` to ``{path: leaf}`` plus the treedef for unflattening.
+    ``is_leaf(node)`` true stops the walk at ``node`` (``None`` included),
+    as ``jax.tree_util``'s ``is_leaf`` does."""
+    treedef = TreeDef(tree, is_leaf)
     flat: dict[str, Any] = {}
-    _flatten_into(tree, "", flat, treedef.paths)
+    _flatten_into(tree, "", flat, treedef.paths, is_leaf)
     return flat, treedef
+
+
+def unflatten_from_paths(treedef: TreeDef, flat: dict[str, Any]) -> Any:
+    """Inverse of :func:`flatten_with_paths`: every leaf path of ``treedef``
+    must be in ``flat``."""
+    return treedef.unflatten(flat)
 
 
 def tree_map(fn, tree: Any) -> Any:

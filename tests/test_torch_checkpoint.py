@@ -117,8 +117,25 @@ def test_partial_restore_equals_reference(tmp_path, writer, cas):
     every = load_arrays(tmp_path, "c")
     assert sorted(every) == sorted(jser.load_arrays(tmp_path, "c"))
     assert all(t.device.type == "cpu" for t in every.values())
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        load_arrays(tmp_path, "c", paths=["i32"], shardings={"i32": None})
+    # a sharded partial restore on a 1x1 mesh (a gloo group of one, here):
+    # DTensors whose blocks are the whole arrays; a path the mapping gives
+    # no sharding lands on ``device``
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.group import free_port, in_group
+    from repro_torch.distributed.sharding import NamedSharding, P
+
+    with in_group(0, 1, free_port(), "cpu", 60):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        sh = {"i32": NamedSharding(mesh, P("data", None)), "scalar0d": NamedSharding(mesh, P())}
+        got = load_arrays(tmp_path, "c", paths=["i32", "scalar0d", "bf16"], shardings=sh,
+                          device="cpu")
+        assert isinstance(got["i32"], DTensor) and isinstance(got["scalar0d"], DTensor)
+        assert not isinstance(got["bf16"], DTensor)
+        for k in ("i32", "scalar0d"):
+            assert _as_bytes(got[k].to_local()) == _as_bytes(ref[k]), k
+        assert _as_bytes(got["i32"].full_tensor()) == _as_bytes(ref["i32"])
 
 
 def test_jax_sharded_cmi_restores_onto_one_device(tmp_path):

@@ -122,6 +122,7 @@ _FLASH_CASES = [
     (4, 6, 6, 2048, 1500, 64, False, 0, "bfloat16"),  # whisper-tiny's cross attention
     (4, 6, 6, 2048, 2048, 64, True, 0, "bfloat16"),  # whisper-tiny's decoder
     (1, 6, 6, 100, 1500, 64, False, 0, "bfloat16"),
+    (1, 64, 8, 2304, 2304, 128, True, 0, "bfloat16"),  # internvl2-76b's prefill: 256 + 2048, G 8
 ]
 
 
@@ -474,6 +475,41 @@ def test_moe_serve_and_train_on_the_card(dev, tmp_path):
         losses[name] = [r["loss"] for r in map(json.loads, metrics.read_text().splitlines())
                         if r["event"] == "step"]
     assert digests["a"] == digests["b"] and losses["a"] == losses["b"] and len(losses["a"]) == 4
+
+
+def test_one_rank_cuda_mesh_equals_no_mesh(dev, tmp_path):
+    """The Fig. 7 launcher on a 1×1 ``("data", "model")`` cuda mesh (an NCCL
+    group of one) reclaimed at step 2 and resumed (``--remesh 1x1,1x1``):
+    every step loss and every chunk digest of its final CMI equal the run
+    without a mesh; the CMI records ``mesh_shape [1, 1]``."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core import JobStore
+
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    digests, losses, records = {}, {}, {}
+    for name, extra in (("none", []), ("mesh", ["--remesh", "1x1,1x1", "--preempt-at", "2"])):
+        store, metrics = tmp_path / name, tmp_path / f"{name}.jsonl"
+        subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-1.7b",
+                        "--smoke", "--device", "cuda", "--steps", "4", "--publish-every", "2",
+                        "--seq-len", "64", "--batch", "4", "--store", str(store),
+                        "--metrics", str(metrics), *extra], env=env, check=True, timeout=600)
+        js = JobStore(store)
+        (job_id, _), = js.svc_list_jobs()
+        man = load_manifest(js.cmi_root(job_id), js.read_job(job_id).cmi)
+        digests[name] = {p: [c.hash for c in e.chunks] for p, e in man.arrays.items()}
+        records[name] = man.arrays["params/embed"].sharding
+        losses[name] = [r["loss"] for r in map(json.loads, metrics.read_text().splitlines())
+                        if r["event"] == "step"]
+    assert digests["none"] == digests["mesh"] and losses["none"] == losses["mesh"]
+    assert len(losses["none"]) == 4 and records["none"] is None
+    assert records["mesh"].mesh_shape == [1, 1]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,464 @@
+"""The port's mesh half on gloo process groups (CPU ranks), against the JAX
+package on forced host devices.
+
+* CMIs cross between the packages and between meshes bit for bit: the JAX
+  package writes on a 4×2 mesh (8 host devices, in a subprocess), the port
+  restores on a 2×2 torch mesh (each rank reading its own shards, the
+  specs remapped) and on no mesh; the port writes on 2×2 (ranks send their
+  shards to rank 0), the JAX package restores that on 4×2. The port's
+  sharding records, chunk slices and chunk digests equal the JAX
+  package's for the same state on the same mesh; a replicated array is
+  written once.
+* The 2×2 train step agrees with the reference's ``Model.loss(...,
+  n_groups=2)`` and ``adamw_update`` on unsharded inputs, in float32, to
+  1e-5 of each compared tensor's largest magnitude (a data-parallel sum
+  adds in another order than one device does), for qwen3 and granite.
+* The launcher's elastic restart: ``--remesh 2x2,2x1`` with a reclaim
+  resumes from a state bitwise the published one and goes on within 1e-5
+  of an uninterrupted 2×2 run; ``--remesh 2x2,2x2`` ends bitwise equal to
+  it; a one-rank mesh equals no mesh bit for bit.
+* ``sharding_context``/``constrain`` redistribute a DTensor activation to
+  the placements installed for its kind.
+
+One 4-rank group runs every in-group check (module fixture); each group
+and subprocess has its own deadline, so a hang fails in seconds.
+"""
+
+import json
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint import load_manifest
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import JobStore
+from repro_torch.core.cmi import restore_cmi, save_cmi, snapshot_to_host
+from repro_torch.distributed.group import check_devices, run_ranks
+from repro_torch.distributed.sharding import NamedSharding, P, distribute, sharding_of
+from repro_torch.launch import train as launch_train
+
+GROUP_TIMEOUT_S = 120
+TRAIN_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m")
+
+# Arrays and their specs, the same in both packages: sharded on one and two
+# axes, a two-axis entry, replicated (written once), bf16 and int32.
+SPECS = {"w": ("data", "model"), "e": (None, "model"), "x": (),
+         "y": (("data", "model"), None), "b": ("model", None), "i": ("data", None)}
+
+
+def _arrays():
+    rng = np.random.default_rng(0)
+    return {"w": rng.standard_normal((16, 8)).astype(np.float32),
+            "e": rng.standard_normal((8, 12)).astype(np.float32),
+            "x": np.arange(1024, dtype=np.float32),
+            "y": rng.standard_normal((16, 4)).astype(np.float32),
+            "b": (rng.standard_normal((8, 6)).astype(np.float32).view(np.uint32) >> 16)
+            .astype(np.uint16),  # bf16 bits
+            "i": rng.integers(0, 100, (4, 8)).astype(np.int32)}
+
+
+JAX_WRITE = r"""
+import sys, jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+sys.path.insert(0, {tests!r})
+from test_torch_mesh import SPECS, _arrays
+from repro.configs import get_smoke_config
+from repro.core.cmi import save_cmi
+from repro.distributed.steps import make_init_fn
+from repro.optim import AdamWConfig
+
+root = {root!r}
+arrays = _arrays()
+arrays["b"] = arrays["b"].view(jnp.bfloat16)
+
+def place(mesh):
+    st = {{k: jax.device_put(v, NamedSharding(mesh, P(*SPECS[k]))) for k, v in arrays.items()}}
+    st["step"] = 7
+    return st
+
+mesh42 = jax.make_mesh((4, 2), ("data", "model"))
+mesh22 = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+save_cmi(root, "jax42", place(mesh42), step=7)
+save_cmi(root, "jax22", place(mesh22), step=7)
+cfg = get_smoke_config("qwen3-1.7b")
+for name, mesh in (("jax42_train", mesh42), ("jax22_train", mesh22)):
+    init_fn, _ = make_init_fn(cfg, mesh, AdamWConfig())
+    save_cmi(root, name, init_fn(), step=0)
+print("JAX_WRITE_OK")
+"""
+
+JAX_READ = r"""
+import sys, jax, jax.numpy as jnp, numpy as np
+from jax.sharding import PartitionSpec as P
+sys.path.insert(0, {tests!r})
+from test_torch_mesh import SPECS, _arrays
+from repro.core.cmi import restore_cmi
+
+root = {root!r}
+arrays = _arrays()
+mesh42 = jax.make_mesh((4, 2), ("data", "model"))
+got, man = restore_cmi(root, "torch22", mesh=mesh42)
+assert man.step == 7 and got["step"] == 7
+for k, want in arrays.items():
+    g = np.asarray(got[k])
+    g = g.view(np.uint16) if k == "b" else g
+    assert g.tobytes() == want.tobytes(), k
+    assert got[k].sharding.mesh.devices.shape == (4, 2)
+assert got["w"].sharding.spec == P("data", "model")
+assert got["y"].sharding.spec == P(("data", "model"), None)
+assert got["x"].sharding.spec == P(None)
+full, _ = restore_cmi(root, "jax42_train", mesh=None)
+mine, _ = restore_cmi(root, "torch22_train", mesh=mesh42)
+fl, ml = jax.tree_util.tree_leaves(full), jax.tree_util.tree_leaves(mine)
+assert len(fl) == len(ml) > 10
+for a, b in zip(fl, ml):
+    assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+print("JAX_READ_OK")
+"""
+
+
+def _group_checks(rank: int, root: str, step_inputs: str) -> dict:
+    """Every in-group check on a 2×2 ``("data", "model")`` mesh of 4 gloo
+    ranks; rank 0 returns what the tests assert."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.steps import (make_train_step, train_state_from_numpy,
+                                               train_state_shardings)
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils import flatten_with_paths
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    arrays = _arrays()
+    out: dict = {"rank": rank}
+    debug = make_debug_mesh(n_model=2, device_type="cpu")
+    out["debug_mesh"] = (tuple(debug.shape), tuple(debug.mesh_dim_names))
+    out["debug_mesh_1"] = tuple(make_debug_mesh(device_type="cpu").shape)
+
+    def t(k, v):
+        x = torch.from_numpy(v)
+        return x.view(torch.bfloat16) if k == "b" else x
+
+    # (1) the JAX package's 4x2 CMI on this 2x2 mesh, each rank its blocks
+    state, man = restore_cmi(root, "jax42", mesh=mesh)
+    out["jax42_specs"] = {k: tuple(sharding_of(state[k]).spec) for k in arrays}
+    out["jax42_step"] = (man.step, state["step"])
+    bad = []
+    for k, v in arrays.items():
+        dt = state[k]
+        sh = sharding_of(dt)
+        block = sh.shard_index(v.shape, tuple(mesh.get_coordinate()))
+        want = t(k, v)[tuple(slice(a, b) for a, b in block)]
+        if not (isinstance(dt, DTensor) and torch.equal(dt.to_local(), want)
+                and torch.equal(dt.full_tensor(), t(k, v))):
+            bad.append(k)
+    out["jax42_bad"] = bad
+    full, _ = restore_cmi(root, "jax42", device="cpu")  # no mesh: whole tensors
+    out["jax42_nomesh_bad"] = [k for k, v in arrays.items()
+                               if full[k].device.type != "cpu" or not torch.equal(full[k], t(k, v))]
+
+    # (2) the same arrays written by the port on 2x2: shards gathered to rank 0
+    tstate = {k: distribute(t(k, v), NamedSharding(mesh, P(*SPECS[k])))
+              for k, v in arrays.items()}
+    tstate["step"] = 7
+    host = snapshot_to_host(tstate)
+    if rank == 0:
+        save_cmi(root, "torch22", host, step=7)
+    else:
+        out["others_get_none"] = all(host[k] is None for k in arrays)
+
+    # (3) the JAX package's 4x2 train state on 2x2, bitwise, then re-pinned to
+    # the port's rules and written as the port's 2x2 train-state CMI
+    cfg = get_smoke_config("qwen3-1.7b")
+    ts, _ = restore_cmi(root, "jax42_train", mesh=mesh)
+    whole, _ = restore_cmi(root, "jax42_train", device="cpu")
+    tflat, wflat = flatten_with_paths(ts)[0], flatten_with_paths(whole)[0]
+    out["train_bad"] = [k for k in wflat if not torch.equal(tflat[k].full_tensor(), wflat[k])]
+    out["train_n"] = len(wflat)
+    ts = place_tree(ts, train_state_shardings(cfg, AdamWConfig(), mesh))
+    host = snapshot_to_host(ts)
+    if rank == 0:
+        save_cmi(root, "torch22_train", host, step=0)
+
+    # (4) one sharded train step a model, against the reference's numbers
+    with open(step_inputs, "rb") as f:
+        cases = pickle.load(f)
+    out["steps"] = {}
+    for arch, case in cases.items():
+        cfg = get_smoke_config(arch).with_(dtype="float32")
+        opt_cfg = AdamWConfig()
+        st = train_state_from_numpy(case["state"], cfg, opt_cfg, mesh=mesh)
+        step_fn = make_train_step(cfg, opt_cfg, mesh=mesh, **case["sched"])
+        batch = {k: torch.from_numpy(v).long() for k, v in case["batch"].items()}
+        st, m = step_fn(st, batch)
+        new = {k: v.full_tensor().numpy() for k, v in flatten_with_paths(
+            {"params": st["params"], "opt": st["opt"]})[0].items()}
+        out["steps"][arch] = {"new": new, "loss": float(m["loss"]), "lr": float(m["lr"]),
+                              "grad_norm": float(m["grad_norm"]),
+                              "step": int(st["step"].to_local())}
+
+    # (5) sharding_context: a DTensor activation comes back with the
+    # placements installed for its kind; a plain tensor, a kind with none
+    # installed and anything outside the context come back as they are
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.ctx import constrain, sharding_context
+    from repro_torch.distributed.sharding import local_block
+
+    resid = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
+    x = distribute(resid, NamedSharding(mesh, P("data", None, None)))
+    want = NamedSharding(mesh, P("data", None, "model"))
+    with sharding_context({"resid": want}):
+        y = constrain(x, "resid")
+        same = [constrain(resid, "resid") is resid, constrain(x, "moe_buf") is x]
+    same.append(constrain(x, "resid") is x)
+    out["ctx"] = {"placements": list(y.placements) == [Shard(0), Shard(2)],
+                  "spec": tuple(sharding_of(y).spec),
+                  "local": torch.equal(y.to_local(), local_block(resid, want)),
+                  "full": torch.equal(y.full_tensor(), resid), "same": same}
+    dist.barrier()
+    return out
+
+
+@pytest.fixture(scope="module")
+def crossed(tmp_path_factory):
+    """The JAX package's CMIs, the group's checks and the port's CMIs, and
+    the reference's step numbers they are held to."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import Model as JModel
+    from repro.optim.adamw import AdamWConfig as JAdamW
+    from repro.optim.adamw import adamw_update as jax_adamw
+    from repro.optim.adamw import init_opt_state as jax_init_opt
+    from repro.optim.schedules import warmup_cosine as jax_warmup
+    from repro.utils import flatten_with_paths as jax_flatten
+
+    from conftest import run_python as subproc
+
+    root = tmp_path_factory.mktemp("cmis")
+    tests = str(__import__("pathlib").Path(__file__).parent)
+    assert "JAX_WRITE_OK" in subproc(JAX_WRITE.format(root=str(root), tests=tests), devices=8,
+                                     timeout=GROUP_TIMEOUT_S)
+    sched = {"peak_lr": 3e-3, "warmup": 5, "total_steps": 10}
+    cases, want = {}, {}
+    for arch in TRAIN_ARCHS:
+        jcfg = jax_smoke_config(arch).with_(dtype="float32")
+        jm = JModel(jcfg)
+        params, _ = jm.init(jax.random.PRNGKey(1))
+        opt = jax_init_opt(params, JAdamW())
+        rng = np.random.default_rng(3)
+        batch = {k: rng.integers(0, jcfg.vocab, (4, 12)).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        batch["labels"][0, :5] = -1  # unequal valid labels across the shards
+        state = {"params": params, "opt": opt, "step": jnp.asarray(3, jnp.int32),
+                 "rng": jnp.asarray([0, 1], jnp.uint32),
+                 "data": {"data_step": jnp.asarray(3, jnp.int32),
+                          "seed": jnp.asarray(0, jnp.int32)}}
+        loss, grads = jax.value_and_grad(
+            lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()}, n_groups=2)
+        )(params)
+        lr = jax_warmup(state["step"], total=sched["total_steps"], warmup=sched["warmup"],
+                        peak_lr=sched["peak_lr"])
+        new_p, new_o, om = jax_adamw(grads, opt, params, lr, JAdamW())
+        cases[arch] = {"state": jax.tree_util.tree_map(np.array, state), "batch": batch,
+                       "sched": sched}
+        want[arch] = {"loss": float(loss), "lr": float(lr), "grad_norm": float(om["grad_norm"]),
+                      "new": {k: np.asarray(v) for k, v in
+                              jax_flatten({"params": new_p, "opt": new_o})[0].items()}}
+    inputs = root / "step_inputs.pkl"
+    inputs.write_bytes(pickle.dumps(cases))
+    out = run_ranks(_group_checks, 4, args=(str(root), str(inputs)),
+                    timeout_s=GROUP_TIMEOUT_S, threads=2)
+    jax_read = subproc(JAX_READ.format(root=str(root), tests=tests), devices=8,
+                       timeout=GROUP_TIMEOUT_S)
+    return {"root": root, "ranks": out, "want": want, "jax_read": jax_read}
+
+
+def test_jax_cmi_restores_on_a_torch_2x2_mesh_and_on_no_mesh(crossed):
+    """Written on 4×2 by the JAX package: on 2×2 every rank holds its block
+    of every array (and the gathered whole), the specs remapped by axis
+    name; on no mesh, whole tensors; all bitwise."""
+    for r in crossed["ranks"]:
+        assert r["jax42_bad"] == [] and r["jax42_nomesh_bad"] == []
+        assert r["jax42_step"] == (7, 7)
+        assert r["jax42_specs"] == {"w": ("data", "model"), "e": (None, "model"),
+                                    "x": (None,), "y": (("data", "model"), None),
+                                    "b": ("model", None), "i": ("data", None)}
+        assert r["train_bad"] == [] and r["train_n"] > 10
+        assert r["debug_mesh"] == ((2, 2), ("data", "model")) and r["debug_mesh_1"] == (4, 1)
+
+
+def test_torch_cmi_records_and_chunks_equal_jax_and_restore_in_jax(crossed):
+    """Written by the port on 2×2 (ranks send their shards to rank 0): the
+    JAX package restores it on 4×2 bitwise (arrays and the re-pinned train
+    state); its sharding records, chunk slices and digests equal the JAX
+    package's 2×2 CMI of the same state, array for array; the replicated
+    array is written once and a sharded one's chunks tile it."""
+    assert "JAX_READ_OK" in crossed["jax_read"]
+    assert all(r.get("others_get_none", True) for r in crossed["ranks"])
+    root = crossed["root"]
+    for mine, theirs in (("torch22", "jax22"), ("torch22_train", "jax22_train")):
+        a, b = load_manifest(root, mine), load_manifest(root, theirs)
+        assert sorted(a.arrays) == sorted(b.arrays)
+        for path, ea in a.arrays.items():
+            eb = b.arrays[path]
+            assert (ea.shape, ea.dtype, ea.sharding) == (eb.shape, eb.dtype, eb.sharding), path
+            assert [(c.slice, c.hash) for c in ea.chunks] == \
+                [(c.slice, c.hash) for c in eb.chunks], path
+    man = load_manifest(root, "torch22")
+    x = man.arrays["x"]
+    assert x.sharding.pspec == [] and x.sharding.mesh_shape == [2, 2]
+    assert [c.slice for c in x.chunks] == [[[0, 1024]]]  # one copy, not four
+    slices = sorted(tuple(map(tuple, c.slice)) for c in man.arrays["y"].chunks)
+    assert [s[0] for s in slices] == [(0, 4), (4, 8), (8, 12), (12, 16)]
+    assert man.arrays["y"].sharding.pspec == [["data", "model"], None]
+    assert load_manifest(root, "torch22_train").arrays["opt/mu/embed"].sharding.pspec == \
+        ["model", "data"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_sharded_train_step_equals_reference(crossed, arch):
+    """One step on 2×2 (float32, two routing groups = the two data shards,
+    unequal valid labels) against the reference's unsharded step: the
+    global-mean loss, the learning rate, the global gradient norm and the
+    moments (linear and quadratic in the summed gradient) within 1e-5 of
+    each max. AdamW's first update divides each moment by its own root, so
+    a gradient near 0, whose float32 sum over the shards has a large
+    relative error, moves its weight by up to lr either way: params and
+    master weights are within 1e-5 of each max wherever the reference's
+    gradient is above 1e-3 of its largest, and within 2 lr everywhere (the
+    unsharded step's own criterion, ``test_torch_train.py``). Every rank
+    ends with the same numbers."""
+    want = crossed["want"][arch]
+    got = [r["steps"][arch] for r in crossed["ranks"]]
+    lr = want["lr"]
+    for g in got:
+        assert g["step"] == 4
+        assert g["loss"] == pytest.approx(want["loss"], rel=1e-5)
+        assert g["lr"] == pytest.approx(lr, rel=1e-6)
+        assert g["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-5)
+        assert sorted(g["new"]) == sorted(want["new"])
+        for k, w in want["new"].items():
+            w, x = np.asarray(w, np.float32), g["new"][k].astype(np.float32)
+            err = np.abs(x - w)
+            if k.startswith(("opt/mu", "opt/nu")) or k == "opt/count":
+                assert err.max() <= 1e-5 * max(np.abs(w).max(), 1e-12), k
+                continue
+            assert err.max() <= 2 * lr, k
+            leaf = k.removeprefix("params/").removeprefix("opt/master/")
+            mu = np.abs(np.asarray(want["new"]["opt/mu/" + leaf], np.float32))
+            firm = mu > 1e-3 * mu.max()
+            assert firm.mean() > 0.5, k
+            assert err[firm].max() <= 1e-5 * max(np.abs(w).max(), 1e-12), k
+    for g in got[1:]:
+        assert all(np.array_equal(g["new"][k], got[0]["new"][k]) for k in g["new"])
+
+
+def test_sharding_context_redistributes_a_dtensor_activation(crossed):
+    """``constrain(x, "resid")`` inside ``sharding_context`` gives the
+    residual stream, sharded over data only, the installed placements
+    (data on dim 0, model on dim 2): each rank holds its block of the same
+    tensor. A plain tensor, a kind with nothing installed, and a call
+    outside the context return their input itself."""
+    for r in crossed["ranks"]:
+        c = r["ctx"]
+        assert c["placements"] and c["spec"] == ("data", None, "model")
+        assert c["local"] and c["full"] and c["same"] == [True, True, True]
+
+
+# ---------------------------------------------------------------------------
+# the launcher: --mesh and --remesh
+# ---------------------------------------------------------------------------
+
+ARCH = "qwen3-1.7b"
+
+
+def _run(tmp_path, name, *extra):
+    store, metrics = tmp_path / name, tmp_path / f"{name}.jsonl"
+    launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "4",
+                       "--publish-every", "2", "--seq-len", "16", "--batch", "4",
+                       "--log-every", "0", "--store", str(store), "--metrics", str(metrics),
+                       *extra])
+    js = JobStore(store)
+    (job_id, _), = js.svc_list_jobs()
+    return js, job_id, [json.loads(ln) for ln in metrics.read_text().splitlines()]
+
+
+def _steps(rec):
+    return [(r["step"], r["loss"]) for r in rec if r["event"] == "step"]
+
+
+def _digests(js, job_id, cmi=None):
+    man = load_manifest(js.cmi_root(job_id), cmi or js.read_job(job_id).cmi)
+    return man, {p: [c.hash for c in e.chunks] for p, e in man.arrays.items()}
+
+
+@pytest.fixture(scope="module")
+def uninterrupted(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("a22")
+    return _run(tmp, "a", "--mesh", "2x2")
+
+
+def test_remesh_onto_a_smaller_mesh_resumes_the_published_state(tmp_path, uninterrupted):
+    """Reclaimed at step 2 on 2×2, resumed on 2×1 (the spot market's
+    smaller instance): the state the second incarnation restored (remapped
+    onto 2×1, re-pinned) is bitwise the CMI published at the reclaim; every
+    later loss is within 1e-5 of the uninterrupted 2×2 run's, the final
+    loss finite; the CMIs record each incarnation's mesh."""
+    js, job_id, rec = _run(tmp_path, "c", "--remesh", "2x2,2x1", "--preempt-at", "2")
+    starts = [r for r in rec if r["event"] == "start"]
+    assert [(s["mesh"], s["resumed"], s["step"]) for s in starts] == \
+        [("2x2", False, 0), ("2x1", True, 2)]
+    published = next(r["cmi"] for r in rec if r["event"] == "publish" and r["step"] == 2)
+    state, _ = restore_cmi(js.cmi_root(job_id), published, device="cpu")
+    assert starts[1]["restored_digest"] == launch_train.state_digest(state)
+    man, _ = _digests(js, job_id, published)
+    assert man.arrays["opt/mu/embed"].sharding.mesh_shape == [2, 2]
+    final, _ = _digests(js, job_id)
+    assert final.arrays["opt/mu/embed"].sharding.mesh_shape == [2, 1]
+    _, _, rec_a = uninterrupted
+    got, want = _steps(rec), _steps(rec_a)
+    assert [s for s, _ in got] == [s for s, _ in want] == [1, 2, 3, 4]
+    for (_, g), (_, w) in zip(got, want):
+        assert g == pytest.approx(w, rel=1e-5)
+    assert np.isfinite(got[-1][1])
+    assert rec[-1]["incarnations"] == 2 and rec[-1]["mesh"] == ["2x2", "2x1"]
+
+
+def test_remesh_onto_the_same_mesh_is_bitwise_uninterrupted(tmp_path, uninterrupted):
+    """``--remesh 2x2,2x2`` reclaimed at step 2: every step loss and every
+    chunk digest of the final CMI equal the uninterrupted 2×2 run's."""
+    js, job_id, rec = _run(tmp_path, "b", "--remesh", "2x2,2x2", "--preempt-at", "2")
+    js_a, job_a, rec_a = uninterrupted
+    assert _steps(rec) == _steps(rec_a)
+    assert _digests(js, job_id)[1] == _digests(js_a, job_a)[1]
+    assert [r["resumed"] for r in rec if r["event"] == "start"] == [False, True]
+
+
+def test_one_rank_mesh_equals_no_mesh(tmp_path):
+    """A 1×1 mesh (a gloo group of one, in this process): every step loss
+    and every chunk digest of the final CMI equal the run without a mesh;
+    the CMI records ``mesh_shape [1, 1]`` and the rules' specs."""
+    js0, job0, rec0 = _run(tmp_path, "nomesh")
+    js1, job1, rec1 = _run(tmp_path, "mesh11", "--mesh", "1x1")
+    assert _steps(rec0) == _steps(rec1) and len(_steps(rec0)) == 4
+    man0, d0 = _digests(js0, job0)
+    man1, d1 = _digests(js1, job1)
+    assert d0 == d1
+    assert man0.arrays["params/embed"].sharding is None
+    rec = man1.arrays["params/embed"].sharding
+    assert (rec.mesh_shape, rec.mesh_axes, rec.pspec) == ([1, 1], ["data", "model"], [None, None])
+    assert man1.arrays["step"].sharding.pspec == []
+    with pytest.raises(RuntimeError, match="cards"):
+        check_devices("cuda", torch.cuda.device_count() + 1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _run(tmp_path, "cuda", "--mesh", "2x1", "--device", "cuda")

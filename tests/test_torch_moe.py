@@ -370,7 +370,7 @@ def test_train_step_routes_the_batch_as_one_group():
     ``moe_buf_shard`` raises."""
     jm, jparams, m, params = _models(capacity_factor=0.5)
     cfg = m.cfg
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="moe_buf_shard"):
         make_train_step(cfg, AdamWConfig(), moe_buf_shard=True)
     state = make_init_fn(cfg, AdamWConfig(), seed=0, device="cpu")()
     state["params"] = params

@@ -117,12 +117,16 @@ def test_token_pipeline_batches_bitwise_reference(seed, step):
 
 
 def test_token_pipeline_refuses_modality_stubs():
-    # the vision stub waits for its slice; whisper's audio frames are ported
-    # (tests/test_torch_encdec.py holds them bitwise against the reference's)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TokenPipeline(get_smoke_config("internvl2-76b"), 16, 2)
+    # both modality stubs are ported now, and a batch carries each config's
+    # own (tests/test_torch_encdec.py and test_torch_vision.py hold them
+    # bitwise against the reference's); a text-only config carries neither
+    vis = TokenPipeline(get_smoke_config("internvl2-76b"), 16, 2).batch_at(
+        {"data_step": 0, "seed": 0})[0]
+    assert sorted(vis) == ["labels", "tokens", "vis_embeds"]
     assert "enc_frames" in TokenPipeline(get_smoke_config("whisper-tiny"), 16, 2).batch_at(
         {"data_step": 0, "seed": 0})[0]
+    assert sorted(TokenPipeline(get_smoke_config(ARCH), 16, 2).batch_at(
+        {"data_step": 0, "seed": 0})[0]) == ["labels", "tokens"]
 
 
 @pytest.mark.parametrize("warmup,total", [(5, 30), (1, 4), (0, 10), (100, 10_000)])
@@ -347,8 +351,9 @@ def test_input_specs():
     assert dec["pos"] == TensorSpec((), torch.int32)
     assert dec["caches"]["g0"]["k"].shape == (cfg.n_layers, 128, 32768, cfg.n_kv_heads,
                                               cfg.resolved_head_dim)
-    with pytest.raises(NotImplementedError):
-        input_specs(get_smoke_config("internvl2-76b"), SHAPES["train_4k"])
+    vis = get_smoke_config("internvl2-76b")
+    assert input_specs(vis, SHAPES["train_4k"])["vis_embeds"] == \
+        TensorSpec((256, vis.vision_prefix, vis.d_model), torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +515,13 @@ def test_launcher_preempted_run_ends_bitwise_equal_to_uninterrupted(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2x1"], ["--remesh", "1x1,2x1"]])
 def test_launcher_refuses_meshes(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="multi-card slice"):
-        launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--store", str(tmp_path), *flags])
+    # meshes run now (tests/test_torch_mesh.py); what is refused is a cuda
+    # mesh without the cards for it: nothing falls back to the CPU
+    from repro_torch.distributed.group import check_devices
+
+    with pytest.raises(RuntimeError, match="cards"):
+        check_devices("cuda", torch.cuda.device_count() + 1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            launch_train.main(["--arch", ARCH, "--smoke", "--device", "cuda",
+                               "--store", str(tmp_path), *flags])
