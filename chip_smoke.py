@@ -28,6 +28,18 @@ with nvcc and prints one JSON line per phase:
              whisper-tiny's non-causal encoder (1,500 frames) and cross
              attention (2,048 tokens against 1,500 frames) and its decoder's
              causal self-attention (2,048 tokens, B 4, 6 heads)
+  dryrun     ``python -m repro_torch.launch.dryrun`` for qwen3-1.7b's
+             prefill_32k and decode_32k cells on the fake 16x16 cuda mesh
+             (subprocesses; per-device FLOPs, bytes, collectives, peak
+             memory), and each cell's per-device step run for real on a 1x1
+             NCCL mesh at full width and depth: prefill 2 x 32,768 tokens
+             (28 K3 launches, all tensor-core; logits and every cache leaf
+             bitwise ``Model.prefill``'s), decode 8 sequences over a
+             32,768-deep cache at pos 32,767 (logits bitwise
+             ``Model.decode``'s, the cache written only at pos); each real
+             step's counted FLOPs within 0.1 % of the dry run's; times,
+             TFLOP/s, bytes against the card's bound, peak memory beside the
+             dry run's
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
              through a transit CMI, preempted after the match publish and
              resumed; the product equals an uninterrupted run's
@@ -118,13 +130,16 @@ with nvcc and prints one JSON line per phase:
              2048 tokens: B reclaimed after step 2 and resumed bitwise A's,
              K3 with lse in every encoder, self and cross attention of the
              forward and its recompute; a profiled step in this process
+  examples   ``examples/torch_quickstart.py --device cuda`` in a process of
+             its own: reclaimed at step 17, resumed, the job finished
   disk       the bytes each phase wrote (``/proc/self/io`` where the kernel
              counts them, else the files left), held under 40 GiB: the chip
              machine takes at most 45 GiB of writes a call
 
 then the summary line ``{"kernels": [...]}`` with the launches each kernel
 made on its main paths (K1 and K2: the itinerary, publish and fabric phases,
-the fabric's counted inside the workers too; K3: the serve, serve_moe,
+the fabric's counted inside the workers too; K3: the vision and dryrun
+phases' prefills, the serve, serve_moe,
 serve_hybrid and serve_mla phases' ``main``, the serving workers' prefills
 and the training runs of the four attention models, each counted inside
 its launcher process), the nvidia-smi
@@ -194,6 +209,10 @@ ENCDEC_ARCH = "whisper-tiny"
 VISION_ARCH = "internvl2-76b"
 VISION_LAYERS = 8  # the prefill/decode model's depth cut (of 80); widths are the config's
 VISION_PROMPT, VISION_DECODE = 2048, 8  # tokens after the 256 patch embeddings; decode steps
+DRYRUN_ARCH = "qwen3-1.7b"
+DRYRUN_SHAPES = ("prefill_32k", "decode_32k")
+DRYRUN_DATA_RANKS = 16  # the 16x16 production mesh's data axis: a device's share of the batch
+DRYRUN_FLOPS_TOL = 1e-3  # the real step's counted FLOPs against the dry run's, relative
 
 
 def serve_argv(arch: str, prompt_len: int = PROMPT_LEN, layers: int = 0) -> list[str]:
@@ -616,14 +635,6 @@ def check_colocate(dev, state) -> dict:
     return {"name": "colocate", "cases": cases, "max_abs_err": max_err, **timing}
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the attention mask keeps: the work K3 must do."""
-    q = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def one_bf16_rounding(got: torch.Tensor, ref32: torch.Tensor) -> dict:
     """``got`` (bf16) is ``ref32`` (the plain version's float32 answer on
     the same bf16-exact inputs) rounded once: every element within
@@ -658,6 +669,8 @@ def k3_work(b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int, causal:
     (q, k, v read once, the output written once), the card's bound, and
     the tensor-core kernel's own floor (two PV products: 2 D + 4 Dv, 6 D
     where Dv = D)."""
+    from repro_torch.kernels.flash_attention.ops import visible_pairs
+
     pairs = visible_pairs(sq, sk, causal, window)
     flops = 2 * b * h * (d + dv) * pairs
     nbytes = (b * h * sq * (d + dv) + b * hkv * sk * (d + dv)) * element_size
@@ -687,7 +700,8 @@ def check_flash_attention(dev) -> dict:
     # whisper-tiny's three: its encoder (1,500 frames) and cross attention
     # (2,048 tokens against them), both non-causal, and its decoder's
     # causal self-attention (2,048 tokens); internvl2-76b's prefill (256
-    # patch embeddings + 2,048 tokens, 64 q / 8 kv heads: G = 8)
+    # patch embeddings + 2,048 tokens, 64 q / 8 kv heads: G = 8); the
+    # dryrun phase's per-device prefill_32k (2 sequences of 32,768)
     shapes = [(2, 4, 4, 128, 128, 64, 64, True, 0, "float32", None),
               (1, 8, 2, 257, 257, 64, 64, True, 0, "float32", None),
               (2, 4, 2, 200, 200, 128, 128, True, 64, "float32", None),
@@ -702,7 +716,8 @@ def check_flash_attention(dev) -> dict:
               (4, 6, 6, 1500, 1500, 64, 64, False, 0, "bfloat16", "whisper_encoder"),
               (4, 6, 6, 2048, 1500, 64, 64, False, 0, "bfloat16", "whisper_cross"),
               (4, 6, 6, 2048, 2048, 64, 64, True, 0, "bfloat16", "whisper_decoder"),
-              (1, 64, 8, 2304, 2304, 128, 128, True, 0, "bfloat16", "internvl2")]
+              (1, 64, 8, 2304, 2304, 128, 128, True, 0, "bfloat16", "internvl2"),
+              (2, 16, 8, 32768, 32768, 128, 128, True, 0, "bfloat16", "prefill_32k")]
     timed = {}
     for i, (b, h, hkv, sq, sk, d, dv, causal, window, dt, label) in enumerate(shapes):
         rng = np.random.default_rng(i)
@@ -784,7 +799,10 @@ def check_flash_attention(dev) -> dict:
             "at_whisper_decoder": {"shape": "q/k/v bf16[4,6,2048,64], causal",
                                    **{key: timed["whisper_decoder"][key] for key in more}},
             "at_internvl2": {"shape": "q bf16[1,64,2304,128], k/v bf16[1,8,2304,128], causal",
-                             **{key: timed["internvl2"][key] for key in more}}}
+                             **{key: timed["internvl2"][key] for key in more}},
+            "at_prefill_32k": {"shape": "q bf16[2,16,32768,128], k/v bf16[2,8,32768,128], "
+                                        "causal (qwen3-1.7b's prefill_32k, a device of 16x16)",
+                               **{key: timed["prefill_32k"][key] for key in more}}}
 
 
 # ---------------------------------------------------------------------------
@@ -2405,6 +2423,233 @@ def run_vision(dev) -> dict:
     }
 
 
+def start_dryrun(out: Path) -> list[subprocess.Popen]:
+    """``python -m repro_torch.launch.dryrun`` for each of
+    :data:`DRYRUN_SHAPES` at :data:`DRYRUN_ARCH` on the fake 16x16 cuda
+    mesh (a fake process group of 256 ranks; nothing runs on the card),
+    started now and read by :func:`finish_dryrun`."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                              DRYRUN_ARCH, "--shape", shape, "--out", str(out), "--force"],
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for shape in DRYRUN_SHAPES]
+
+
+def finish_dryrun(procs: list[subprocess.Popen], out: Path) -> dict:
+    """Each dry-run cell's record, its process ended with 0 and the cell
+    ``ok``."""
+    cells = {}
+    for shape, proc in zip(DRYRUN_SHAPES, procs):
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, (shape, log[-3000:])
+        rec = json.loads((out / f"{DRYRUN_ARCH}__{shape}__pod1.json").read_text())
+        assert rec["ok"] and rec["device"] == "cuda" and rec["mesh"] == "16x16", rec
+        cells[shape] = rec
+    return cells
+
+
+def _on_mesh(tree, shardings):
+    """``tree``'s tensors as DTensors on a 1x1 mesh, each sharing its
+    tensor's storage (every block of a 1x1 mesh is the whole tensor)."""
+    from repro_torch.distributed.sharding import from_local
+    from repro_torch.utils import flatten_with_paths
+
+    flat, treedef = flatten_with_paths(tree)
+    sh, _ = flatten_with_paths(shardings)
+    return treedef.unflatten({k: from_local(v, v.shape, sh[k]) for k, v in flat.items()})
+
+
+def _timed(fn) -> tuple:
+    """``(fn(), wall s, device ms)``: the host clock and CUDA events around
+    one call, synchronised."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def _counted_flops(fn) -> float:
+    from repro_torch.launch.hlo_stats import count
+
+    return count(fn)[1]["flops"]  # the step's outputs go with the tuple
+
+
+def _fill(spec, dev, seed: int) -> torch.Tensor:
+    """A cache leaf filled layer by layer from generators seeded ``seed +
+    i`` (so :func:`_fill_layer` can make any layer's values again)."""
+    t = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+    for i in range(spec.shape[0]):
+        _fill_layer(t[i], seed + i)
+    return t
+
+
+def _fill_layer(t: torch.Tensor, seed: int) -> torch.Tensor:
+    return t.normal_(generator=torch.Generator(t.device).manual_seed(seed))
+
+
+def run_dryrun(root: Path, dev) -> dict:
+    """The dry run on the fake 16x16 cuda mesh (two subprocesses, while the
+    card works), and its two qwen3-1.7b cells' per-device steps for real on
+    a 1x1 NCCL mesh (a group of one) at full width and depth, random
+    weights from seed 0:
+
+    * prefill_32k: ``make_prefill_step`` on 32 / 16 = 2 sequences of
+      32,768 tokens (K3 in every layer: its counts set to 0 just before,
+      read just after); its logits and every cache leaf bitwise
+      ``Model.prefill``'s without a mesh, on the same card;
+    * decode_32k: ``make_decode_step`` on 128 / 16 = 8 sequences over a
+      32,768-deep cache filled from seeded generators, at pos 32,767; its
+      logits bitwise ``Model.decode``'s, the cache written only at pos;
+
+    and each step's FLOPs, counted by ``launch.hlo_stats.StepCounter`` over
+    the real step, within 0.1 % of the dry run's per-device count. Times,
+    TFLOP/s, bytes against the card's bound, and peak memory against the
+    dry run's."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.group import free_port, in_group
+    from repro_torch.distributed.steps import make_decode_step, make_prefill_step
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.utils import flatten_with_paths, tree_nbytes
+
+    out_dir = root / "cells"
+    procs = start_dryrun(out_dir)
+    try:
+        cfg = get_config(DRYRUN_ARCH)
+        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                cfg.dtype) == (28, 2048, 16, 8, 128, "bfloat16"), cfg
+        pre, dec = (SHAPES[s] for s in DRYRUN_SHAPES)
+        pre = InputShape(pre.name, pre.seq_len, pre.global_batch // DRYRUN_DATA_RANKS, pre.kind)
+        dec = InputShape(dec.name, dec.seq_len, dec.global_batch // DRYRUN_DATA_RANKS, dec.kind)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Model(cfg)
+        params = model.init(torch.Generator(dev).manual_seed(0))
+        gen = torch.Generator(dev).manual_seed(1)
+        with in_group(0, 1, free_port(), "cuda", 600):
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            # prefill: counts from 0 just before, read just after
+            step, p_sh, _ = make_prefill_step(cfg, mesh, pre)
+            dparams = _on_mesh(params, p_sh)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (pre.global_batch, pre.seq_len),
+                                             generator=gen, device=dev, dtype=torch.int32)}
+            flash_attention.launches = flash_attention.wgmma_launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            (logits, caches), wall, dev_ms = _timed(lambda: step(dparams, batch))
+            launches = {"flash_attention": flash_attention.launches,
+                        "flash_attention_wgmma": flash_attention.wgmma_launches}
+            peak = torch.cuda.max_memory_allocated(dev)
+            assert launches == {"flash_attention": cfg.n_layers,
+                                "flash_attention_wgmma": cfg.n_layers}, launches
+            (want_l, want_c), ref_wall, ref_ms = _timed(
+                lambda: model.prefill(params, batch, pre.seq_len))
+            got_c, _ = flatten_with_paths(caches)
+            want_c, _ = flatten_with_paths(want_c)
+            assert torch.equal(logits.to_local(), want_l), "prefill logits differ from no mesh's"
+            assert sorted(got_c) == sorted(want_c)
+            for path, c in got_c.items():
+                assert torch.equal(c.to_local(), want_c[path]), f"prefill cache {path} differs"
+            cache_bytes, cache_leaves = tree_nbytes(want_c), sorted(got_c)
+            del logits, caches, want_l, want_c, got_c
+            steady = _timed(lambda: step(dparams, batch))  # warm: cuBLAS has seen the shapes
+            steady_wall, steady_ms = steady[1:]
+            del steady
+            flops = _counted_flops(lambda: step(dparams, batch))
+            prefill = {"shape": f"B{pre.global_batch} S{pre.seq_len} (prefill_32k / "
+                                f"{DRYRUN_DATA_RANKS} data ranks)",
+                       "wall_s": wall, "device_ms": dev_ms, "steady_wall_s": steady_wall,
+                       "steady_device_ms": steady_ms, "no_mesh_wall_s": ref_wall,
+                       "no_mesh_device_ms": ref_ms, "launches": launches,
+                       "bitwise_equal_no_mesh": {"logits": True, "caches": cache_leaves},
+                       "flops": flops, "tflops_per_s": flops / steady_ms / 1e9,
+                       "bf16_peak_share": flops / (steady_ms / 1e3) / BF16_FLOPS,
+                       "cache_bytes": cache_bytes, "max_memory_allocated": peak}
+            del batch
+            torch.cuda.empty_cache()
+
+            # decode: 8 sequences over a 32,768-deep cache, pos 32,767
+            step, _, c_sh = make_decode_step(cfg, mesh, dec)
+            specs, treedef = flatten_with_paths(model.cache_struct(dec.global_batch, dec.seq_len))
+            seeds = {path: 1000 * (j + 1) for j, path in enumerate(sorted(specs))}
+            caches = treedef.unflatten({k: _fill(s, dev, seeds[k]) for k, s in specs.items()})
+            dcaches = _on_mesh(caches, c_sh)
+            tokens = torch.randint(0, cfg.vocab, (dec.global_batch, 1), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            pos = dec.seq_len - 1
+            torch.cuda.reset_peak_memory_stats(dev)
+            (logits, _), wall, dev_ms = _timed(lambda: step(dparams, dcaches, tokens, pos))
+            dpeak = torch.cuda.max_memory_allocated(dev)
+            reps = [_timed(lambda: step(dparams, dcaches, tokens, pos))[1:] for _ in range(3)]
+            want_l, _ = model.decode(params, caches, tokens, pos)
+            assert torch.equal(logits.to_local(), want_l), "decode logits differ from no mesh's"
+            del logits, want_l
+            written = {}
+            for path, t in flatten_with_paths(caches)[0].items():
+                same = changed = True
+                for i in range(t.shape[0]):
+                    regen = _fill_layer(torch.empty_like(t[i]), seeds[path] + i)
+                    same &= (torch.equal(t[i][:, :pos], regen[:, :pos])
+                             and torch.equal(t[i][:, pos + 1:], regen[:, pos + 1:]))
+                    changed &= not torch.equal(t[i][:, pos], regen[:, pos])
+                    del regen
+                assert same and changed, (path, same, changed)
+                written[path] = f"only pos {pos}, every layer"
+            dflops = _counted_flops(lambda: step(dparams, dcaches, tokens, pos))
+            read = tree_nbytes(caches) + tree_nbytes(params)
+            med_ms = statistics.median([ms for _, ms in reps])
+            decode = {"shape": f"B{dec.global_batch} over {dec.seq_len} positions (decode_32k / "
+                               f"{DRYRUN_DATA_RANKS} data ranks), pos {pos}",
+                      "wall_s": wall, "device_ms": dev_ms,
+                      "steady_device_ms": [ms for _, ms in reps], "steady_wall_s":
+                      [w for w, _ in reps], "bitwise_equal_no_mesh": {"logits": True},
+                      "written": written, "flops": dflops,
+                      "bytes_read_bound": read, "bound_ms": read / HBM_BYTES_PER_S * 1e3,
+                      "bound_share": read / HBM_BYTES_PER_S * 1e3 / med_ms,
+                      "cache_bytes": tree_nbytes(caches), "max_memory_allocated": dpeak}
+            del caches, dcaches, dparams
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cells = finish_dryrun(procs, out_dir)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, real in (("prefill_32k", prefill), ("decode_32k", decode)):
+        cell = cells[name]
+        real["dryrun"] = {k: cell[k] for k in ("cost", "memory", "collectives", "trace_s",
+                                               "total_s")}
+        real["flops_rel_diff"] = abs(real["flops"] - cell["cost"]["flops"]) / cell["cost"]["flops"]
+        real["peak_over_dryrun_peak"] = (real["max_memory_allocated"]
+                                         / cell["memory"]["peak_memory_in_bytes"])
+        assert real["flops_rel_diff"] <= DRYRUN_FLOPS_TOL, (name, real["flops"], cell["cost"])
+    return {"arch": DRYRUN_ARCH, "mesh": "1x1 (data, model), cuda, nccl, world 1",
+            "dryrun_mesh": "16x16 fake cuda (256 ranks)", "prefill_32k": prefill,
+            "decode_32k": decode, "launches": prefill["launches"]}
+
+
+def run_quickstart() -> dict:
+    """``examples/torch_quickstart.py --device cuda`` (qwen3's smoke config
+    reclaimed at step 17 and resumed) in a process of its own."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "examples/torch_quickstart.py", "--device", "cuda"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    lines = proc.stdout.splitlines()
+    assert "quickstart: job finished after a reclaim at step 17" in lines, lines[-5:]
+    return {"seconds": seconds, "final_loss": next(ln for ln in lines if "final loss" in ln)}
+
+
 def run_mesh(root: Path, dev, no_mesh: dict) -> dict:
     """whisper-tiny through the launcher on a 1×1 ``("data", "model")`` cuda
     mesh, an NCCL group of one, at train_encdec's arguments, reclaimed at
@@ -2671,6 +2916,15 @@ def main() -> int:
         emit("vision", **vision, k3=k3["at_internvl2"], disk=disk.mark("vision", 0))
         del vision
 
+        # the dry run and its cells' per-device steps on a 1x1 mesh, the
+        # card nearly empty (the decode cell's cache is 30 GB); K3's counts
+        # from 0 just before the prefill step, read just after
+        dry = run_dryrun(work / "dryrun", dev)
+        by_path["dryrun"] = {"flash_attention": dry["launches"]["flash_attention"]}
+        emit("dryrun", **dry, k3=k3["at_prefill_32k"], nvidia_smi=smi,
+             disk=disk.mark("dryrun", dir_bytes(work / "dryrun")))
+        del dry
+
         # the main path: counts from 0 just before, read just after
         delta_ops.changed_blocks.launches = 0
         colocate_ops.colocate_match.launches = 0
@@ -2717,6 +2971,7 @@ def main() -> int:
         # the serve path: counts from 0 just before, read just after
         metrics, serve_launches, windows, _ = serve_counted(dev, SERVE_ARCH)
         launches["flash_attention"] = (by_path["vision"]["flash_attention"]
+                                       + by_path["dryrun"]["flash_attention"]
                                        + serve_launches["flash_attention"])
         by_path["serve"] = {"flash_attention": serve_launches["flash_attention"]}
         served = check_serve(metrics, dev)
@@ -2860,6 +3115,8 @@ def main() -> int:
         shutil.rmtree(work / "mesh", ignore_errors=True)
         del mesh
 
+        emit("examples", quickstart=run_quickstart(), disk=disk.mark("examples", 0))
+
         total = disk.total()
         emit("disk", phases=disk.phases, total_written_bytes=total, limit_bytes=DISK_WRITE_LIMIT)
         assert total < DISK_WRITE_LIMIT, (total, disk.phases)
@@ -2892,7 +3149,8 @@ def main() -> int:
                          "at_whisper_encoder": k["at_whisper_encoder"],
                          "at_whisper_cross": k["at_whisper_cross"],
                          "at_whisper_decoder": k["at_whisper_decoder"],
-                         "at_internvl2": k["at_internvl2"], "training": k3_train,
+                         "at_internvl2": k["at_internvl2"],
+                         "at_prefill_32k": k["at_prefill_32k"], "training": k3_train,
                          "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid,
                          "lse_new_shapes": k3_lse_new}
                         if name == "flash_attention" else {})})

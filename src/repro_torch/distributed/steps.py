@@ -1,7 +1,7 @@
-"""Step builders: init and train, on one device or on a ``DeviceMesh``.
+"""Step builders: init and train, on one device or on a ``DeviceMesh``;
+prefill and decode on a ``DeviceMesh``.
 
-Port of the JAX package's ``repro/distributed/steps.py`` (the sharded
-prefill and decode step builders are not ported yet). Training state
+Port of the JAX package's ``repro/distributed/steps.py``. Training state
 layout (a plain dict, CMI-serializable, the reference's paths and dtypes,
 so a train-state CMI crosses between the packages):
 
@@ -25,25 +25,39 @@ is the global mean, as the reference's. On a mesh whose batch axes have
 size 1 nothing is summed and every number is the unsharded step's.
 Tensor-parallel compute (placements kept through the layers) is later
 speed work.
+
+The serve steps (:func:`make_prefill_step`, :func:`make_decode_step`)
+compute the same way: the weights gathered, ``Model.prefill``/``decode``
+on the rank's batch block. Their caches are DTensors placed by
+``CACHE_RULES`` (batch over pod×data, seq over model): prefill keeps each
+rank's block of the caches it computed; decode gathers its batch block's
+caches along seq for the attention and writes the new position back into
+the shard that owns it. A mesh axis of size 1 moves nothing, so on a 1×1
+mesh both steps are ``Model.prefill``/``decode`` bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.distributed.sharding import (
+    CACHE_RULES,
     DEFAULT_RULES,
     OPT_RULES,
     NamedSharding,
     batch_axes,
+    axis_names,
+    axis_sizes,
     data_pspec,
     entry_axes,
     from_local,
     local_block,
+    mesh_coordinate,
     mesh_device,
     place_tree,
     redistribute,
@@ -51,6 +65,7 @@ from repro_torch.distributed.sharding import (
     sharding_of,
     tree_shardings,
 )
+from repro_torch.models import transformer as tf
 from repro_torch.models.model import Model, TensorSpec, tree_from_numpy
 from repro_torch.optim.adamw import (AdamWConfig, adamw_leaf, adamw_scalars, adamw_update,
                                      global_norm, init_opt_state, opt_axes)
@@ -73,6 +88,37 @@ def state_specs(cfg: ArchConfig, opt_cfg: AdamWConfig) -> dict[str, Any]:
         "rng": TensorSpec((2,), torch.uint32),
         "data": {"data_step": i32, "seed": i32},
     }
+
+
+state_struct_for = state_specs  # the reference's name
+
+
+@functools.lru_cache(maxsize=None)
+def model_axes_for(cfg: ArchConfig) -> tuple[Any, Any]:
+    """``(logical-axes tree, TensorSpec tree)`` of ``cfg``'s params,
+    nothing allocated."""
+    model = Model(cfg)
+    return model.param_axes(), model.param_specs()
+
+
+def cache_axes(cfg: ArchConfig) -> Any:
+    """Logical axes of the decode cache tree (mirrors ``Model.cache_struct``)."""
+    kvax = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    if cfg.encdec:
+        return {"k": kvax, "v": kvax, "xk": kvax, "xv": kvax}
+    out = {}
+    for gname, _, mixer, _ in tf.block_groups(cfg):
+        if mixer == "gqa":
+            out[gname] = {"k": kvax, "v": kvax}
+        elif mixer == "mla":
+            out[gname] = {"ckv": ("layers", "batch", "seq", None),
+                          "kr": ("layers", "batch", "seq", None)}
+        elif mixer == "hybrid":
+            out[gname] = {"attn": {"k": kvax, "v": kvax},
+                          "ssd": ("layers", "batch", "heads", None, "head_dim")}
+        elif mixer == "mlstm":
+            out[gname] = {"mlstm": ("layers", "batch", "heads", "head_dim", None)}
+    return out
 
 
 def state_shardings(model_axes: Any, state_struct: Any, mesh) -> dict[str, Any]:
@@ -237,14 +283,13 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
     def shard_batch(batch: dict[str, torch.Tensor]):
         """This rank's batch block, the axes it is split over, and the
         share of the global valid labels it holds."""
-        shs = batch_shardings({k: TensorSpec(tuple(v.shape), v.dtype) for k, v in batch.items()},
-                              mesh)
+        shs = _batch_shardings(batch, mesh)
         local = {k: local_block(v, shs[k]) for k, v in batch.items()}
         axes = entry_axes(shs["labels"].spec[0])
-        share = 1.0
-        if axes:
-            n_local = int((local["labels"] >= 0).sum())
-            share = n_local / max(int((batch["labels"] >= 0).sum()), 1)
+        share = None
+        if axes:  # a 0-d tensor on the rank's device: no host read
+            n_local = (local["labels"] >= 0).sum().double()
+            share = (n_local / (batch["labels"] >= 0).sum().clamp(min=1).double()).float()
         return local, axes, share
 
     def reduce(t: torch.Tensor, axes) -> None:
@@ -260,11 +305,10 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
             raise ValueError(f"{n_route_groups} routing groups do not split over {shards} "
                              "batch shards")
         p_flat, treedef = flatten_with_paths(state["params"])
-        with torch.no_grad():
-            full = {k: v.full_tensor() for k, v in p_flat.items()}  # FSDP gather
+        full = flatten_with_paths(_gather_params(state["params"]))[0]  # FSDP gather
         leaves = {k: v.detach().requires_grad_(True) for k, v in full.items()}
         loss = model.loss(treedef.unflatten(leaves), local, n_groups=n_route_groups // shards)
-        if share != 1.0:
+        if share is not None:
             loss = loss * share
         grads = _gradients(loss, leaves, selection_only)
         del leaves, full
@@ -310,3 +354,156 @@ def _adamw_sharded(grads: dict[str, torch.Tensor], opt_state: dict, p_flat: dict
             cast = from_local(master.to_local().to(p.dtype), master.shape, msh)
             p.to_local().copy_(redistribute(cast, sharding_of(p)).to_local())
     return {"grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole tensor on this rank: its local block itself where
+    every mesh dim that shards it has size 1 (nothing to gather), else
+    gathered."""
+    from torch.distributed.tensor import Shard
+
+    sizes = t.device_mesh.shape
+    if all(not isinstance(pl, Shard) or sizes[i] == 1 for i, pl in enumerate(t.placements)):
+        return t.to_local()
+    return t.full_tensor()
+
+
+def _gather_params(params: Any) -> Any:
+    """Every weight whole on this rank (the FSDP-style gather)."""
+    flat, treedef = flatten_with_paths(params)
+    with torch.no_grad():
+        return treedef.unflatten({k: _whole(v) for k, v in flat.items()})
+
+
+def _rows(sharding: NamedSharding, shape, dim: int) -> tuple[int, int]:
+    """``(start, stop)`` along ``dim`` of this rank's block under ``sharding``."""
+    return sharding.shard_index(shape, mesh_coordinate(sharding.mesh))[dim]
+
+
+def _batch_block(t, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's batch block of a batch leaf: a DTensor's local block
+    (placed by ``sharding``) or the block of a tensor every rank holds whole."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        if list(t.placements) != list(sharding.placements):
+            raise ValueError(f"a batch leaf placed {t.placements}, expected {sharding.spec}")
+        return t.to_local()
+    return local_block(t, sharding)
+
+
+def _batch_shardings(batch: dict, mesh) -> dict:
+    return batch_shardings({k: TensorSpec(tuple(v.shape), v.dtype) for k, v in batch.items()},
+                           mesh)
+
+
+def _seq_dims(cfg: ArchConfig) -> dict[str, int | None]:
+    """``{cache leaf path: its seq dim, or None}``."""
+    flat, _ = flatten_with_paths(cache_axes(cfg), is_leaf=lambda x: isinstance(x, tuple))
+    return {path: axes.index("seq") if "seq" in axes else None for path, axes in flat.items()}
+
+
+def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
+    """Returns ``(prefill_step, params_shardings, (logits_sharding,
+    cache_shardings))``. ``prefill_step(params, batch) -> (logits,
+    caches)``: params the DTensor tree placed by ``params_shardings``
+    (``DEFAULT_RULES``), batch leaves DTensors placed by
+    :func:`batch_shardings` or tensors every rank holds whole; logits (B,
+    V) float32 and the caches (``s_max`` = seq_len + the vision prefix)
+    DTensors placed by the returned shardings (``CACHE_RULES``)."""
+    model = Model(cfg)
+    s_max = shape.seq_len + cfg.vision_prefix
+    model_axes, params_struct = model_axes_for(cfg)
+    p_sh = tree_shardings(model_axes, params_struct, mesh, DEFAULT_RULES)
+    cache_struct = model.cache_struct(shape.global_batch, s_max)
+    c_sh = tree_shardings(cache_axes(cfg), cache_struct, mesh, CACHE_RULES)
+    c_flat, _ = flatten_with_paths(c_sh)
+    glob = {path: spec.shape for path, spec in flatten_with_paths(cache_struct)[0].items()}
+    logits_shape = (shape.global_batch, cfg.vocab)
+    logits_sh = NamedSharding(mesh, data_pspec(mesh, 2, shape.global_batch))
+
+    @torch.no_grad()
+    def prefill_step(params, batch: dict):
+        b_sh = _batch_shardings(batch, mesh)
+        local = {k: _batch_block(v, b_sh[k]) for k, v in batch.items()}
+        rows = _rows(b_sh["tokens"], batch["tokens"].shape, 0)
+        logits, caches = model.prefill(_gather_params(params), local, s_max)
+        flat, treedef = flatten_with_paths(caches)
+        out = {}
+        for path, c in flat.items():
+            sh = c_flat[path]
+            index = sh.shard_index(glob[path], mesh_coordinate(mesh))
+            if index[1] != rows:  # dim 1 of every cache is its batch
+                raise ValueError(f"cache {path}'s batch block {index[1]} is not the batch's "
+                                 f"{rows}")
+            block = c[tuple(slice(None) if d == 1 else slice(a, b)
+                            for d, (a, b) in enumerate(index))]
+            # the whole computed cache is this rank's block where nothing splits it
+            out[path] = from_local(block if block.shape == c.shape else block.contiguous(),
+                                   glob[path], sh)
+        del flat, caches
+        return from_local(logits, logits_shape, logits_sh), treedef.unflatten(out)
+
+    return prefill_step, p_sh, (logits_sh, c_sh)
+
+
+def make_decode_step(cfg: ArchConfig, mesh, shape: InputShape):
+    """One-token serve step over a ``seq_len``-deep cache. Returns
+    ``(decode_step, params_shardings, cache_shardings)``.
+    ``decode_step(params, caches, tokens, pos) -> (logits, caches)``:
+    caches the DTensor tree placed by ``cache_shardings`` (``CACHE_RULES``),
+    written in place at ``pos`` and returned; tokens (B, 1) a DTensor placed
+    by :func:`batch_shardings` or a tensor every rank holds whole; pos an
+    int; logits (B, 1, V) float32 placed over the batch axes."""
+    model = Model(cfg)
+    model_axes, params_struct = model_axes_for(cfg)
+    p_sh = tree_shardings(model_axes, params_struct, mesh, DEFAULT_RULES)
+    cache_struct = model.cache_struct(shape.global_batch, shape.seq_len)
+    c_sh = tree_shardings(cache_axes(cfg), cache_struct, mesh, CACHE_RULES)
+    logits_shape = (shape.global_batch, 1, cfg.vocab)
+    logits_sh = NamedSharding(mesh, data_pspec(mesh, 3, shape.global_batch))
+    sizes = axis_sizes(mesh)
+    names = axis_names(mesh)
+    seq_dims = _seq_dims(cfg)
+
+    @torch.no_grad()
+    def decode_step(params, caches, tokens, pos: int):
+        from torch.distributed.tensor import Replicate
+
+        pos = int(pos)
+        tok_sh = _batch_shardings({"tokens": tokens}, mesh)["tokens"]
+        tok = _batch_block(tokens, tok_sh)
+        rows = _rows(tok_sh, tokens.shape, 0)
+        flat, treedef = flatten_with_paths(caches)
+        work, gathered = {}, {}
+        for path, c in flat.items():
+            sh = sharding_of(c)
+            if _rows(sh, c.shape, 1) != rows:
+                raise ValueError(f"cache {path}'s batch block is not the tokens' {rows}")
+            d = seq_dims[path]
+            seq_axes = entry_axes(sh.spec[d]) if d is not None and d < len(sh.spec) else ()
+            if any(sizes[a] > 1 for a in seq_axes):  # gather this batch block along seq
+                pl = list(c.placements)
+                for a in seq_axes:
+                    pl[names.index(a)] = Replicate()
+                work[path] = c.redistribute(c.device_mesh, pl).to_local()
+                gathered[path] = (d, _rows(sh, c.shape, d))
+            else:  # the local block is the batch block whole: written in place
+                work[path] = c.to_local()
+        logits, _ = model.decode(_gather_params(params), treedef.unflatten(work), tok, pos)
+        for path, (d, (a, b)) in gathered.items():
+            if path.rsplit("/", 1)[-1] in ("xk", "xv"):
+                continue  # the cross caches hold the encoder's frames: decode only reads them
+            slot = pos % work[path].shape[d]  # a window's rolling slot, else pos
+            if a <= slot < b:  # this rank's shard owns the new position
+                flat[path].to_local().narrow(d, slot - a, 1).copy_(
+                    work[path].narrow(d, slot, 1))
+        del work
+        return from_local(logits, logits_shape, logits_sh), caches
+
+    return decode_step, p_sh, c_sh

@@ -10,8 +10,12 @@ head ``h // (H / Hkv)``. v's head dim ``Dv`` may differ from q's and k's
 scale stays ``1/sqrt(D)``, as the reference's ``blockwise_attention``
 computes (the Pallas kernel and its oracle take ``Dv == D`` only).
 
-:func:`flash_attention` runs :func:`flash_attention_plain` for CPU tensors
-and a CUDA kernel of ``csrc/flash_attention.cu`` for CUDA tensors, chosen
+:func:`flash_attention` calls the operator ``repro_torch::flash_attention_fwd``
+(:func:`flash_attention_fwd`, a ``torch.library.custom_op``), whose CPU
+implementation is :func:`flash_attention_plain` and whose CUDA one launches
+a kernel of ``csrc/flash_attention.cu``; under ``FakeTensorMode`` (the dry
+run) its fake implementation gives the outputs' shapes, and
+``torch.utils.flop_counter`` counts it by :func:`visible_pairs`. The kernel is chosen
 from dtype and head dims: bf16 at (D, Dv) = (64, 64), (128, 128) or (192,
 128) goes to the tensor-core kernel (wgmma, TMA), everything else (D <=
 192, Dv <= 128) to the CUDA-core kernel; other head dims raise. All keep the
@@ -36,7 +40,9 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -227,14 +233,10 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
-    """``(out, lse or None)``: the plain version for CPU tensors, else the
-    CUDA kernel (raising on what it does not take)."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        res = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
-                                    return_lse=with_lse)
-        return res if with_lse else (res, None)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+def _launch(q, k, v, causal: bool, window: int, scale: float, with_lse: bool):
+    """``(out, lse)``: the CUDA kernel on ``q``'s card (raising on what it
+    does not take); ``lse`` is empty unless ``with_lse``."""
+    if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention needs q, k, v on one CUDA device or on the CPU, "
                          f"got {q.device} {k.device} {v.device}")
     if q.dtype not in _DTYPES:
@@ -252,10 +254,7 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if wgmma:
         q, k, v = (_tma_ready(t) for t in (q, k, v))
-    # q's dense layout at Dv columns: (B,S,H,D) storage gives (B,S,H,Dv)
-    out = torch.empty_like(q if dv == d else q[..., :dv])
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    out, lse = _outputs(q, v, with_lse)
     if out.numel():
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, sq, sk, d, dv,
@@ -274,6 +273,78 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
         if with_lse:
             flash_attention.lse_launches += 1
     return out, lse
+
+
+def _outputs(q, v, with_lse: bool):
+    """Empty ``(out, lse)`` for a launch on these inputs: out in q's dense
+    layout at Dv columns ((B,S,H,D) storage gives (B,S,H,Dv)); lse (B, H,
+    Sq) float32, or empty."""
+    b, h, sq, d = q.shape
+    dv = v.shape[3]
+    out = torch.empty_like(q if dv == d else q[..., :dv])
+    lse = q.new_empty((b, h, sq) if with_lse else (0,), dtype=torch.float32)
+    return out, lse
+
+
+# K3's forward as an operator of its own, so that a trace under
+# FakeTensorMode (the dry run) sees one op with shapes and a FLOP count
+# where the launch would pass raw pointers: the CUDA implementation is the
+# launch, the CPU one the plain version, and the fake one makes the outputs.
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        window: int, scale: float,
+                        with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of K3's forward; ``lse`` is empty unless ``with_lse``."""
+    return _launch(q, k, v, causal, window, scale, with_lse)
+
+
+@flash_attention_fwd.register_kernel("cpu")
+def _flash_attention_fwd_cpu(q, k, v, causal, window, scale, with_lse):
+    if with_lse:
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
+                                     return_lse=True)
+    out = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    return out, q.new_empty((0,), dtype=torch.float32)
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, window, scale, with_lse):
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    return _outputs(q, v, with_lse)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (q, k) pairs the mask keeps (query i and key j both counted from
+    0): the work K3 must do for one batch row and head."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1, np.int64)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None,
+                           **kwargs) -> int:
+    """2 (D + Dv) a visible (q, k) pair, batch row and head: QK^T and PV,
+    the masked pairs not counted (as ``launch.train.attention_pair_flops``)."""
+    b, h, sq, d = q_shape
+    sk, dv = k_shape[2], v_shape[3]
+    return b * h * visible_pairs(sq, sk, causal, window) * 2 * (d + dv)
+
+
+def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
+    """``(out, lse or None)`` through :func:`flash_attention_fwd`: the plain
+    version for CPU tensors, else the CUDA kernel (raising on what it does
+    not take); fake tensors get their shapes only."""
+    kinds = {t.device.type for t in (q, k, v)}
+    if kinds != {"cpu"} and kinds != {"cuda"}:
+        raise ValueError(f"flash_attention needs q, k, v on one CUDA device or on the CPU, "
+                         f"got {q.device} {k.device} {v.device}")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    out, lse = flash_attention_fwd(q, k, v, bool(causal), int(window), scale, with_lse)
+    return out, (lse if with_lse else None)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -15,9 +15,11 @@ from __future__ import annotations
 import collections
 import hashlib
 import logging
+import math
 import os
+import time
 import zlib
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -199,6 +201,32 @@ def from_numpy_tree(tree: Any, device: torch.device | str) -> Any:
 # ---------------------------------------------------------------------------
 
 
+def nbytes_of(x: Any) -> int:
+    """Bytes of a tensor, an array or a TensorSpec (anything with a shape
+    and a dtype); 0 for anything else."""
+    if not hasattr(x, "shape"):
+        return 0
+    dt = x.dtype
+    size = dt.itemsize if isinstance(dt, torch.dtype) else np.dtype(dt).itemsize
+    return math.prod(x.shape) * size
+
+
+def tree_nbytes(tree: Any) -> int:
+    return sum(nbytes_of(leaf) for leaf in flatten_with_paths(tree)[0].values())
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0 or unit == "TiB":
+            return f"{n:.2f}{unit}"
+        n /= 1024.0
+    return f"{n:.2f}TiB"
+
+
+def prod(xs: Iterable[int]) -> int:
+    return math.prod(xs)
+
+
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -218,3 +246,18 @@ def content_hash(buf: bytes | memoryview) -> str:
 
 def crc32_of(buf: bytes | memoryview) -> int:
     return zlib.crc32(buf) & 0xFFFFFFFF
+
+
+class StepTimer:
+    """Wall-clock timer with named laps."""
+
+    def __init__(self) -> None:
+        self.t0 = time.perf_counter()
+        self.laps: list[tuple[str, float]] = []
+
+    def lap(self, name: str) -> float:
+        t = time.perf_counter()
+        dt = t - self.t0
+        self.laps.append((name, dt))
+        self.t0 = t
+        return dt

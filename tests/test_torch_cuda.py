@@ -533,3 +533,45 @@ def test_mla_layer_on_the_card_equals_cpu(dev):
     got = check_mla_layer_on_device(dev, get_config("deepseek-v3-671b"), 96)
     assert set(got["bfloat16"]) == set(got["float32"]) == {"tol", "out", "decode_out", "ckv",
                                                            "kr"}
+
+
+@pytest.mark.parametrize("dtype,with_lse", [("bfloat16", False), ("bfloat16", True),
+                                            ("float32", False), ("float32", True)])
+def test_k3_op_cuda_cpu_and_fake_implementations(dev, dtype, with_lse):
+    """``repro_torch::flash_attention_fwd``: on CUDA tensors the launch (the
+    counters move by one, the tensor-core one for bf16, the lse one with
+    lse), within 2e-2 (bf16) or 2e-5 of the CPU implementation, which is
+    the plain version and launches nothing; on fake CUDA tensors the fake
+    implementation (shapes and dtypes, no launch); counted by its FLOP
+    formula, 2 (D + Dv) a visible pair."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd, visible_pairs
+    from repro_torch.launch.hlo_stats import count
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(s, generator=gen).to(dt) for s in
+               ((2, 8, 200, 128), (2, 4, 200, 128), (2, 4, 200, 128)))
+    counts = lambda: (flash_attention.launches, flash_attention.wgmma_launches,  # noqa: E731
+                      flash_attention.lse_launches)
+    args = (True, 0, 128 ** -0.5, with_lse)
+    before = counts()
+    cpu_out, cpu_lse = flash_attention_fwd(q, k, v, *args)
+    assert counts() == before
+    out, lse = flash_attention_fwd(*(t.to(dev) for t in (q, k, v)), *args)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + (dt == torch.bfloat16), before[2] + with_lse)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.cpu().float(), cpu_out.float(), atol=tol, rtol=tol)
+    assert lse.shape == cpu_lse.shape == ((2, 8, 200) if with_lse else (0,))
+    if with_lse:
+        torch.testing.assert_close(lse.cpu(), cpu_lse, atol=1e-4, rtol=1e-4)
+    on_card = [t.to(dev) for t in (q, k, v)]
+    with FakeTensorMode() as fm:
+        fq, fk, fv = (fm.from_tensor(t) for t in on_card)
+        (fout, flse), r = count(flash_attention_fwd, fq, fk, fv, *args)
+        assert fout.device.type == "cuda" and (fout.shape, fout.dtype) == (out.shape, out.dtype)
+        assert flse.shape == lse.shape
+    assert counts() == (before[0] + 1, before[1] + (dt == torch.bfloat16), before[2] + with_lse)
+    assert r["flops"] == 2 * 8 * visible_pairs(200, 200, True, 0) * 2 * 256

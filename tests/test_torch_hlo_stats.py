@@ -1,0 +1,197 @@
+"""``repro_torch.launch.hlo_stats``: the per-device counts the dry run
+stands on, against the JAX package's ``analyze_hlo`` where both count the
+same program (``tests/test_hlo_stats.py``'s cases).
+
+The reference recovers a scanned loop's trip count from the HLO; the port
+sees every op of a Python loop, so a loop of 8 matmuls counts 8 and the
+unrolled form equals the ``unbind`` sweep over a stacked weight. A layer
+reads its slice of the stack through a view, so the sweep costs O(1)
+passes over the stack in bytes, not O(L). Collectives on a 2-rank gloo
+group count once a call with their payload (output) bytes, in-place
+``c10d`` ops and functional ones alike. K3's formula counts 2 (D + Dv) a
+visible (q, k) pair, batch row and head.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.launch.hlo_stats import analyze_hlo
+from repro_torch.distributed.group import run_ranks
+from repro_torch.kernels.flash_attention.ops import _visible, flash_attention, visible_pairs
+from repro_torch.launch.hlo_stats import StepCounter, count
+
+N = 256
+ONE = 2 * N**3
+
+
+def _jax_hlo(fn, *args):
+    return jax.jit(fn).lower(*args).compile().as_text()
+
+
+def _loop(x, ws=None):
+    for i in range(8):
+        x = x @ (x if ws is None else ws[i])
+    return x
+
+
+def test_matmul_loop_counts_eight_and_equals_reference():
+    """8 matmuls in a Python loop: 8x one matmul's FLOPs, as the
+    reference counts its scanned loop (trip count 8)."""
+    x = torch.randn(N, N)
+    _, r = count(_loop, x)
+    assert r["flops"] == 8 * ONE
+    a = jax.ShapeDtypeStruct((N, N), jnp.float32)
+    ref = analyze_hlo(_jax_hlo(
+        lambda v: jax.lax.scan(lambda c, _: (c @ c, None), v, None, length=8)[0], a))
+    assert abs(ref["flops"] - r["flops"]) / r["flops"] < 0.01
+
+
+def test_unrolled_equals_unbind_sweep():
+    """Eight separate weights against the ``unbind`` sweep over their (8,
+    N, N) stack: equal FLOPs and equal bytes."""
+    ws = torch.randn(8, N, N) / N
+    x = torch.randn(N, N)
+    _, sep = count(_loop, x, [w.clone() for w in ws])
+    _, swept = count(_loop, x, ws.unbind(0))
+    assert sep["flops"] == swept["flops"] == 8 * ONE
+    assert sep["bytes"] == swept["bytes"]
+
+
+def test_stacked_sweep_bytes_amortized():
+    """A tanh(x @ w_i) sweep over a stacked (L, d, d) weight costs a
+    handful of passes over the stack, never ~L, and L matmuls' FLOPs: the
+    reference's bound on the same program."""
+    L, d = 16, 128
+    ws = torch.randn(L, d, d)
+    x0 = torch.randn(4, d)
+
+    def sweep(x, w):
+        for wi in w.unbind(0):
+            x = torch.tanh(x @ wi)
+        return x
+
+    _, r = count(sweep, x0, ws)
+    wbytes = L * d * d * 4
+    assert r["bytes"] < 6 * wbytes
+    assert r["flops"] == L * 2 * 4 * d * d
+    ref = analyze_hlo(_jax_hlo(
+        lambda x, w: jax.lax.scan(lambda c, wi: (jnp.tanh(c @ wi), None), x, w)[0],
+        jax.ShapeDtypeStruct((4, d), jnp.float32), jax.ShapeDtypeStruct((L, d, d), jnp.float32)))
+    assert ref["bytes"] < 6 * wbytes
+    assert abs(ref["flops"] - r["flops"]) / r["flops"] < 0.01
+
+
+def test_fake_tensors_count_as_real_ones():
+    """The dry run counts fake tensors: the same numbers as real ones."""
+    ws = torch.randn(8, N, N)
+    x = torch.randn(N, N)
+    _, real = count(_loop, x, ws.unbind(0))
+    with FakeTensorMode() as fm:
+        fx, fws = fm.from_tensor(x), fm.from_tensor(ws)
+        _, fake = count(_loop, fx, fws.unbind(0))
+    assert fake == real
+
+
+def test_memory_peak_arguments_outputs():
+    """Live storages: the argument held from the start, two 1 MiB
+    temporaries alive together at the peak, the output the second one."""
+    x = torch.zeros(256, 1024)  # 1 MiB
+
+    def step(t):
+        y = t * 2
+        z = y + 1
+        del y
+        return z
+
+    c = StepCounter()
+    c.hold((x,))
+    with c:
+        out = step(x)
+    mib = 1 << 20
+    assert c.memory(out) == {"argument_size_in_bytes": mib, "output_size_in_bytes": mib,
+                             "temp_size_in_bytes": mib, "peak_memory_in_bytes": 3 * mib}
+    assert c.live_bytes == 2 * mib  # y freed
+
+
+# (b, h, hkv, sq, sk, d, dv, causal, window)
+K3_CASES = [
+    (1, 4, 2, 64, 64, 32, 32, True, 0),
+    (2, 4, 4, 70, 70, 16, 16, True, 24),
+    (1, 2, 1, 40, 96, 32, 32, False, 0),
+    (1, 2, 2, 96, 40, 32, 32, True, 0),
+    (1, 2, 2, 50, 50, 48, 32, True, 0),
+    (3, 2, 1, 33, 33, 16, 16, False, 8),
+]
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_flop_formula(case):
+    """K3 counts B H visible_pairs 2 (D + Dv) under both counters, the
+    visible pairs those the plain version's mask keeps (causal, windowed,
+    Sq != Sk both ways, Dv != D); fake tensors count the same."""
+    b, h, hkv, sq, sk, d, dv, causal, window = case
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((b, h, sq, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, hkv, sk, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, hkv, sk, dv)).astype(np.float32))
+    pairs = int(_visible(sq, sk, causal, window, "cpu").sum())
+    assert visible_pairs(sq, sk, causal, window) == pairs
+    want = b * h * pairs * 2 * (d + dv)
+    _, r = count(flash_attention, q, k, v, causal=causal, window=window)
+    assert r["flops"] == want
+    with FlopCounterMode(display=False) as fc:
+        flash_attention(q, k, v, causal=causal, window=window)
+    assert fc.get_total_flops() == want
+    with FakeTensorMode() as fm:
+        fq, fk, fv = (fm.from_tensor(t) for t in (q, k, v))
+        out, rf = count(flash_attention, fq, fk, fv, causal=causal, window=window)
+    assert rf["flops"] == want and tuple(out.shape) == (b, h, sq, dv)
+
+
+def _collectives_rank(rank: int) -> dict:
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("data",))
+    x = torch.full((1024,), float(rank + 1))  # 4 KiB
+    dt = distribute_tensor(torch.arange(64.0).reshape(8, 8), mesh, [Shard(0)])
+    c = StepCounter()
+    with c:
+        for _ in range(3):
+            dist.all_reduce(x)
+        g = funcol.all_gather_tensor(x, 0, mesh)  # 8 KiB out
+        rs = funcol.reduce_scatter_tensor(x, "sum", 0, mesh)  # 2 KiB out
+        a2a = funcol.all_to_all_single(x, None, None, mesh)  # 4 KiB out
+        if rank == 0:
+            dist.send(x[:256], dst=1)  # 1 KiB
+        else:
+            dist.recv(x[:256], src=0)
+        full = dt.redistribute(mesh, [Replicate()]).to_local()  # 256 B gathered
+    return {"result": c.result(), "ok": [float(x[0]), tuple(g.shape), tuple(rs.shape),
+                                         tuple(a2a.shape), tuple(full.shape)]}
+
+
+def test_collectives_counted_per_call_with_payload():
+    """On a 2-rank gloo group: three in-place all-reduces of 4 KiB, a
+    functional all-gather (8 KiB out) and DTensor's gather of an 8 x 8
+    float32 (256 B), a reduce-scatter (2 KiB out), an all-to-all (4 KiB),
+    and a 1 KiB send/recv as a collective-permute."""
+    ranks = run_ranks(_collectives_rank, 2, timeout_s=120, threads=1)
+    kib = 1024
+    for r in ranks:
+        by = r["result"]["collectives"]["by_kind"]
+        assert by["all-reduce"] == {"count": 3, "bytes": 3 * 4 * kib}
+        assert by["all-gather"] == {"count": 2, "bytes": 8 * kib + 256}
+        assert by["reduce-scatter"] == {"count": 1, "bytes": 2 * kib}
+        assert by["all-to-all"] == {"count": 1, "bytes": 4 * kib}
+        assert by["collective-permute"] == {"count": 1, "bytes": 1 * kib}
+        assert r["result"]["collectives"]["total_count"] == 8
+        assert r["ok"][1:] == [(2048,), (512,), (1024,), (8, 8)]
+    assert ranks[0]["ok"][0] == 12.0  # 1 + 2, doubled by each all-reduce after the first

@@ -103,3 +103,37 @@ def test_hash_and_sizes_match_jax_helpers():
     for a, b in [(0, 3), (7, 3), (9, 3), (1, 1)]:
         assert ceil_div(a, b) == ju.ceil_div(a, b)
         assert round_up(a, b) == ju.round_up(a, b)
+
+
+def test_byte_counts_and_formatting_match_jax_helpers():
+    """``nbytes_of``/``tree_nbytes`` over numpy arrays (bf16 among them)
+    equal the JAX package's, and over the same tensors and TensorSpecs;
+    ``human_bytes`` and ``prod`` format and multiply as its do."""
+    import ml_dtypes
+
+    from repro import utils as ju
+    from repro_torch.models.model import TensorSpec
+    from repro_torch.utils import human_bytes, nbytes_of, prod, tree_nbytes
+
+    tree = {"f": np.zeros((3, 5), np.float32), "b": np.zeros(7, ml_dtypes.bfloat16),
+            "i": [np.zeros((2, 2, 2), np.int8)], "x": np.float64(1.0), "s": "tag"}
+    assert tree_nbytes(tree) == ju.tree_nbytes(tree) == 60 + 14 + 8 + 8
+    tensors = from_numpy_tree({k: v for k, v in tree.items() if k != "s"}, "cpu")
+    assert tree_nbytes(tensors) == ju.tree_nbytes(tree)
+    assert nbytes_of(TensorSpec((4, 6), torch.bfloat16)) == 48 and nbytes_of("tag") == 0
+    for n in (0, 1023, 1024, 5 * 2**20 + 17, 3.5 * 2**40, 2**52):
+        assert human_bytes(n) == ju.human_bytes(n)
+    assert prod((2, 3, 7)) == ju.prod((2, 3, 7)) == 42 and prod(()) == 1
+
+
+def test_step_timer_laps():
+    import time
+
+    from repro_torch.utils import StepTimer
+
+    t = StepTimer()
+    time.sleep(0.01)
+    first = t.lap("a")
+    second = t.lap("b")
+    assert first >= 0.01 and 0 <= second < first
+    assert [name for name, _ in t.laps] == ["a", "b"]

@@ -1,0 +1,46 @@
+#!/usr/bin/env python3
+"""A markdown table of dry-run cells (``python -m repro_torch.launch.dryrun``).
+
+    python3 tools/dryrun_table.py experiments/dryrun_torch
+
+One row a cell JSON in the directory, production meshes first: per-device
+FLOPs, bytes, collective bytes (of them all-gathered), peak live memory and
+its ratio to an H100's 80 GB, or the skip reason or error.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+HBM = 80e9  # an H100's device memory, bytes
+
+
+def row(rec: dict) -> str:
+    head = f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} |"
+    if "skipped" in rec:
+        return head + " skipped: long_500k needs sub-quadratic attention | | | | |"
+    if not rec.get("ok"):
+        return head + f" FAILED: {rec.get('error', '')[:80]} | | | | |"
+    coll = rec["collectives"]
+    gathered = coll["by_kind"].get("all-gather", {}).get("bytes", 0.0)
+    peak = rec["memory"]["peak_memory_in_bytes"]
+    return (head + f" {rec['cost']['flops']:.4g} | {rec['cost']['bytes accessed']:.4g} | "
+            f"{coll['total_bytes']:.4g} ({gathered:.4g}) | {peak / 1e9:.2f} | {peak / HBM:.2f} |")
+
+
+def main(argv: list[str]) -> int:
+    cells = [json.loads(p.read_text()) for p in sorted(Path(argv[0]).glob("*.json"))]
+    order = {"16x16": 0, "2x16x16": 1}
+    cells.sort(key=lambda r: (order.get(r["mesh"], 2), r["arch"], r["shape"]))
+    print("| arch | shape | mesh | FLOPs | bytes | collective bytes (all-gather) "
+          "| peak GB | peak / 80 GB |")
+    print("|---|---|---|---|---|---|---|---|")
+    for rec in cells:
+        print(row(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
