@@ -29,9 +29,11 @@ with nvcc and prints one JSON line per phase:
              attention (2,048 tokens against 1,500 frames) and its decoder's
              causal self-attention (2,048 tokens, B 4, 6 heads)
   dryrun     ``python -m repro_torch.launch.dryrun`` for qwen3-1.7b's
-             prefill_32k and decode_32k cells on the fake 16x16 cuda mesh
-             (subprocesses; per-device FLOPs, bytes, collectives, peak
-             memory), and each cell's per-device step run for real on a 1x1
+             prefill_32k and decode_32k cells on a fake 16x1 cuda mesh (a
+             16th of the batch and the whole model a device: the 1x1 run's
+             program) and command-r's below on 16x16 (subprocesses;
+             per-device FLOPs, bytes, collectives, peak memory), and
+             qwen3's per-device steps run for real on a 1x1
              NCCL mesh at full width and depth: prefill 2 x 32,768 tokens
              (28 K3 launches, all tensor-core; logits and every cache leaf
              bitwise ``Model.prefill``'s), decode 8 sequences over a
@@ -39,7 +41,17 @@ with nvcc and prints one JSON line per phase:
              ``Model.decode``'s, the cache written only at pos); each real
              step's counted FLOPs within 0.1 % of the dry run's; times,
              TFLOP/s, bytes against the card's bound, peak memory beside the
-             dry run's
+             dry run's (at a model axis of 1 the tensor-parallel steps are
+             the plain model); then command-r-plus-104b at full width and
+             depth (64 layers), rank 0 of a fake 16x16 group on real card
+             tensors (its collectives move no bytes and leave their outputs
+             unwritten, so no output is compared and no time counts
+             communication): its tensor-parallel prefill_32k (2 x 32,768
+             tokens, 6 q heads reading 1 kv head: 64 tensor-core K3
+             launches) and train_4k step with ``seq_shard`` (16 x 4,096
+             tokens), each with its peak memory (below the card's) beside
+             the dry run's, device time and TFLOP/s of the dry run's
+             per-device FLOPs
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
              through a transit CMI, preempted after the match publish and
              resumed; the product equals an uninterrupted run's
@@ -212,7 +224,18 @@ VISION_PROMPT, VISION_DECODE = 2048, 8  # tokens after the 256 patch embeddings;
 DRYRUN_ARCH = "qwen3-1.7b"
 DRYRUN_SHAPES = ("prefill_32k", "decode_32k")
 DRYRUN_DATA_RANKS = 16  # the 16x16 production mesh's data axis: a device's share of the batch
+# qwen3's cells are traced on a 16x1 mesh: the per-device step of the 1x1
+# real run (a 16th of the batch, the whole model; on 16x16 the model axis
+# would split the work 16 ways)
+DRYRUN_MESH = f"{DRYRUN_DATA_RANKS}x1"
 DRYRUN_FLOPS_TOL = 1e-3  # the real step's counted FLOPs against the dry run's, relative
+# the tensor-parallel cells run for real under a fake 16x16 group: (shape,
+# seq_shard, layers). The train cell's depth is cut (its widths kept) to keep
+# the smoke well inside its time limit: 64 layers take 16.3 s a step on the
+# card and the smoke ran 1095 s with them, 1013 s with 32 (PR 23); its peak at
+# 64 layers is the dry run's
+DRYRUN_TP_ARCH = "command-r-plus-104b"
+DRYRUN_TP_CELLS = (("prefill_32k", False, 0), ("train_4k", True, 16))
 
 
 def serve_argv(arch: str, prompt_len: int = PROMPT_LEN, layers: int = 0) -> list[str]:
@@ -717,7 +740,8 @@ def check_flash_attention(dev) -> dict:
               (4, 6, 6, 2048, 1500, 64, 64, False, 0, "bfloat16", "whisper_cross"),
               (4, 6, 6, 2048, 2048, 64, 64, True, 0, "bfloat16", "whisper_decoder"),
               (1, 64, 8, 2304, 2304, 128, 128, True, 0, "bfloat16", "internvl2"),
-              (2, 16, 8, 32768, 32768, 128, 128, True, 0, "bfloat16", "prefill_32k")]
+              (2, 16, 8, 32768, 32768, 128, 128, True, 0, "bfloat16", "prefill_32k"),
+              (2, 6, 1, 32768, 32768, 128, 128, True, 0, "bfloat16", "command_r_32k")]
     timed = {}
     for i, (b, h, hkv, sq, sk, d, dv, causal, window, dt, label) in enumerate(shapes):
         rng = np.random.default_rng(i)
@@ -802,7 +826,28 @@ def check_flash_attention(dev) -> dict:
                              **{key: timed["internvl2"][key] for key in more}},
             "at_prefill_32k": {"shape": "q bf16[2,16,32768,128], k/v bf16[2,8,32768,128], "
                                         "causal (qwen3-1.7b's prefill_32k, a device of 16x16)",
-                               **{key: timed["prefill_32k"][key] for key in more}}}
+                               **{key: timed["prefill_32k"][key] for key in more}},
+            "at_command_r_32k": {"shape": "q bf16[2,6,32768,128], k/v bf16[2,1,32768,128], "
+                                          "causal (command-r-plus-104b's prefill_32k on a "
+                                          "device of 16x16: its 6 q heads, 1 kv head)",
+                                 **{key: timed["command_r_32k"][key] for key in more}},
+            "head_slices": check_k3_head_slices(dev)}
+
+
+def check_k3_head_slices(dev) -> dict:
+    """K3 on each of 16 model ranks' q heads and its view of the kv heads
+    (``kernels/flash_attention/cases.py``): bitwise those heads of the
+    call over every head, each view read as it is by the tensor-core
+    kernel, one launch a rank."""
+    from repro_torch.kernels.flash_attention.cases import HEAD_SLICE_CASES, check_head_slices
+
+    out = {}
+    for name, (b, h, hkv, s, d, ranks) in HEAD_SLICE_CASES.items():
+        got = check_head_slices(dev, b, h, hkv, s, d, ranks)
+        assert got["bitwise"] and got["views_taken_as_is"], (name, got)
+        assert got["rank_wgmma_launches"] == ranks, (name, got)
+        out[name] = got
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2423,29 +2468,47 @@ def run_vision(dev) -> dict:
     }
 
 
+def _dryrun_cells() -> list[tuple[str, str, bool, str, int, str]]:
+    """``(arch, shape, seq_shard, mesh, layers, file)`` of every dry-run
+    cell the phase reads: qwen3's two on :data:`DRYRUN_MESH`, then
+    command-r's tensor-parallel ones on 16x16 (``layers`` a depth cut, 0
+    for none)."""
+    cells = [(DRYRUN_ARCH, shape, False, DRYRUN_MESH, 0,
+              f"{DRYRUN_ARCH}__{shape}__mesh{DRYRUN_MESH}.json") for shape in DRYRUN_SHAPES]
+    for shape, seq_shard, layers in DRYRUN_TP_CELLS:
+        name = (f"{DRYRUN_TP_ARCH}__{shape}__pod1" + (f"__l{layers}" if layers else "")
+                + ("__seqshard" if seq_shard else ""))
+        cells.append((DRYRUN_TP_ARCH, shape, seq_shard, "16x16", layers, name + ".json"))
+    return cells
+
+
 def start_dryrun(out: Path) -> list[subprocess.Popen]:
     """``python -m repro_torch.launch.dryrun`` for each of
-    :data:`DRYRUN_SHAPES` at :data:`DRYRUN_ARCH` on the fake 16x16 cuda
-    mesh (a fake process group of 256 ranks; nothing runs on the card),
-    started now and read by :func:`finish_dryrun`."""
+    :func:`_dryrun_cells` on the fake 16x16 cuda mesh (a fake process group
+    of 256 ranks; nothing runs on the card), started now and read by
+    :func:`finish_dryrun`."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                              DRYRUN_ARCH, "--shape", shape, "--out", str(out), "--force"],
+                              arch, "--shape", shape, "--out", str(out), "--force",
+                              *(["--seq-shard"] if seq_shard else []),
+                              *(["--mesh", mesh] if mesh != "16x16" else []),
+                              *(["--layers", str(layers)] if layers else [])],
                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
-            for shape in DRYRUN_SHAPES]
+            for arch, shape, seq_shard, mesh, layers, _ in _dryrun_cells()]
 
 
 def finish_dryrun(procs: list[subprocess.Popen], out: Path) -> dict:
-    """Each dry-run cell's record, its process ended with 0 and the cell
-    ``ok``."""
+    """Each dry-run cell's record by file name, its process ended with 0
+    and the cell ``ok``."""
     cells = {}
-    for shape, proc in zip(DRYRUN_SHAPES, procs):
+    for (arch, shape, seq_shard, mesh, _, name), proc in zip(_dryrun_cells(), procs):
         log, _ = proc.communicate(timeout=300)
-        assert proc.returncode == 0, (shape, log[-3000:])
-        rec = json.loads((out / f"{DRYRUN_ARCH}__{shape}__pod1.json").read_text())
-        assert rec["ok"] and rec["device"] == "cuda" and rec["mesh"] == "16x16", rec
-        cells[shape] = rec
+        assert proc.returncode == 0, (arch, shape, log[-3000:])
+        rec = json.loads((out / name).read_text())
+        assert rec["ok"] and rec["device"] == "cuda" and rec["mesh"] == mesh, rec
+        assert rec["seq_shard"] == seq_shard and rec["path"] == "tp", rec
+        cells[name] = rec
     return cells
 
 
@@ -2492,10 +2555,124 @@ def _fill_layer(t: torch.Tensor, seed: int) -> torch.Tensor:
     return t.normal_(generator=torch.Generator(t.device).manual_seed(seed))
 
 
+def run_1x1_cells(dev) -> tuple[dict, dict]:
+    """qwen3-1.7b's prefill_32k and decode_32k per-device steps on a 1x1
+    NCCL mesh (see :func:`run_dryrun`): ``(prefill, decode)`` records."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.group import free_port, in_group
+    from repro_torch.distributed.steps import make_decode_step, make_prefill_step
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.utils import flatten_with_paths, tree_nbytes
+
+    cfg = get_config(DRYRUN_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.dtype) == (28, 2048, 16, 8, 128, "bfloat16"), cfg
+    pre, dec = (SHAPES[s] for s in DRYRUN_SHAPES)
+    pre = InputShape(pre.name, pre.seq_len, pre.global_batch // DRYRUN_DATA_RANKS, pre.kind)
+    dec = InputShape(dec.name, dec.seq_len, dec.global_batch // DRYRUN_DATA_RANKS, dec.kind)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    gen = torch.Generator(dev).manual_seed(1)
+    with in_group(0, 1, free_port(), "cuda", 600):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        # prefill: counts from 0 just before, read just after
+        step, p_sh, _ = make_prefill_step(cfg, mesh, pre)
+        dparams = _on_mesh(params, p_sh)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (pre.global_batch, pre.seq_len),
+                                         generator=gen, device=dev, dtype=torch.int32)}
+        flash_attention.launches = flash_attention.wgmma_launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        (logits, caches), wall, dev_ms = _timed(lambda: step(dparams, batch))
+        launches = {"flash_attention": flash_attention.launches,
+                    "flash_attention_wgmma": flash_attention.wgmma_launches}
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert launches == {"flash_attention": cfg.n_layers,
+                            "flash_attention_wgmma": cfg.n_layers}, launches
+        (want_l, want_c), ref_wall, ref_ms = _timed(
+            lambda: model.prefill(params, batch, pre.seq_len))
+        got_c, _ = flatten_with_paths(caches)
+        want_c, _ = flatten_with_paths(want_c)
+        assert torch.equal(logits.to_local(), want_l), "prefill logits differ from no mesh's"
+        assert sorted(got_c) == sorted(want_c)
+        for path, c in got_c.items():
+            assert torch.equal(c.to_local(), want_c[path]), f"prefill cache {path} differs"
+        cache_bytes, cache_leaves = tree_nbytes(want_c), sorted(got_c)
+        del logits, caches, want_l, want_c, got_c
+        steady = _timed(lambda: step(dparams, batch))  # warm: cuBLAS has seen the shapes
+        steady_wall, steady_ms = steady[1:]
+        del steady
+        flops = _counted_flops(lambda: step(dparams, batch))
+        prefill = {"shape": f"B{pre.global_batch} S{pre.seq_len} (prefill_32k / "
+                            f"{DRYRUN_DATA_RANKS} data ranks)",
+                   "wall_s": wall, "device_ms": dev_ms, "steady_wall_s": steady_wall,
+                   "steady_device_ms": steady_ms, "no_mesh_wall_s": ref_wall,
+                   "no_mesh_device_ms": ref_ms, "launches": launches,
+                   "bitwise_equal_no_mesh": {"logits": True, "caches": cache_leaves},
+                   "flops": flops, "tflops_per_s": flops / steady_ms / 1e9,
+                   "bf16_peak_share": flops / (steady_ms / 1e3) / BF16_FLOPS,
+                   "cache_bytes": cache_bytes, "max_memory_allocated": peak}
+        del batch
+        torch.cuda.empty_cache()
+
+        # decode: 8 sequences over a 32,768-deep cache, pos 32,767
+        step, _, c_sh = make_decode_step(cfg, mesh, dec)
+        specs, treedef = flatten_with_paths(model.cache_struct(dec.global_batch, dec.seq_len))
+        seeds = {path: 1000 * (j + 1) for j, path in enumerate(sorted(specs))}
+        caches = treedef.unflatten({k: _fill(s, dev, seeds[k]) for k, s in specs.items()})
+        dcaches = _on_mesh(caches, c_sh)
+        tokens = torch.randint(0, cfg.vocab, (dec.global_batch, 1), generator=gen,
+                               device=dev, dtype=torch.int32)
+        pos = dec.seq_len - 1
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the returned caches are the arguments, written in place: not kept
+        (logits, returned), wall, dev_ms = _timed(lambda: step(dparams, dcaches, tokens, pos))
+        del returned
+        dpeak = torch.cuda.max_memory_allocated(dev)
+        reps = [_timed(lambda: step(dparams, dcaches, tokens, pos))[1:] for _ in range(3)]
+        want_l, returned = model.decode(params, caches, tokens, pos)
+        del returned
+        assert torch.equal(logits.to_local(), want_l), "decode logits differ from no mesh's"
+        del logits, want_l
+        written = {}
+        for path, t in flatten_with_paths(caches)[0].items():
+            same = changed = True
+            for i in range(t.shape[0]):
+                regen = _fill_layer(torch.empty_like(t[i]), seeds[path] + i)
+                same &= (torch.equal(t[i][:, :pos], regen[:, :pos])
+                         and torch.equal(t[i][:, pos + 1:], regen[:, pos + 1:]))
+                changed &= not torch.equal(t[i][:, pos], regen[:, pos])
+                del regen
+            assert same and changed, (path, same, changed)
+            written[path] = f"only pos {pos}, every layer"
+        dflops = _counted_flops(lambda: step(dparams, dcaches, tokens, pos))
+        read = tree_nbytes(caches) + tree_nbytes(params)
+        med_ms = statistics.median([ms for _, ms in reps])
+        decode = {"shape": f"B{dec.global_batch} over {dec.seq_len} positions (decode_32k / "
+                           f"{DRYRUN_DATA_RANKS} data ranks), pos {pos}",
+                  "wall_s": wall, "device_ms": dev_ms,
+                  "steady_device_ms": [ms for _, ms in reps], "steady_wall_s":
+                  [w for w, _ in reps], "bitwise_equal_no_mesh": {"logits": True},
+                  "written": written, "flops": dflops,
+                  "bytes_read_bound": read, "bound_ms": read / HBM_BYTES_PER_S * 1e3,
+                  "bound_share": read / HBM_BYTES_PER_S * 1e3 / med_ms,
+                  "cache_bytes": tree_nbytes(caches), "max_memory_allocated": dpeak}
+        del caches, dcaches, dparams
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prefill, decode
+
+
 def run_dryrun(root: Path, dev) -> dict:
-    """The dry run on the fake 16x16 cuda mesh (two subprocesses, while the
-    card works), and its two qwen3-1.7b cells' per-device steps for real on
-    a 1x1 NCCL mesh (a group of one) at full width and depth, random
+    """The dry run (subprocesses, while the card works: qwen3-1.7b's two
+    cells on a fake 16x1 cuda mesh, command-r's on 16x16), and qwen3's
+    per-device steps for real on a 1x1 NCCL mesh (a group of one; a model
+    axis of 1 runs the plain model) at full width and depth, random
     weights from seed 0:
 
     * prefill_32k: ``make_prefill_step`` on 32 / 16 = 2 sequences of
@@ -2509,131 +2686,170 @@ def run_dryrun(root: Path, dev) -> dict:
     and each step's FLOPs, counted by ``launch.hlo_stats.StepCounter`` over
     the real step, within 0.1 % of the dry run's per-device count. Times,
     TFLOP/s, bytes against the card's bound, and peak memory against the
-    dry run's."""
-    from repro_torch.configs import SHAPES, get_config
-    from repro_torch.configs.base import InputShape
-    from repro_torch.distributed.group import free_port, in_group
-    from repro_torch.distributed.steps import make_decode_step, make_prefill_step
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import Model
-    from repro_torch.utils import flatten_with_paths, tree_nbytes
-
+    dry run's. Then :func:`run_dryrun_tp`."""
     out_dir = root / "cells"
     procs = start_dryrun(out_dir)
     try:
-        cfg = get_config(DRYRUN_ARCH)
-        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-                cfg.dtype) == (28, 2048, 16, 8, 128, "bfloat16"), cfg
-        pre, dec = (SHAPES[s] for s in DRYRUN_SHAPES)
-        pre = InputShape(pre.name, pre.seq_len, pre.global_batch // DRYRUN_DATA_RANKS, pre.kind)
-        dec = InputShape(dec.name, dec.seq_len, dec.global_batch // DRYRUN_DATA_RANKS, dec.kind)
-        gc.collect()
-        torch.cuda.empty_cache()
-        model = Model(cfg)
-        params = model.init(torch.Generator(dev).manual_seed(0))
-        gen = torch.Generator(dev).manual_seed(1)
-        with in_group(0, 1, free_port(), "cuda", 600):
-            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-            # prefill: counts from 0 just before, read just after
-            step, p_sh, _ = make_prefill_step(cfg, mesh, pre)
-            dparams = _on_mesh(params, p_sh)
-            batch = {"tokens": torch.randint(0, cfg.vocab, (pre.global_batch, pre.seq_len),
-                                             generator=gen, device=dev, dtype=torch.int32)}
-            flash_attention.launches = flash_attention.wgmma_launches = 0
-            torch.cuda.reset_peak_memory_stats(dev)
-            (logits, caches), wall, dev_ms = _timed(lambda: step(dparams, batch))
-            launches = {"flash_attention": flash_attention.launches,
-                        "flash_attention_wgmma": flash_attention.wgmma_launches}
-            peak = torch.cuda.max_memory_allocated(dev)
-            assert launches == {"flash_attention": cfg.n_layers,
-                                "flash_attention_wgmma": cfg.n_layers}, launches
-            (want_l, want_c), ref_wall, ref_ms = _timed(
-                lambda: model.prefill(params, batch, pre.seq_len))
-            got_c, _ = flatten_with_paths(caches)
-            want_c, _ = flatten_with_paths(want_c)
-            assert torch.equal(logits.to_local(), want_l), "prefill logits differ from no mesh's"
-            assert sorted(got_c) == sorted(want_c)
-            for path, c in got_c.items():
-                assert torch.equal(c.to_local(), want_c[path]), f"prefill cache {path} differs"
-            cache_bytes, cache_leaves = tree_nbytes(want_c), sorted(got_c)
-            del logits, caches, want_l, want_c, got_c
-            steady = _timed(lambda: step(dparams, batch))  # warm: cuBLAS has seen the shapes
-            steady_wall, steady_ms = steady[1:]
-            del steady
-            flops = _counted_flops(lambda: step(dparams, batch))
-            prefill = {"shape": f"B{pre.global_batch} S{pre.seq_len} (prefill_32k / "
-                                f"{DRYRUN_DATA_RANKS} data ranks)",
-                       "wall_s": wall, "device_ms": dev_ms, "steady_wall_s": steady_wall,
-                       "steady_device_ms": steady_ms, "no_mesh_wall_s": ref_wall,
-                       "no_mesh_device_ms": ref_ms, "launches": launches,
-                       "bitwise_equal_no_mesh": {"logits": True, "caches": cache_leaves},
-                       "flops": flops, "tflops_per_s": flops / steady_ms / 1e9,
-                       "bf16_peak_share": flops / (steady_ms / 1e3) / BF16_FLOPS,
-                       "cache_bytes": cache_bytes, "max_memory_allocated": peak}
-            del batch
-            torch.cuda.empty_cache()
-
-            # decode: 8 sequences over a 32,768-deep cache, pos 32,767
-            step, _, c_sh = make_decode_step(cfg, mesh, dec)
-            specs, treedef = flatten_with_paths(model.cache_struct(dec.global_batch, dec.seq_len))
-            seeds = {path: 1000 * (j + 1) for j, path in enumerate(sorted(specs))}
-            caches = treedef.unflatten({k: _fill(s, dev, seeds[k]) for k, s in specs.items()})
-            dcaches = _on_mesh(caches, c_sh)
-            tokens = torch.randint(0, cfg.vocab, (dec.global_batch, 1), generator=gen,
-                                   device=dev, dtype=torch.int32)
-            pos = dec.seq_len - 1
-            torch.cuda.reset_peak_memory_stats(dev)
-            (logits, _), wall, dev_ms = _timed(lambda: step(dparams, dcaches, tokens, pos))
-            dpeak = torch.cuda.max_memory_allocated(dev)
-            reps = [_timed(lambda: step(dparams, dcaches, tokens, pos))[1:] for _ in range(3)]
-            want_l, _ = model.decode(params, caches, tokens, pos)
-            assert torch.equal(logits.to_local(), want_l), "decode logits differ from no mesh's"
-            del logits, want_l
-            written = {}
-            for path, t in flatten_with_paths(caches)[0].items():
-                same = changed = True
-                for i in range(t.shape[0]):
-                    regen = _fill_layer(torch.empty_like(t[i]), seeds[path] + i)
-                    same &= (torch.equal(t[i][:, :pos], regen[:, :pos])
-                             and torch.equal(t[i][:, pos + 1:], regen[:, pos + 1:]))
-                    changed &= not torch.equal(t[i][:, pos], regen[:, pos])
-                    del regen
-                assert same and changed, (path, same, changed)
-                written[path] = f"only pos {pos}, every layer"
-            dflops = _counted_flops(lambda: step(dparams, dcaches, tokens, pos))
-            read = tree_nbytes(caches) + tree_nbytes(params)
-            med_ms = statistics.median([ms for _, ms in reps])
-            decode = {"shape": f"B{dec.global_batch} over {dec.seq_len} positions (decode_32k / "
-                               f"{DRYRUN_DATA_RANKS} data ranks), pos {pos}",
-                      "wall_s": wall, "device_ms": dev_ms,
-                      "steady_device_ms": [ms for _, ms in reps], "steady_wall_s":
-                      [w for w, _ in reps], "bitwise_equal_no_mesh": {"logits": True},
-                      "written": written, "flops": dflops,
-                      "bytes_read_bound": read, "bound_ms": read / HBM_BYTES_PER_S * 1e3,
-                      "bound_share": read / HBM_BYTES_PER_S * 1e3 / med_ms,
-                      "cache_bytes": tree_nbytes(caches), "max_memory_allocated": dpeak}
-            del caches, dcaches, dparams
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
+        # qwen3's cells in a frame of their own: none of their tensors (the
+        # 30 GB decode cache) outlives it
+        prefill, decode = run_1x1_cells(dev)
+        tp_cells = run_dryrun_tp(dev)
         cells = finish_dryrun(procs, out_dir)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for name, real in (("prefill_32k", prefill), ("decode_32k", decode)):
-        cell = cells[name]
+    names = {shape: name for arch, shape, _, _, _, name in _dryrun_cells()
+             if arch == DRYRUN_ARCH}
+    for shape, real in (("prefill_32k", prefill), ("decode_32k", decode)):
+        cell = cells[names[shape]]
+        real["path"] = cell["path"]
         real["dryrun"] = {k: cell[k] for k in ("cost", "memory", "collectives", "trace_s",
                                                "total_s")}
         real["flops_rel_diff"] = abs(real["flops"] - cell["cost"]["flops"]) / cell["cost"]["flops"]
         real["peak_over_dryrun_peak"] = (real["max_memory_allocated"]
                                          / cell["memory"]["peak_memory_in_bytes"])
-        assert real["flops_rel_diff"] <= DRYRUN_FLOPS_TOL, (name, real["flops"], cell["cost"])
+        assert real["flops_rel_diff"] <= DRYRUN_FLOPS_TOL, (shape, real["flops"], cell["cost"])
+    card = torch.cuda.get_device_properties(dev).total_memory
+    for (arch, shape, seq_shard, _, _, name), real in zip(
+            [c for c in _dryrun_cells() if c[0] == DRYRUN_TP_ARCH], tp_cells):
+        cell = cells[name]
+        flops = cell["cost"]["flops"]
+        real.update({
+            "dryrun": {k: cell[k] for k in ("cost", "memory", "collectives", "trace_s",
+                                            "total_s")},
+            "dryrun_flops": flops, "tflops_per_s": flops / real["device_ms"] / 1e9,
+            "bf16_peak_share": flops / (real["device_ms"] / 1e3) / BF16_FLOPS,
+            "card_memory_bytes": card,
+            "peak_over_dryrun_peak": (real["max_memory_allocated"]
+                                      / cell["memory"]["peak_memory_in_bytes"]),
+            "peak_over_card": real["max_memory_allocated"] / card})
+        assert real["max_memory_allocated"] < card, (name, real["max_memory_allocated"], card)
+    tp = dict(zip([f"{shape}" + ("_seq_shard" if ss else "") for shape, ss, _ in DRYRUN_TP_CELLS],
+                  tp_cells))
+    launches = {k: prefill["launches"][k] + sum(c["launches"][k] for c in tp_cells)
+                for k in prefill["launches"]}
     return {"arch": DRYRUN_ARCH, "mesh": "1x1 (data, model), cuda, nccl, world 1",
-            "dryrun_mesh": "16x16 fake cuda (256 ranks)", "prefill_32k": prefill,
-            "decode_32k": decode, "launches": prefill["launches"]}
+            "dryrun_mesh": f"{DRYRUN_MESH} fake cuda ({DRYRUN_DATA_RANKS} ranks): the 1x1 "
+                           "step's per-device program (the whole model, a 16th of the batch)",
+            "prefill_32k": prefill,
+            "decode_32k": decode, "tensor_parallel": {
+                "arch": DRYRUN_TP_ARCH, "mesh": "16x16 (data, model), rank 0 of a fake group "
+                "of 256 on real card tensors", "not_compared": "the fake group's collectives "
+                "move no bytes and leave their outputs unwritten: no output is compared with "
+                "anything, and no time includes communication", **tp},
+            "launches": launches}
+
+
+def _real_dtensors(specs, shardings, dev, seed: int):
+    """Rank 0's DTensor a leaf of ``specs`` (TensorSpecs) placed by the
+    parallel ``shardings``, each local block real on the card: optimizer
+    moments zero, integers zero, other floating leaves normal * 0.02 from
+    a generator seeded ``seed`` (the values are never compared)."""
+    from repro_torch.distributed.sharding import from_local
+    from repro_torch.utils import flatten_with_paths
+
+    flat, treedef = flatten_with_paths(specs)
+    sh, _ = flatten_with_paths(shardings)
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {}
+    for path, spec in flat.items():
+        index = sh[path].shard_index(spec.shape, sh[path].mesh.get_coordinate())
+        local = torch.empty([b - a for a, b in index], dtype=spec.dtype, device=dev)
+        if spec.dtype.is_floating_point and not path.startswith(("opt/mu/", "opt/nu/")):
+            local.normal_(0.0, 0.02, generator=gen)
+        else:
+            local.zero_()
+        out[path] = from_local(local, spec.shape, sh[path])
+    return treedef.unflatten(out)
+
+
+def run_dryrun_tp(dev) -> list[dict]:
+    """:data:`DRYRUN_TP_ARCH` at full width and depth, rank 0's
+    tensor-parallel steps of :data:`DRYRUN_TP_CELLS` on the card: this
+    process joins a fake group of 256 ranks (its collectives return at once
+    and write nothing) and makes the 16x16 production mesh over it; the
+    params and train state are rank 0's real blocks (:func:`_real_dtensors`),
+    the batch the global one (each step takes its data block). K3's counts
+    set to 0 just before each step and read just after: the prefill's 64
+    launches all tensor-core. Each step's wall and device time (CUDA
+    events; the collectives take none) and peak memory, each step run
+    once. The group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.steps import (make_prefill_step, make_train_step,
+                                               model_axes_for, state_struct_for,
+                                               train_state_shardings)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.dryrun import join_fake_group
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config(DRYRUN_TP_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.d_ff, cfg.vocab, cfg.dtype) == (64, 12288, 96, 8, 128, 33792, 256000,
+                                                "bfloat16"), cfg
+    gen = torch.Generator(dev).manual_seed(2)
+    out = []
+
+    def counts():
+        return {"flash_attention": flash_attention.launches,
+                "flash_attention_wgmma": flash_attention.wgmma_launches,
+                "flash_attention_lse": flash_attention.lse_launches}
+
+    join_fake_group(256)
+    try:
+        mesh = make_production_mesh(multi_pod=False, device_type="cuda")
+        for shape_name, seq_shard, layers in DRYRUN_TP_CELLS:
+            shape = SHAPES[shape_name]
+            ccfg = cfg.with_(n_layers=layers) if layers else cfg
+            gc.collect()
+            torch.cuda.empty_cache()
+            tokens = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
+                                   generator=gen, device=dev, dtype=torch.int32)
+            if shape.kind == "prefill":
+                step, p_sh, _ = make_prefill_step(ccfg, mesh, shape)
+                args = (_real_dtensors(model_axes_for(ccfg)[1], p_sh, dev, 0), {"tokens": tokens})
+            else:
+                opt_cfg = AdamWConfig(moment_dtype=ccfg.opt_moment_dtype)
+                step = make_train_step(ccfg, opt_cfg, mesh=mesh, seq_shard=seq_shard)
+                state = _real_dtensors(state_struct_for(ccfg, opt_cfg),
+                                       train_state_shardings(ccfg, opt_cfg, mesh), dev, 0)
+                args = (state, {"tokens": tokens, "labels": tokens})
+            torch.cuda.synchronize(dev)
+            held = torch.cuda.memory_allocated(dev)
+            flash_attention.launches = flash_attention.wgmma_launches = 0
+            flash_attention.lse_launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            res, wall, dev_ms = _timed(lambda: step(*args))
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            del res
+            rec = {"shape": f"{shape_name}: B{shape.global_batch // 16} S{shape.seq_len} a "
+                            "device (16 data ranks), 6 q heads / 1 kv head, mlp 2112, vocab "
+                            "16000 a model rank" + (", seq_shard" if seq_shard else ""),
+                   "path": step.path, "wall_s": wall, "device_ms": dev_ms,
+                   "launches": launches, "arguments_bytes": held,
+                   "max_memory_allocated": peak,
+                   "depth_cut": f"{layers} of {cfg.n_layers} layers" if layers else None}
+            if shape.kind == "prefill":
+                assert launches == {"flash_attention": ccfg.n_layers,
+                                    "flash_attention_wgmma": ccfg.n_layers,
+                                    "flash_attention_lse": 0}, launches
+            else:  # the forward and its recomputation in the backward, with lse
+                assert launches == {"flash_attention": 2 * ccfg.n_layers,
+                                    "flash_attention_wgmma": 2 * ccfg.n_layers,
+                                    "flash_attention_lse": 2 * ccfg.n_layers}, launches
+            assert step.path == "tp", step.path
+            del args, tokens
+            out.append(rec)
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_quickstart() -> dict:
@@ -2917,11 +3133,13 @@ def main() -> int:
         del vision
 
         # the dry run and its cells' per-device steps on a 1x1 mesh, the
-        # card nearly empty (the decode cell's cache is 30 GB); K3's counts
-        # from 0 just before the prefill step, read just after
+        # card nearly empty (the decode cell's cache is 30 GB), then
+        # command-r's tensor-parallel steps under a fake 16x16 group; K3's
+        # counts from 0 just before each step, read just after
         dry = run_dryrun(work / "dryrun", dev)
         by_path["dryrun"] = {"flash_attention": dry["launches"]["flash_attention"]}
-        emit("dryrun", **dry, k3=k3["at_prefill_32k"], nvidia_smi=smi,
+        emit("dryrun", **dry, k3=k3["at_prefill_32k"], k3_tensor_parallel=k3["at_command_r_32k"],
+             k3_head_slices=k3["head_slices"], nvidia_smi=smi,
              disk=disk.mark("dryrun", dir_bytes(work / "dryrun")))
         del dry
 
@@ -3150,7 +3368,9 @@ def main() -> int:
                          "at_whisper_cross": k["at_whisper_cross"],
                          "at_whisper_decoder": k["at_whisper_decoder"],
                          "at_internvl2": k["at_internvl2"],
-                         "at_prefill_32k": k["at_prefill_32k"], "training": k3_train,
+                         "at_prefill_32k": k["at_prefill_32k"],
+                         "at_command_r_32k": k["at_command_r_32k"],
+                         "head_slices": k["head_slices"], "training": k3_train,
                          "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid,
                          "lse_new_shapes": k3_lse_new}
                         if name == "flash_attention" else {})})

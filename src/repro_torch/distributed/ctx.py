@@ -3,13 +3,19 @@
 Port of the JAX package's ``repro/distributed/ctx.py``. The model code
 stays mesh-agnostic: it calls ``constrain(x, kind)`` at a few points
 (residual stream, MoE dispatch buffer), and a step builder installs a
-:class:`~repro_torch.distributed.sharding.NamedSharding` for each kind.
-Where the reference steers GSPMD with ``with_sharding_constraint``, here a
-DTensor is redistributed to the installed placements. A plain tensor is
-returned unchanged: the sharded train step (``distributed/steps.py``)
-gathers each weight and computes on local tensors, so its activations are
-plain tensors and these points are where tensor-parallel compute would
-place them.
+constraint for each kind. Where the reference steers GSPMD with
+``with_sharding_constraint``:
+
+* a DTensor is redistributed to an installed
+  :class:`~repro_torch.distributed.sharding.NamedSharding`;
+* a plain local tensor (the tensor-parallel steps compute on those,
+  ``distributed/tp.py``) goes through an installed callable: under
+  ``seq_shard`` the train step installs :class:`~repro_torch.distributed.tp.SeqParallel`
+  for ``resid``, which makes the residual stream each model rank's block
+  of the sequence (the layers all-gather it along S before the attention
+  and the FFN and reduce-scatter their outputs).
+
+Anything else, or a kind with nothing installed, is returned unchanged.
 
 Kinds:
   resid    — (B, S, E) residual stream between layers
@@ -37,13 +43,17 @@ def sharding_context(constraints: Mapping[str, Any]):
 
 
 def constrain(x, kind: str):
-    """``x`` redistributed to the placements installed for ``kind`` when
-    ``x`` is a DTensor and one is installed; otherwise ``x`` itself."""
+    """``x`` under the constraint installed for ``kind``: a DTensor
+    redistributed to an installed ``NamedSharding``, a plain tensor passed
+    through an installed callable; otherwise ``x`` itself."""
     c = _CONSTRAINTS.get()
     if not c or kind not in c:
         return x
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.distributed.sharding import redistribute
+    from repro_torch.distributed.sharding import NamedSharding, redistribute
 
-    return redistribute(x, c[kind]) if isinstance(x, DTensor) else x
+    want = c[kind]
+    if isinstance(x, DTensor):
+        return redistribute(x, want) if isinstance(want, NamedSharding) else x
+    return x if isinstance(want, NamedSharding) else want(x)

@@ -13,27 +13,42 @@ returns it.
 
 On a mesh every leaf is a DTensor with the reference's placements
 (:func:`state_shardings`): params by ``DEFAULT_RULES``, the optimizer
-state by ``OPT_RULES`` (ZeRO), ``step``/``rng``/``data`` replicated. The
-step stores by those placements and computes FSDP-style: it gathers every
-weight whole on each rank, runs the model on the rank's batch shard (its
-``data_pspec`` block) with plain local tensors (K3, the MoE scatter and
-the chunked recurrence have no DTensor rules), weights the rank's mean
-loss by its share of the global valid labels, sums the gradients over the
-batch axes, and updates each rank's block of the moments and master
+state by ``OPT_RULES`` (ZeRO), ``step``/``rng``/``data`` replicated. Each
+rank computes on its batch shard (its ``data_pspec`` block), weights its
+mean loss by its share of the global valid labels, sums the gradients
+over the batch axes and updates its block of the moments and master
 weights, the new params gathered back to their own placements. The loss
-is the global mean, as the reference's. On a mesh whose batch axes have
-size 1 nothing is summed and every number is the unsharded step's.
-Tensor-parallel compute (placements kept through the layers) is later
-speed work.
+is the global mean, as the reference's. How a rank computes depends on
+the family, and the step records it (``path`` in the train step's
+metrics, ``.path`` on every step):
+
+* ``"tp"`` (``dense`` and ``vlm``: plain GQA and a dense FFN): on its own
+  shards, as the reference's GSPMD program does (``distributed/tp.py``:
+  vocab-parallel embedding and loss, column- then row-parallel FFN and
+  attention, K3 on the rank's q heads). The gradients are the local
+  shards; a whole weight a rank used on its part of the work has its
+  gradient summed over the model axis; the global norm counts every
+  element once; AdamW takes the ``OPT_RULES`` block of each local shard.
+  ``seq_shard`` splits the residual stream along S between layers
+  (Megatron's sequence parallelism).
+* ``"gathered"`` (MoE, MLA, the hybrid and mLSTM mixers, the
+  encoder–decoder, until their ROADMAP items): every weight gathered whole
+  on each rank, the model run on plain local tensors.
+
+On a mesh whose model axis has size 1 nothing is split, and on one whose
+batch axes have size 1 nothing is summed: a 1×1 mesh is the unsharded
+step bit for bit.
 
 The serve steps (:func:`make_prefill_step`, :func:`make_decode_step`)
-compute the same way: the weights gathered, ``Model.prefill``/``decode``
-on the rank's batch block. Their caches are DTensors placed by
-``CACHE_RULES`` (batch over pod×data, seq over model): prefill keeps each
-rank's block of the caches it computed; decode gathers its batch block's
-caches along seq for the attention and writes the new position back into
-the shard that owns it. A mesh axis of size 1 moves nothing, so on a 1×1
-mesh both steps are ``Model.prefill``/``decode`` bit for bit.
+compute the same two ways. Their caches are DTensors placed by
+``CACHE_RULES`` (batch over pod×data, seq over model, every kv head). On
+the ``tp`` path prefill keeps each rank's block of positions of every
+layer's cache (the kv heads gathered along the model axis where they are
+split) and decode attends over each rank's block where it lies
+(flash-decoding's combine across the model axis), the new position
+written by the rank that owns it. On the ``gathered`` path decode gathers
+its batch block's caches along seq and writes the new position back into
+the shard that owns it.
 """
 
 from __future__ import annotations
@@ -65,6 +80,8 @@ from repro_torch.distributed.sharding import (
     sharding_of,
     tree_shardings,
 )
+from repro_torch.distributed import tp
+from repro_torch.distributed.ctx import sharding_context
 from repro_torch.models import transformer as tf
 from repro_torch.models.model import Model, TensorSpec, tree_from_numpy
 from repro_torch.optim.adamw import (AdamWConfig, adamw_leaf, adamw_scalars, adamw_update,
@@ -197,11 +214,12 @@ def batch_to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Ten
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10_000, n_route_groups: int = 0,
-                    moe_buf_shard: bool = False, mesh=None):
+                    seq_shard: bool = False, moe_buf_shard: bool = False, mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``: the loss and
     its gradient, the warmup-cosine learning rate at ``state["step"]``, one
     AdamW update, the step and data counters advanced, all in place on
-    ``state``. ``metrics``: 0-d tensors ``loss``, ``lr``, ``grad_norm``.
+    ``state``. ``metrics``: 0-d tensors ``loss``, ``lr``, ``grad_norm``
+    (and on a mesh the compute ``path``).
 
     With ``mesh``, ``state`` is the DTensor state of :func:`make_init_fn`
     and ``batch`` the global batch, which every rank holds whole: each
@@ -209,18 +227,27 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3
 
     MoE routing groups default to the data-parallel degree, as in the
     reference (the product of the mesh's batch axes; 1 on one device), so
-    each batch shard routes as its own group. ``moe_buf_shard`` (the
-    reference's expert-sharded dispatch buffer) is refused: this step runs
-    the MoE on plain local tensors, so there is no DTensor buffer to place
-    until the expert-parallel compute lands (ROADMAP, speed follow-ups)."""
+    each batch shard routes as its own group. ``seq_shard`` (the
+    reference's sequence-parallel residual stream) needs a mesh and the
+    ``tp`` path. ``moe_buf_shard`` (the reference's expert-sharded
+    dispatch buffer) is refused: the MoE runs on gathered local tensors
+    until its expert-parallel compute lands (:func:`tp.later_items`)."""
     if moe_buf_shard:
         raise NotImplementedError(
             "moe_buf_shard: the sharded step gathers the experts and runs the MoE on local "
-            "tensors, so its dispatch buffer is not a DTensor to shard; expert-parallel "
-            "compute is a speed follow-up (ROADMAP queue 1, speed follow-ups: the mesh)")
+            "tensors, so there is no expert-sharded dispatch buffer; it comes with "
+            "expert-parallel compute (ROADMAP queue 1, item 4d)")
+    if seq_shard and mesh is None:
+        raise ValueError("seq_shard splits the residual stream over a mesh's model axis: "
+                         "it needs a mesh")
+    if seq_shard and tp.compute_path(cfg) != "tp":
+        raise NotImplementedError(
+            f"seq_shard: {cfg.name}'s sharded step gathers its weights and computes on "
+            f"local tensors; its tensor-parallel compute is {tp.later_items(cfg)}")
     if mesh is not None:
         return _make_sharded_train_step(cfg, opt_cfg, mesh, peak_lr=peak_lr, warmup=warmup,
-                                        total_steps=total_steps, n_route_groups=n_route_groups)
+                                        total_steps=total_steps, n_route_groups=n_route_groups,
+                                        seq_shard=seq_shard)
     n_groups = n_route_groups or 1
     # torch.utils.checkpoint's first call imports torch._dynamo, and that
     # import keeps its caller's frames alive for good: whatever train state
@@ -265,11 +292,10 @@ def _local(t):
 
 
 def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, peak_lr: float,
-                             warmup: int, total_steps: int, n_route_groups: int):
+                             warmup: int, total_steps: int, n_route_groups: int,
+                             seq_shard: bool):
     import torch.distributed as dist
     import torch._dynamo  # noqa: F401  (see make_train_step)
-
-    from repro_torch.distributed.sharding import axis_sizes, mesh_coordinate
 
     model = Model(cfg)
     selection_only = model.selection_only_paths()
@@ -278,6 +304,10 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
         n_route_groups = 1
         for a in batch_axes(mesh):
             n_route_groups *= sizes[a]
+    path = tp.compute_path(cfg)
+    model_axes, params_struct = model_axes_for(cfg)
+    p_sh = tree_shardings(model_axes, params_struct, mesh, DEFAULT_RULES)
+    plan = tp.plan_for(cfg, p_sh, mesh, seq_shard=seq_shard) if path == "tp" else None
 
     @torch.no_grad()
     def shard_batch(batch: dict[str, torch.Tensor]):
@@ -305,12 +335,18 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
             raise ValueError(f"{n_route_groups} routing groups do not split over {shards} "
                              "batch shards")
         p_flat, treedef = flatten_with_paths(state["params"])
-        full = flatten_with_paths(_gather_params(state["params"]))[0]  # FSDP gather
+        full = flatten_with_paths(_params_for(state["params"], path))[0]
         leaves = {k: v.detach().requires_grad_(True) for k, v in full.items()}
-        loss = model.loss(treedef.unflatten(leaves), local, n_groups=n_route_groups // shards)
-        if share is not None:
-            loss = loss * share
-        grads = _gradients(loss, leaves, selection_only)
+        constraints = {}
+        if plan is not None and plan.seq_shard:
+            s_total = local["tokens"].shape[1] + cfg.vision_prefix
+            constraints["resid"] = tp.SeqParallel(plan, s_total)
+        with sharding_context(constraints):
+            loss = model.loss(treedef.unflatten(leaves), local,
+                              n_groups=n_route_groups // shards, plan=plan)
+            if share is not None:
+                loss = loss * share
+            grads = _gradients(loss, leaves, selection_only)
         del leaves, full
         loss = loss.detach()
         with torch.no_grad():
@@ -320,36 +356,76 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
                     reduce(g, axes)
             lr = warmup_cosine(_local(state["step"]), peak_lr=peak_lr, warmup=warmup,
                                total=total_steps)
-            om = _adamw_sharded(grads, state["opt"], p_flat, lr, opt_cfg)
+            om = _adamw_sharded(grads, state["opt"], p_flat, lr, opt_cfg, plan)
         del grads
         _local(state["step"]).add_(1)
         _local(state["data"]["data_step"]).add_(1)
-        return state, {"loss": loss, "lr": lr, **om}
+        return state, {"loss": loss, "lr": lr, **om, "path": path}
 
     mesh_coordinate(mesh)  # this rank must be in the mesh
+    train_step.path = path
     return train_step
+
+
+def _split_on_model(t) -> bool:
+    """Whether a DTensor's placements split it over the model axis."""
+    from torch.distributed.tensor import Shard
+
+    names = axis_names(t.device_mesh)
+    return "model" in names and isinstance(t.placements[names.index("model")], Shard)
+
+
+def _grad_block(g: torch.Tensor, p, master) -> torch.Tensor:
+    """The block of ``master``'s placements (``OPT_RULES``) in a gradient
+    that is the param ``p``'s whole tensor or its local shard
+    (``DEFAULT_RULES``), which holds it."""
+    coord = mesh_coordinate(master.device_mesh)
+    want = sharding_of(master).shard_index(master.shape, coord)
+    have = (tuple((0, n) for n in master.shape) if tuple(g.shape) == tuple(master.shape)
+            else sharding_of(p).shard_index(p.shape, coord))
+    if any(m0 < h0 or m1 > h1 for (m0, m1), (h0, h1) in zip(want, have)):
+        raise ValueError(f"the optimizer block {want} is not inside the gradient's {have}")
+    return g[tuple(slice(m0 - h0, m1 - h0) for (m0, m1), (h0, _) in zip(want, have))]
+
+
+def _sum_squares(tensors: list, device) -> torch.Tensor:
+    """float32 sum of every element's square, tensors added in order (as
+    ``global_norm``'s)."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for x in tensors:
+        total = total + torch.sum(torch.square(x.float()))
+    return total
 
 
 @torch.no_grad()
 def _adamw_sharded(grads: dict[str, torch.Tensor], opt_state: dict, p_flat: dict, lr,
-                   cfg: AdamWConfig) -> dict:
-    """``optim.adamw.adamw_update`` on DTensor state: ``grads`` whole on
-    every rank (already summed), each rank updating its block of the
-    moments and the master weights; each param is the new master cast to
-    its dtype and gathered to the param's placements."""
+                   cfg: AdamWConfig, plan=None) -> dict:
+    """``optim.adamw.adamw_update`` on DTensor state: ``grads`` already
+    summed, each whole (``gathered``) or the param's local shard (``tp``),
+    each rank updating its block of the moments and the master weights;
+    each param is the new master cast to its dtype and gathered to the
+    param's placements. Under a plan the global norm counts each element
+    once: the split leaves' squares summed over the model axis, the whole
+    leaves' (the same on every model rank) once."""
     with torch.profiler.record_function("adamw_update"):
         mu_flat, _ = flatten_with_paths(opt_state["mu"])
         nu_flat, _ = flatten_with_paths(opt_state["nu"])
         m_flat, _ = flatten_with_paths(opt_state["master"])
         count = _local(opt_state["count"])
         count += 1
-        gnorm = global_norm(grads)
+        if plan is None:
+            gnorm = global_norm(grads)
+        else:
+            split = {k: _split_on_model(p_flat[k]) for k in grads}
+            sq_split = _sum_squares([g for k, g in grads.items() if split[k]], count.device)
+            sq_whole = _sum_squares([g for k, g in grads.items() if not split[k]], count.device)
+            gnorm = torch.sqrt(plan.all_reduce(sq_split) + sq_whole)
         scale, c1, c2 = adamw_scalars(gnorm, count, cfg)
         for path, g in grads.items():
             master = m_flat[path]
             msh = sharding_of(master)
-            adamw_leaf(local_block(g, msh), _local(mu_flat[path]), _local(nu_flat[path]),
-                       master.to_local(), scale, c1, c2, lr, cfg)
+            adamw_leaf(_grad_block(g, p_flat[path], master), _local(mu_flat[path]),
+                       _local(nu_flat[path]), master.to_local(), scale, c1, c2, lr, cfg)
             p = p_flat[path]
             cast = from_local(master.to_local().to(p.dtype), master.shape, msh)
             p.to_local().copy_(redistribute(cast, sharding_of(p)).to_local())
@@ -408,6 +484,22 @@ def _seq_dims(cfg: ArchConfig) -> dict[str, int | None]:
     return {path: axes.index("seq") if "seq" in axes else None for path, axes in flat.items()}
 
 
+def _cache_rows(sharding: NamedSharding, shape) -> tuple[int, int, int]:
+    """``(start, stop, length)`` of this rank's block of a (L, B, S, ...)
+    cache's positions."""
+    a, b = sharding.shard_index(shape, mesh_coordinate(sharding.mesh))[2]
+    return a, b, shape[2]
+
+
+def _params_for(params, path: str):
+    """The params a step computes on: each rank's own shards (``tp``) or
+    every weight whole (``gathered``, the FSDP-style gather)."""
+    if path == "tp":
+        flat, treedef = flatten_with_paths(params)
+        return treedef.unflatten({k: _local(v) for k, v in flat.items()})
+    return _gather_params(params)
+
+
 def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
     """Returns ``(prefill_step, params_shardings, (logits_sharding,
     cache_shardings))``. ``prefill_step(params, batch) -> (logits,
@@ -415,7 +507,11 @@ def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
     (``DEFAULT_RULES``), batch leaves DTensors placed by
     :func:`batch_shardings` or tensors every rank holds whole; logits (B,
     V) float32 and the caches (``s_max`` = seq_len + the vision prefix)
-    DTensors placed by the returned shardings (``CACHE_RULES``)."""
+    DTensors placed by the returned shardings (``CACHE_RULES``). On the
+    ``tp`` path the model computes each rank's block of positions of the
+    caches itself; on the ``gathered`` path each rank cuts its block out
+    of its batch block's whole caches. ``prefill_step.path`` names the
+    path."""
     model = Model(cfg)
     s_max = shape.seq_len + cfg.vision_prefix
     model_axes, params_struct = model_axes_for(cfg)
@@ -426,29 +522,42 @@ def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
     glob = {path: spec.shape for path, spec in flatten_with_paths(cache_struct)[0].items()}
     logits_shape = (shape.global_batch, cfg.vocab)
     logits_sh = NamedSharding(mesh, data_pspec(mesh, 2, shape.global_batch))
+    path = tp.compute_path(cfg)
+    plan = tp.plan_for(cfg, p_sh, mesh) if path == "tp" else None
+    if plan is not None:
+        plan = plan.with_(cache_seq=_cache_rows(c_flat["g0/k"], glob["g0/k"]))
 
     @torch.no_grad()
     def prefill_step(params, batch: dict):
         b_sh = _batch_shardings(batch, mesh)
         local = {k: _batch_block(v, b_sh[k]) for k, v in batch.items()}
         rows = _rows(b_sh["tokens"], batch["tokens"].shape, 0)
-        logits, caches = model.prefill(_gather_params(params), local, s_max)
+        logits, caches = model.prefill(_params_for(params, path), local, s_max, plan=plan)
         flat, treedef = flatten_with_paths(caches)
         out = {}
-        for path, c in flat.items():
-            sh = c_flat[path]
-            index = sh.shard_index(glob[path], mesh_coordinate(mesh))
+        for name, c in flat.items():
+            sh = c_flat[name]
+            index = sh.shard_index(glob[name], mesh_coordinate(mesh))
             if index[1] != rows:  # dim 1 of every cache is its batch
-                raise ValueError(f"cache {path}'s batch block {index[1]} is not the batch's "
+                raise ValueError(f"cache {name}'s batch block {index[1]} is not the batch's "
                                  f"{rows}")
-            block = c[tuple(slice(None) if d == 1 else slice(a, b)
-                            for d, (a, b) in enumerate(index))]
+            cut = []
+            for d, (a, b) in enumerate(index):
+                if c.shape[d] == b - a:  # already this rank's block (its batch rows too)
+                    cut.append(slice(None))
+                elif c.shape[d] == glob[name][d]:
+                    cut.append(slice(a, b))
+                else:
+                    raise ValueError(f"cache {name} dim {d}: {c.shape[d]} is neither the "
+                                     f"block {b - a} nor the whole {glob[name][d]}")
+            block = c[tuple(cut)]
             # the whole computed cache is this rank's block where nothing splits it
-            out[path] = from_local(block if block.shape == c.shape else block.contiguous(),
-                                   glob[path], sh)
+            out[name] = from_local(block if block.shape == c.shape else block.contiguous(),
+                                   glob[name], sh)
         del flat, caches
         return from_local(logits, logits_shape, logits_sh), treedef.unflatten(out)
 
+    prefill_step.path = path
     return prefill_step, p_sh, (logits_sh, c_sh)
 
 
@@ -459,7 +568,10 @@ def make_decode_step(cfg: ArchConfig, mesh, shape: InputShape):
     caches the DTensor tree placed by ``cache_shardings`` (``CACHE_RULES``),
     written in place at ``pos`` and returned; tokens (B, 1) a DTensor placed
     by :func:`batch_shardings` or a tensor every rank holds whole; pos an
-    int; logits (B, 1, V) float32 placed over the batch axes."""
+    int; logits (B, 1, V) float32 placed over the batch axes. On the ``tp``
+    path each rank attends over its block of positions where it lies; on
+    the ``gathered`` path it gathers its batch block's caches along seq.
+    ``decode_step.path`` names the path."""
     model = Model(cfg)
     model_axes, params_struct = model_axes_for(cfg)
     p_sh = tree_shardings(model_axes, params_struct, mesh, DEFAULT_RULES)
@@ -470,6 +582,12 @@ def make_decode_step(cfg: ArchConfig, mesh, shape: InputShape):
     sizes = axis_sizes(mesh)
     names = axis_names(mesh)
     seq_dims = _seq_dims(cfg)
+    path = tp.compute_path(cfg)
+    plan = tp.plan_for(cfg, p_sh, mesh) if path == "tp" else None
+    if plan is not None:
+        k_spec = flatten_with_paths(cache_struct)[0]["g0/k"]
+        plan = plan.with_(cache_seq=_cache_rows(flatten_with_paths(c_sh)[0]["g0/k"],
+                                                k_spec.shape))
 
     @torch.no_grad()
     def decode_step(params, caches, tokens, pos: int):
@@ -481,29 +599,32 @@ def make_decode_step(cfg: ArchConfig, mesh, shape: InputShape):
         rows = _rows(tok_sh, tokens.shape, 0)
         flat, treedef = flatten_with_paths(caches)
         work, gathered = {}, {}
-        for path, c in flat.items():
+        for name, c in flat.items():
             sh = sharding_of(c)
             if _rows(sh, c.shape, 1) != rows:
-                raise ValueError(f"cache {path}'s batch block is not the tokens' {rows}")
-            d = seq_dims[path]
+                raise ValueError(f"cache {name}'s batch block is not the tokens' {rows}")
+            d = seq_dims[name]
             seq_axes = entry_axes(sh.spec[d]) if d is not None and d < len(sh.spec) else ()
-            if any(sizes[a] > 1 for a in seq_axes):  # gather this batch block along seq
+            if path == "gathered" and any(sizes[a] > 1 for a in seq_axes):
+                # gather this batch block along seq
                 pl = list(c.placements)
                 for a in seq_axes:
                     pl[names.index(a)] = Replicate()
-                work[path] = c.redistribute(c.device_mesh, pl).to_local()
-                gathered[path] = (d, _rows(sh, c.shape, d))
-            else:  # the local block is the batch block whole: written in place
-                work[path] = c.to_local()
-        logits, _ = model.decode(_gather_params(params), treedef.unflatten(work), tok, pos)
-        for path, (d, (a, b)) in gathered.items():
-            if path.rsplit("/", 1)[-1] in ("xk", "xv"):
+                work[name] = c.redistribute(c.device_mesh, pl).to_local()
+                gathered[name] = (d, _rows(sh, c.shape, d))
+            else:  # the local block, written in place
+                work[name] = c.to_local()
+        logits, _ = model.decode(_params_for(params, path), treedef.unflatten(work), tok, pos,
+                                 plan=plan)
+        for name, (d, (a, b)) in gathered.items():
+            if name.rsplit("/", 1)[-1] in ("xk", "xv"):
                 continue  # the cross caches hold the encoder's frames: decode only reads them
-            slot = pos % work[path].shape[d]  # a window's rolling slot, else pos
+            slot = pos % work[name].shape[d]  # a window's rolling slot, else pos
             if a <= slot < b:  # this rank's shard owns the new position
-                flat[path].to_local().narrow(d, slot - a, 1).copy_(
-                    work[path].narrow(d, slot, 1))
+                flat[name].to_local().narrow(d, slot - a, 1).copy_(
+                    work[name].narrow(d, slot, 1))
         del work
         return from_local(logits, logits_shape, logits_sh), caches
 
+    decode_step.path = path
     return decode_step, p_sh, c_sh

@@ -1,0 +1,61 @@
+"""K3 on a tensor-parallel rank's q heads, on the card.
+
+A rank of the model axis calls K3 on its own q heads ``[h0, h1)`` and
+the kv heads they read (``distributed/tp.py``'s ``Plan.head_ranges``):
+its block of them where the kv heads are split, else the view ``[h0 // G,
+(h1 - 1) // G + 1)`` of the whole (B, S, KV, D) projection, read through
+its strides (a view the tensor-core kernel's TMA takes without a copy
+where its strides are whole 16-byte units). :func:`check_head_slices`
+holds each rank's call bitwise against the same heads of one call over
+every head. ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# (batch, q heads, kv heads, positions, head dim, model ranks): qwen3-1.7b's
+# serve prefill on a 16-way model axis (1 q head a rank, G 2: one kv head
+# of the whole projection), command-r-plus-104b's (6 q heads a rank, G 12)
+HEAD_SLICE_CASES = {
+    "qwen3_serve_16": (1, 16, 8, 2048, 128, 16),
+    "command_r_16": (2, 96, 8, 2048, 128, 16),
+}
+
+
+def check_head_slices(dev, b: int, h: int, hkv: int, s: int, d: int, ranks: int,
+                      seed: int = 0) -> dict:
+    """Causal bf16 K3 over every head of (B, S, H, D) q and (B, S, KV, D)
+    k/v (the model's layouts), then each of ``ranks`` ranks' call on its q
+    heads (a contiguous tensor, as its own projection is) and its view of
+    k/v: ``bitwise`` when every rank's output equals its heads of the
+    whole call bit for bit; ``views_taken_as_is`` when the TMA read every
+    view without a copy; the tensor-core launches of the rank calls."""
+    from repro_torch.distributed.tp import Plan
+    from repro_torch.kernels.flash_attention.ops import _tma_ready, flash_attention
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    whole = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=True)
+    bitwise, as_is, ranges = True, True, []
+    before = flash_attention.wgmma_launches
+    for r in range(ranks):
+        plan = Plan(group=None, size=ranks, rank=r, vocab=False, heads=True,
+                    kv_heads=hkv % ranks == 0, mlp=False)
+        h0, h1, k0, k1 = plan.head_ranges(h, hkv)
+        kv0, kv1 = (0, k1 - k0) if plan.kv_heads else (k0, k1)  # a split block is local
+        qs = q[:, :, h0:h1].contiguous().transpose(1, 2)
+        ks = (k[:, :, k0:k1].contiguous() if plan.kv_heads else k[:, :, kv0:kv1]).transpose(1, 2)
+        vs = (v[:, :, k0:k1].contiguous() if plan.kv_heads else v[:, :, kv0:kv1]).transpose(1, 2)
+        as_is &= all(_tma_ready(t) is t for t in (qs, ks, vs))
+        got = flash_attention(qs, ks, vs, causal=True)
+        bitwise &= torch.equal(got, whole[:, h0:h1])
+        ranges.append((h0, h1, k0, k1))
+    torch.cuda.synchronize(dev)
+    return {"shape": f"q bf16[{b},{h},{s},{d}] k/v bf16[{b},{hkv},{s},{d}] causal, "
+                     f"{ranks} ranks of [{b},{h // ranks},{s},{d}]",
+            "first_rank_heads": ranges[0], "bitwise": bool(bitwise),
+            "views_taken_as_is": bool(as_is),
+            "rank_wgmma_launches": flash_attention.wgmma_launches - before}

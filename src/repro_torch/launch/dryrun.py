@@ -17,10 +17,19 @@ with the reference's keys (``arch``, ``shape``, ``mesh``, ``chips``,
 ``params``, ``active_params``, ``ok``/``error``/``traceback`` or
 ``skipped``, ``total_s``, ``cost`` with ``flops`` and ``bytes
 accessed``, ``hlo``, ``collectives``, ``memory``), ``trace_s`` in place
-of ``lower_s``/``compile_s``. Every number is per device. The steps
-compute FSDP-style (every weight gathered, the model run on the rank's
-batch block), so a rank's FLOPs are its batch block's whole model, where
-the reference's GSPMD program also splits the model axis.
+of ``lower_s``/``compile_s``, and ``path``: how the steps compute
+(``distributed/steps.py``). Every number is per device. On the ``tp``
+path (the dense and vlm families) a rank computes on its shards of the
+model axis, as the reference's GSPMD program does; on the ``gathered``
+path (MoE, MLA, the hybrid and mLSTM mixers, the encoder–decoder, until
+their ROADMAP items) it gathers every weight and runs the model on its
+batch block.
+
+``--seq-shard`` (the sequence-parallel residual stream of the train
+step; ``__seqshard`` in a train cell's file name) is taken for the
+``tp`` families and refused for the others, as is ``--moe-buf-shard``
+(the dense and vlm families have no MoE buffer, so it changes nothing
+there, as in the reference).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --device cpu --arch qwen3-1.7b \\
         --shape prefill_32k [--multi-pod | --both-meshes] [--out DIR]
@@ -43,9 +52,21 @@ from pathlib import Path
 from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.configs.base import ArchConfig, InputShape
 
-TENSOR_PARALLEL = ("{} needs tensor-parallel compute (placements kept through the layers); the "
-                   "steps gather every weight and compute on local tensors (ROADMAP queue 1, "
-                   "speed follow-ups: the mesh, tensor-parallel compute)")
+REFUSED = ("{flag} needs tensor-parallel compute; {arch}'s steps gather every weight and "
+           "compute on local tensors until {items}")
+
+
+def check_flags(archs: list[str], seq_shard: bool, moe_buf_shard: bool) -> None:
+    """Raise ``NotImplementedError`` for ``--seq-shard`` or
+    ``--moe-buf-shard`` on an arch whose steps gather their weights."""
+    from repro_torch.distributed.tp import compute_path, later_items
+
+    for arch in archs:
+        cfg = get_config(arch)
+        for flag, on in (("--seq-shard", seq_shard), ("--moe-buf-shard", moe_buf_shard)):
+            if on and compute_path(cfg) != "tp":
+                raise NotImplementedError(REFUSED.format(flag=flag, arch=arch,
+                                                         items=later_items(cfg)))
 
 
 def should_skip(cfg: ArchConfig, shape: InputShape) -> str | None:
@@ -89,11 +110,13 @@ def _fake_dtensors(specs, shardings, device):
     return treedef.unflatten(out)
 
 
-def build_lowered(cfg: ArchConfig, shape: InputShape, mesh, device: str) -> tuple:
+def build_lowered(cfg: ArchConfig, shape: InputShape, mesh, device: str, *,
+                  seq_shard: bool = False) -> tuple:
     """``(step, args)``: the cell's step and its arguments, DTensors of fake
     blocks placed by the step's shardings (call under ``FakeTensorMode``).
     The reference's function of this name lowers the jitted step; here the
-    trace is the run (:func:`trace_cell`)."""
+    trace is the run (:func:`trace_cell`). ``seq_shard`` goes to the train
+    step."""
     import torch
 
     from repro_torch.distributed.steps import (batch_shardings, make_decode_step,
@@ -106,7 +129,7 @@ def build_lowered(cfg: ArchConfig, shape: InputShape, mesh, device: str) -> tupl
     specs = input_specs(cfg, shape)
     if shape.kind == "train":
         opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
-        step = make_train_step(cfg, opt_cfg, mesh=mesh)
+        step = make_train_step(cfg, opt_cfg, mesh=mesh, seq_shard=seq_shard)
         state = _fake_dtensors(state_struct_for(cfg, opt_cfg),
                                train_state_shardings(cfg, opt_cfg, mesh), device)
         # the train step takes the global batch whole on every rank
@@ -126,17 +149,18 @@ def build_lowered(cfg: ArchConfig, shape: InputShape, mesh, device: str) -> tupl
     raise ValueError(shape.kind)
 
 
-def trace_cell(cfg: ArchConfig, shape: InputShape, mesh, device: str) -> dict:
+def trace_cell(cfg: ArchConfig, shape: InputShape, mesh, device: str, *,
+               seq_shard: bool = False) -> dict:
     """One step of the cell on ``mesh`` under ``FakeTensorMode``, counted:
     ``{"hlo": StepCounter.result(), "memory": ..., "trace_s": ...,
-    "flops_by_op": ...}``."""
+    "flops_by_op": ..., "path": ...}``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.hlo_stats import StepCounter
 
     counter = StepCounter()
     with FakeTensorMode():
-        step, args = build_lowered(cfg, shape, mesh, device)
+        step, args = build_lowered(cfg, shape, mesh, device, seq_shard=seq_shard)
         counter.hold(args)
         t0 = time.perf_counter()
         with counter:
@@ -144,7 +168,7 @@ def trace_cell(cfg: ArchConfig, shape: InputShape, mesh, device: str) -> dict:
         trace_s = time.perf_counter() - t0
         memory = counter.memory(out)
     return {"hlo": counter.result(), "memory": memory, "trace_s": trace_s,
-            "flops_by_op": counter.by_op}
+            "flops_by_op": counter.by_op, "path": step.path}
 
 
 PRODUCTION = {False: "16x16", True: "2x16x16"}  # multi_pod -> the mesh
@@ -152,11 +176,14 @@ PRODUCTION = {False: "16x16", True: "2x16x16"}  # multi_pod -> the mesh
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: bool = False,
              *, variant: str = "", cfg_overrides: dict | None = None, device: str = "cuda",
-             mesh_spec: str = "", smoke: bool = False, seq_len: int = 0) -> dict:
+             mesh_spec: str = "", smoke: bool = False, seq_len: int = 0,
+             seq_shard: bool = False, layers: int = 0) -> dict:
     """Trace one cell and write its JSON (or read it back, without
     ``force``). For small cells (tests): ``mesh_spec`` ("4x4", "2x2x2")
     replaces the production mesh, ``smoke`` takes the arch's smoke config,
-    ``seq_len`` replaces the shape's."""
+    ``seq_len`` replaces the shape's, ``layers`` cuts the depth (widths
+    kept; ``__l<N>`` in the name). ``seq_shard`` applies to train cells
+    (``__seqshard`` in their name)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.train import mesh_for, parse_mesh
@@ -164,7 +191,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: 
     spec = mesh_spec or PRODUCTION[multi_pod]
     tag = f"{arch}__{shape_name}__" + (f"mesh{spec}" if mesh_spec else
                                        ("pod2" if multi_pod else "pod1"))
-    for suffix in ("smoke" if smoke else "", f"s{seq_len}" if seq_len else "", variant):
+    seq_shard = seq_shard and SHAPES[shape_name].kind == "train"
+    for suffix in ("smoke" if smoke else "", f"s{seq_len}" if seq_len else "",
+                   f"l{layers}" if layers else "", "seqshard" if seq_shard else "", variant):
         if suffix:
             tag += f"__{suffix}"
     out_file = out_dir / f"{tag}.json"
@@ -173,6 +202,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: 
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if cfg_overrides:
         cfg = cfg.with_(**cfg_overrides)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
     shape = SHAPES[shape_name]
     if seq_len:
         shape = dataclasses.replace(shape, seq_len=seq_len)
@@ -185,6 +216,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: 
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "device": device,
+        "seq_shard": seq_shard,
     }
     skip = should_skip(cfg, shape)
     if skip:
@@ -197,7 +229,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: 
         join_fake_group(rec["chips"])
         mesh = (mesh_for(spec, device) if mesh_spec
                 else make_production_mesh(multi_pod=multi_pod, device_type=device))
-        traced = trace_cell(cfg, shape, mesh, device)
+        traced = trace_cell(cfg, shape, mesh, device, seq_shard=seq_shard)
+        rec["path"] = traced["path"]
         rec["trace_s"] = round(traced["trace_s"], 2)
         rec["memory"] = traced["memory"]
         rec["cost"] = {"flops": traced["hlo"]["flops"], "bytes accessed": traced["hlo"]["bytes"]}
@@ -225,7 +258,8 @@ def trace_in_group(arch: str, shape_name: str, multi_pod: bool, device: str) -> 
     join_fake_group(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
     traced = trace_cell(get_config(arch), SHAPES[shape_name], mesh, device)
-    return {**traced["hlo"], "memory": traced["memory"], "trace_s": traced["trace_s"]}
+    return {**traced["hlo"], "memory": traced["memory"], "trace_s": traced["trace_s"],
+            "path": traced["path"]}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -246,12 +280,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--mesh", default="", help="a mesh in place of the production one (4x4)")
     ap.add_argument("--smoke", action="store_true", help="the archs' smoke configs")
     ap.add_argument("--seq-len", type=int, default=0, help="in place of each shape's")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut each config's depth to this many layers (0: keep it); widths stay")
     args = ap.parse_args(argv)
-    for flag, on in (("--seq-shard", args.seq_shard), ("--moe-buf-shard", args.moe_buf_shard)):
-        if on:
-            raise NotImplementedError(TENSOR_PARALLEL.format(flag))
     out_dir = Path(args.out)
     archs = [args.arch] if args.arch else list_archs()
+    check_flags(archs, args.seq_shard, args.moe_buf_shard)
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     cfg_overrides = {"remat": args.remat} if args.remat else None
@@ -261,7 +295,8 @@ def main(argv: list[str] | None = None) -> int:
             for shape in shapes:
                 rec = run_cell(arch, shape, mp, out_dir, force=args.force, variant=args.variant,
                                cfg_overrides=cfg_overrides, device=args.device,
-                               mesh_spec=args.mesh, smoke=args.smoke, seq_len=args.seq_len)
+                               mesh_spec=args.mesh, smoke=args.smoke, seq_len=args.seq_len,
+                               seq_shard=args.seq_shard, layers=args.layers)
                 if not rec.get("ok") and "skipped" not in rec:
                     n_fail += 1
     if n_fail:

@@ -17,7 +17,8 @@ so nothing is computed or allocated) and returns the reference's keys:
   collectives  — count and payload (output) bytes per kind, the reference's
                  names: ``all-reduce``, ``all-gather``, ``reduce-scatter``,
                  ``all-to-all``, ``collective-permute`` (GPipe's send and
-                 recv); ``c10d_functional`` ops (DTensor's redistributes)
+                 recv); ``c10d_functional`` ops (DTensor's redistributes,
+                 the tensor-parallel collectives of ``distributed/tp.py``)
                  and the in-place ``c10d`` ops (``dist.all_reduce``) both.
 
 The models loop over their layers in Python, so every layer's ops are seen

@@ -130,54 +130,186 @@ def _cache_from(k: torch.Tensor, v: torch.Tensor, s: int, s_max: int, cfg: ArchC
 
 
 def gqa_train(p, x, cfg: ArchConfig, *, causal: bool = True, use_rope: bool = True,
-              kv_source: torch.Tensor | None = None):
+              kv_source: torch.Tensor | None = None, plan=None):
     """Attention (B, S, E) -> (B, S, E) through K3: the training forward's
     (and the encoder's) self-attention, or cross attention with k/v from
     ``kv_source`` (B, T, E). Under autograd K3 also writes its row
-    statistics and its gradient is the plain backward (``FlashAttention``)."""
+    statistics and its gradient is the plain backward (``FlashAttention``).
+    Under a tensor-parallel ``plan`` (self-attention only) see
+    :func:`_tp_attention`."""
+    if plan is not None:
+        return _tp_attention(p, x, cfg, plan, causal=causal, use_rope=use_rope)[0]
     q, k, v = _rope_qkv(p, x, cfg, use_rope, kv_source)
     return _attend(p, q, k, v, cfg, causal)
 
 
-def gqa_prefill(p, x, cfg: ArchConfig, s_max: int, *, use_rope: bool = True):
+def gqa_prefill(p, x, cfg: ArchConfig, s_max: int, *, use_rope: bool = True, plan=None):
     """The prefill's attention output and its decode cache (k/v padded to
     s_max) from one projection: the reference's ``gqa_train`` and
-    ``gqa_prefill_cache``, which project q/k/v twice to equal results."""
-    q, k, v = _rope_qkv(p, x, cfg, use_rope)
-    return _attend(p, q, k, v, cfg, True), _cache_from(k, v, x.shape[1], s_max, cfg)
+    ``gqa_prefill_cache``, which project q/k/v twice to equal results.
+    Under a ``plan`` the cache is this rank's block of positions
+    (``plan.cache_seq``) with every kv head, the kv heads gathered along the
+    model axis where they are split."""
+    if plan is None:
+        q, k, v = _rope_qkv(p, x, cfg, use_rope)
+        return _attend(p, q, k, v, cfg, True), _cache_from(k, v, x.shape[1], s_max, cfg)
+    y, k, v = _tp_attention(p, x, cfg, plan, causal=True, use_rope=use_rope)
+    if plan.kv_heads:
+        k, v = plan.all_gather(k, 2), plan.all_gather(v, 2)
+    cache = _cache_from(k, v, x.shape[1], s_max, cfg)
+    if plan.cache_seq is not None:
+        a, b, _ = plan.cache_seq
+        cache = {name: c[:, a:b].clone() for name, c in cache.items()}
+    return y, cache
 
 
-def gqa_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, *, use_rope: bool = True):
+def _tp_split(name: str, plan) -> bool:
+    """Whether the attention leaf ``name`` is split on the model axis."""
+    return ((plan.heads and name in ("wq", "bq", "wo"))
+            or (plan.kv_heads and name in ("wk", "wv", "bk", "bv")))
+
+
+def _tp_attention(p, x, cfg: ArchConfig, plan, *, causal: bool, use_rope: bool):
+    """Self-attention on this rank's q heads: ``(y, k, v)``, y (B, S, E)
+    (this rank's positions under ``seq_shard``) and the k/v projections of
+    the kv heads the rank holds (its block where ``kv_heads`` is split,
+    all of them where they are whole).
+
+    ``x`` enters the split region (all-gathered along S under
+    ``seq_shard``); q/k/v are projected from the local weights; K3 runs on
+    the rank's q heads ``[h0, h1)`` and the kv heads they read (where only
+    q heads are split, the view ``[h0 // G, (h1 - 1) // G + 1)`` of the
+    whole projection); ``wo`` is row-parallel and its partial sums are
+    added (reduce-scattered along S under ``seq_shard``), ``bo`` once
+    after. Where the heads are whole, every rank computes them all (on the
+    gathered sequence under ``seq_shard``, then keeps its own positions).
+    A whole weight used on the rank's part of the work (``q_norm`` on its
+    heads, a whole kv projection read through a view, any weight under
+    ``seq_shard``) has its gradient summed over the model axis."""
+    partial = plan.heads or plan.seq_shard
+    w = {name: plan.copy_to(t) if partial and name != "bo" and not _tp_split(name, plan) else t
+         for name, t in p.items()}
+    if plan.seq_shard:
+        x = plan.gather_seq(x)
+    elif plan.heads:
+        x = plan.copy_to(x)
+    q, k, v = _rope_qkv(w, x, cfg, use_rope)
+    h0, h1, k0, k1 = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
+    kr, vr = k, v
+    if plan.heads and not plan.kv_heads:  # the kv heads these q heads read
+        kr, vr = k[:, :, k0:k1], v[:, :, k0:k1]
+    o = flash_attention(q.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2),
+                        causal=causal, window=cfg.window)
+    return _tp_out(w, o.transpose(1, 2), cfg, plan), k, v
+
+
+def _tp_out(w, o: torch.Tensor, cfg: ArchConfig, plan) -> torch.Tensor:
+    """``_out`` on this rank's heads: row-parallel where the heads are split
+    (the ranks' partial sums added), ``bo`` added once after."""
+    y = torch.matmul(o.flatten(-2), w["wo"].flatten(0, 1))
+    if plan.heads:
+        y = plan.scatter_seq(y) if plan.seq_shard else plan.reduce_from(y)
+    elif plan.seq_shard:  # every rank computed every position: keep its own
+        a, b = plan.block(y.shape[1])
+        y = y[:, a:b]
+    if not cfg.attn_bias:
+        return y
+    return y + (plan.copy_to(w["bo"]) if plan.seq_shard else w["bo"])
+
+
+def gqa_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, *, use_rope: bool = True,
+               plan=None):
     """One-token decode: write the cache at ``pos`` (in place), attend over it.
 
     Window caches use rolling slots (pos % W); softmax permutation
-    invariance makes slot order irrelevant.
+    invariance makes slot order irrelevant. Under a ``plan`` see
+    :func:`_tp_decode`.
     """
-    b, s1, _ = x.shape  # s1 == 1
-    kv_n, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    dh = cfg.resolved_head_dim
-    q, k, v = _proj_qkv(p, x, cfg)
-    if use_rope:
-        posv = torch.full((s1,), pos, device=x.device)
-        q = apply_rope(q, posv, cfg.rope_theta)
-        k = apply_rope(k, posv, cfg.rope_theta)
+    if plan is not None:
+        return _tp_decode(p, x, cache, pos, cfg, plan, use_rope=use_rope)
+    q, k, v = _decode_qkv(p, x, pos, cfg, use_rope)
     kc, vc = cache["k"], cache["v"]
     s_max = kc.shape[1]
-    windowed = bool(cfg.window) and cfg.window > 0
-    slot = (pos % s_max) if windowed else pos
-    kc[:, slot:slot + s1] = k
-    vc[:, slot:slot + s1] = v
-    qg = q.reshape(b, s1, kv_n, g, dh)
-    # (B,KV,G,1,Dh) x (B,KV,Dh,S) -> (B,KV,G,1,S) float32 scores
-    sc = torch.matmul(qg.permute(0, 2, 3, 1, 4).float(),
-                      kc.permute(0, 2, 3, 1).float()[:, :, None]) / math.sqrt(dh)
-    idx = torch.arange(s_max, device=x.device)
-    valid = (idx <= pos) if not windowed else ((idx <= pos) | (pos >= s_max))
-    sc = torch.where(valid, sc, NEG)
+    slot = _slot(pos, s_max, cfg)
+    kc[:, slot:slot + 1] = k
+    vc[:, slot:slot + 1] = v
+    sc = _decode_scores(q, kc, pos, 0, s_max, cfg)
     probs = torch.softmax(sc, dim=-1).to(vc.dtype)
     out = torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])  # (B,KV,G,1,Dh)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s1, cfg.n_heads, dh)
-    return _out(p, out, cfg), cache
+    return _out(p, _decode_heads(out, cfg), cfg), cache
+
+
+def _decode_qkv(p, x, pos: int, cfg: ArchConfig, use_rope: bool):
+    """q, k, v (B, 1, heads, Dh) of one decode token at ``pos``."""
+    q, k, v = _proj_qkv(p, x, cfg)
+    if use_rope:
+        posv = torch.full((x.shape[1],), pos, device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
+    return q, k, v
+
+
+def _slot(pos: int, s_max: int, cfg: ArchConfig) -> int:
+    """The cache position ``pos`` is written at: a window's rolling slot
+    (pos % W), else pos."""
+    return pos % s_max if cfg.window and cfg.window > 0 else pos
+
+
+def _decode_scores(q, kc, pos: int, start: int, s_max: int, cfg: ArchConfig):
+    """(B, KV, G, 1, S) float32 scores of q (B, 1, H, Dh) against the cache
+    positions ``[start, start + S)`` of ``kc`` (B, S, KV, Dh), a cache of
+    ``s_max`` in all; the positions not yet written masked to NEG."""
+    b, s1, _, dh = q.shape
+    qg = q.reshape(b, s1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, dh)
+    # (B,KV,G,1,Dh) x (B,KV,Dh,S) -> (B,KV,G,1,S)
+    sc = torch.matmul(qg.permute(0, 2, 3, 1, 4).float(),
+                      kc.permute(0, 2, 3, 1).float()[:, :, None]) / math.sqrt(dh)
+    idx = torch.arange(start, start + kc.shape[1], device=q.device)
+    windowed = bool(cfg.window) and cfg.window > 0
+    valid = (idx <= pos) if not windowed else ((idx <= pos) | (pos >= s_max))
+    return torch.where(valid, sc, NEG)
+
+
+def _decode_heads(out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """(B, KV, G, 1, Dh) attention outputs as (B, 1, H, Dh)."""
+    b, _, _, s1, dh = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s1, cfg.n_heads, dh)
+
+
+def _tp_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, plan, *, use_rope: bool):
+    """One-token decode over this rank's block of the cache's positions
+    (``plan.cache_seq``: every kv head, the positions ``[a, b)`` of
+    ``s_max``), where it lies: the new q heads (and k/v heads where they
+    are split) all-gathered over the model axis (a few KB); the new k/v
+    written only by the rank whose block holds the slot; each rank's
+    scores for every head over its positions, the row maximum and the sum
+    of exponentials all-reduced (flash-decoding's combine), so each rank's
+    probabilities are its block of the whole softmax; the partial
+    outputs added; then ``wo`` row-parallel on the rank's heads."""
+    q, k, v = _decode_qkv(p, x, pos, cfg, use_rope)
+    if plan.kv_heads:
+        k, v = plan.all_gather(k, 2), plan.all_gather(v, 2)
+    if plan.heads:
+        q = plan.all_gather(q, 2)
+    kc, vc = cache["k"], cache["v"]
+    a, e, s_max = plan.cache_seq or (0, kc.shape[1], kc.shape[1])
+    slot = _slot(pos, s_max, cfg)
+    if a <= slot < e:  # this rank's block holds the new position
+        kc[:, slot - a:slot - a + 1] = k
+        vc[:, slot - a:slot - a + 1] = v
+    sc = _decode_scores(q, kc, pos, a, s_max, cfg)
+    if e - a == s_max:  # the whole cache on every rank: nothing to combine
+        probs = torch.softmax(sc, dim=-1).to(vc.dtype)
+        out = torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])
+    else:
+        m = plan.all_reduce(sc.amax(dim=-1, keepdim=True), "max")
+        ex = torch.exp(sc - m)
+        probs = (ex / plan.all_reduce(ex.sum(dim=-1, keepdim=True))).to(vc.dtype)
+        out = torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])  # this block's share
+        out = plan.all_reduce(out.float()).to(vc.dtype)
+    out = _decode_heads(out, cfg)
+    h0, h1, _, _ = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
+    return _tp_out(p, out[:, :, h0:h1], cfg, plan), cache
 
 
 # ---------------------------------------------------------------------------

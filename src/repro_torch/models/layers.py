@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 
 import torch
@@ -127,20 +128,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
-def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+def embed(tokens: torch.Tensor, emb: torch.Tensor, plan=None) -> torch.Tensor:
     """Rows of ``emb``; the backward sums each token's gradient into its row
-    in a fixed order (deterministic on the card)."""
-    return F.embedding(tokens, emb)
+    in a fixed order (deterministic on the card). Under a plan whose vocab
+    is split, ``emb`` is this rank's block of rows: each rank looks up the
+    tokens it owns (zeros for the others) and the ranks' lookups are added."""
+    if plan is None or not plan.vocab:
+        return F.embedding(tokens, emb)
+    rows = emb.shape[0]
+    local = tokens - plan.rank * rows
+    own = (local >= 0) & (local < rows)
+    out = F.embedding(torch.where(own, local, 0), emb)
+    return plan.reduce_from(torch.where(own[..., None], out, 0.0))
 
 
-def unembed_logits(h: torch.Tensor, emb_out: torch.Tensor) -> torch.Tensor:
+def unembed_logits(h: torch.Tensor, emb_out: torch.Tensor, plan=None) -> torch.Tensor:
     """h: (..., E) -> float32 logits (..., V).
 
     The reference's ``preferred_element_type=float32``: the bf16 operands
     are widened to float32 (exactly) and multiplied in float32, block by
     block of :data:`UNEMBED_BLOCK_ROWS` vocabulary rows, so no float32
     copy of the whole table is kept. Greedy argmax over bf16-rounded
-    logits would tie far more often.
+    logits would tie far more often. Under a plan whose vocab is split,
+    each rank computes its rows' logits and the whole (..., V) is gathered
+    (the serve steps return it).
     """
     hf = h.float()
     v = emb_out.shape[0]
@@ -148,6 +159,8 @@ def unembed_logits(h: torch.Tensor, emb_out: torch.Tensor) -> torch.Tensor:
     for r0 in range(0, v, UNEMBED_BLOCK_ROWS):
         blk = emb_out[r0:r0 + UNEMBED_BLOCK_ROWS].float()
         out[..., r0:r0 + blk.shape[0]] = torch.matmul(hf, blk.T)
+    if plan is not None and plan.vocab:
+        out = plan.all_gather(out, -1)
     return out
 
 
@@ -163,8 +176,27 @@ def _xent_chunk(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor):
     return torch.sum((lse - gold) * valid), torch.sum(valid)
 
 
+def _xent_chunk_vocab_split(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
+                            plan):
+    """:func:`_xent_chunk` over a vocab split on the model axis: each rank's
+    float32 logits of its rows; the row maximum and the sum of
+    exponentials all-reduced over the ranks, the gold logit from the rank
+    that owns the label."""
+    logits = torch.matmul(h.float(), emb_out.float().T)  # (B, chunk, V / ranks)
+    m = plan.all_reduce(logits.detach().amax(dim=-1), "max")
+    se = plan.reduce_from(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    lse = m + torch.log(se)
+    rows = logits.shape[-1]
+    lab = labels - plan.rank * rows
+    own = (lab >= 0) & (lab < rows)
+    gold = torch.gather(logits, -1, torch.where(own, lab, 0)[..., None].long())[..., 0]
+    gold = plan.reduce_from(torch.where(own, gold, 0.0))
+    valid = (labels >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
 def softmax_xent_chunked(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
-                         chunk: int) -> torch.Tensor:
+                         chunk: int, plan=None) -> torch.Tensor:
     """Mean next-token loss with float32 logits made only per S-chunk.
 
     h (B, S, E) final hidden states, emb_out (V, E), labels (B, S) with -1
@@ -172,7 +204,20 @@ def softmax_xent_chunked(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.T
     each chunk runs under ``torch.utils.checkpoint``, as the reference's
     under ``jax.checkpoint``, so the backward recomputes one chunk's
     (B, chunk, V) logits at a time instead of keeping all of them.
+
+    Under a plan: with the vocab split, ``emb_out`` is this rank's rows and
+    ``h`` enters the split region (gathered along S under ``seq_shard``);
+    with it whole under ``seq_shard``, each rank takes its own positions
+    and the sums are added over the ranks.
     """
+    xent = _xent_chunk
+    if plan is not None and plan.vocab:
+        h = plan.gather_seq(h) if plan.seq_shard else plan.copy_to(h)
+        xent = functools.partial(_xent_chunk_vocab_split, plan=plan)
+    elif plan is not None and plan.seq_shard:
+        a, b = plan.block(labels.shape[1])
+        labels = labels[:, a:b]
+        emb_out = plan.copy_to(emb_out)
     b, s, _ = h.shape
     chunk = min(chunk, s)
     nc = -(-s // chunk)
@@ -183,16 +228,31 @@ def softmax_xent_chunked(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.T
     tot = cnt = None
     for i in range(nc):
         sl = slice(i * chunk, (i + 1) * chunk)
-        t, c = checkpoint(_xent_chunk, h[:, sl], emb_out, labels[:, sl], use_reentrant=False)
+        t, c = checkpoint(xent, h[:, sl], emb_out, labels[:, sl], use_reentrant=False)
         tot, cnt = (t, c) if tot is None else (tot + t, cnt + c)
+    if plan is not None and plan.seq_shard and not plan.vocab:
+        tot, cnt = plan.reduce_from(tot), plan.reduce_from(cnt)
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, plan=None) -> torch.Tensor:
+    """SwiGLU. Under a plan whose ``mlp`` is split, column-parallel then
+    row-parallel on this rank's hidden units: ``x`` enters (all-gathered
+    along S under ``seq_shard``), the output's partial sums are added
+    (reduce-scattered along S under ``seq_shard``). Where ``mlp`` is whole
+    the rank computes it all, on its own positions under ``seq_shard`` (so
+    each weight's gradient is a partial sum there)."""
+    if plan is not None and plan.mlp:
+        x = plan.gather_seq(x) if plan.seq_shard else plan.copy_to(x)
+    elif plan is not None and plan.seq_shard:
+        w_gate, w_up, w_down = (plan.copy_to(w) for w in (w_gate, w_up, w_down))
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
-    return torch.matmul(F.silu(g) * u, w_down)
+    y = torch.matmul(F.silu(g) * u, w_down)
+    if plan is not None and plan.mlp:
+        y = plan.scatter_seq(y) if plan.seq_shard else plan.reduce_from(y)
+    return y
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,

@@ -101,12 +101,13 @@ class Model:
     def _unembed(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
 
-    def _embed_inputs(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    def _embed_inputs(self, params, batch, plan=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (x (B, S_tot, E), labels (B, S_tot)): the vision prefix's
         patch embeddings go before the tokens, labelled -1 so the loss
-        skips them."""
+        skips them. Under a plan every model rank holds the whole sequence
+        (the embedding's vocab-parallel lookups added)."""
         cfg = self.cfg
-        x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
+        x = embed(batch["tokens"], params["embed"], plan).to(pdtype(cfg))
         labels = batch["labels"]
         if cfg.vision_prefix:
             vis = batch["vis_embeds"].to(x.dtype)  # (B, P, E) stub frontend
@@ -115,46 +116,48 @@ class Model:
         return x, labels
 
     # -- train --------------------------------------------------------------
-    def loss(self, params, batch, *, n_groups: int = 0) -> torch.Tensor:
+    def loss(self, params, batch, *, n_groups: int = 0, plan=None) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
         (B, S) int; label -1 ignored; the encoder-decoder's also
         "enc_frames" (B, enc_seq, E), the vision prefix's "vis_embeds" (B,
         P, E)), a 0-d float32 tensor. ``n_groups``:
-        MoE routing groups (0: one per sequence)."""
+        MoE routing groups (0: one per sequence). ``plan``: the
+        tensor-parallel plan of a sharded step (``distributed/tp.py``), or
+        ``None``, the model's plain code; the serve methods take it too."""
         cfg = self.cfg
         if cfg.encdec:
             enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg)
             h = encdec_mod.decode_train(params, batch["tokens"], enc_out, cfg)
             return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk)
-        x, labels = self._embed_inputs(params, batch)
-        h = tf.forward_train(params, x, cfg, n_groups=n_groups)
-        return softmax_xent_chunked(h, self._unembed(params), labels, cfg.loss_chunk)
+        x, labels = self._embed_inputs(params, batch, plan)
+        h = tf.forward_train(params, x, cfg, n_groups=n_groups, plan=plan)
+        return softmax_xent_chunked(h, self._unembed(params), labels, cfg.loss_chunk, plan)
 
     # -- serve --------------------------------------------------------------
-    def prefill(self, params, batch, s_max: int, *, n_groups: int = 0):
+    def prefill(self, params, batch, s_max: int, *, n_groups: int = 0, plan=None):
         """Returns (last-position logits (B, V) float32, caches)."""
         cfg = self.cfg
         if cfg.encdec:
             enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg)
             h, caches = encdec_mod.prefill(params, batch["tokens"], enc_out, cfg, s_max)
         else:
-            x = embed(batch["tokens"], params["embed"]).to(pdtype(cfg))
+            x = embed(batch["tokens"], params["embed"], plan).to(pdtype(cfg))
             if cfg.vision_prefix:  # the cache holds P + S positions
                 x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
-            h, caches = tf.forward_prefill(params, x, cfg, s_max, n_groups=n_groups)
-        return unembed_logits(h[:, -1], self._unembed(params)), caches
+            h, caches = tf.forward_prefill(params, x, cfg, s_max, n_groups=n_groups, plan=plan)
+        return unembed_logits(h[:, -1], self._unembed(params), plan), caches
 
-    def decode(self, params, caches, tokens, pos: int, *, n_groups: int = 0):
+    def decode(self, params, caches, tokens, pos: int, *, n_groups: int = 0, plan=None):
         """One decode step. tokens (B, 1) int; pos the absolute position.
         The caches are written in place and returned."""
-        x = embed(tokens, params["embed"]).to(pdtype(self.cfg))
+        x = embed(tokens, params["embed"], plan).to(pdtype(self.cfg))
         if self.cfg.encdec:
             x = x + params["pos_dec"][int(pos)][None]
             h, caches = encdec_mod.decode_step(params, x, caches, int(pos), self.cfg)
         else:
             h, caches = tf.forward_decode(params, x, caches, int(pos), self.cfg,
-                                          n_groups=n_groups)
-        return unembed_logits(h, self._unembed(params)), caches
+                                          n_groups=n_groups, plan=plan)
+        return unembed_logits(h, self._unembed(params), plan), caches
 
     # -- caches ---------------------------------------------------------------
     def cache_struct(self, batch: int, s_ctx: int) -> dict[str, Any]:

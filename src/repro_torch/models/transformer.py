@@ -128,19 +128,25 @@ def _layer(gp: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in gp.items()}
 
 
-def _ffn(pl, h, cfg: ArchConfig, ffn: str, n_groups: int):
+def _scale(t: torch.Tensor, plan) -> torch.Tensor:
+    """A norm's scale; under ``seq_shard`` it acts on this rank's positions,
+    so its gradient is summed over the model axis."""
+    return plan.copy_to(t) if plan is not None and plan.seq_shard else t
+
+
+def _ffn(pl, h, cfg: ArchConfig, ffn: str, n_groups: int, plan=None):
     """``h`` plus the FFN sublayer's output (``h`` itself with no FFN)."""
     if ffn == "none":
         return h
-    f, x = pl["ffn"], rmsnorm(h, pl["ln2"], cfg.norm_eps)
+    f, x = pl["ffn"], rmsnorm(h, _scale(pl["ln2"], plan), cfg.norm_eps)
     if ffn == "moe":
         return h + moe_mod.moe_ffn(f, x, cfg, n_groups=n_groups)
-    return h + swiglu(x, f["wg"], f["wu"], f["wd"])
+    return h + swiglu(x, f["wg"], f["wu"], f["wd"], plan)
 
 
-def _mixer_train(pl, x, cfg: ArchConfig, mixer: str):
+def _mixer_train(pl, x, cfg: ArchConfig, mixer: str, plan=None):
     if mixer == "gqa":
-        return attn.gqa_train(pl["attn"], x, cfg)
+        return attn.gqa_train(pl["attn"], x, cfg, plan=plan)
     if mixer == "mla":
         return attn.mla_train(pl["attn"], x, cfg)
     if mixer == "hybrid":
@@ -148,19 +154,23 @@ def _mixer_train(pl, x, cfg: ArchConfig, mixer: str):
     return ssm_mod.mlstm_train(pl["mlstm"], x, cfg)
 
 
-def block_train(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int):
-    """One layer of the training forward."""
-    h = x + _mixer_train(pl, rmsnorm(x, pl["ln1"], cfg.norm_eps), cfg, mixer)
-    return _ffn(pl, h, cfg, ffn, n_groups)
+def block_train(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, plan=None):
+    """One layer of the training forward; under a tensor-parallel ``plan``
+    (GQA and the dense FFN only, ``distributed/tp.py``) on this rank's
+    shards, and on its positions under ``seq_shard``."""
+    h = x + _mixer_train(pl, rmsnorm(x, _scale(pl["ln1"], plan), cfg.norm_eps), cfg, mixer,
+                         plan)
+    return _ffn(pl, h, cfg, ffn, n_groups, plan)
 
 
-def block_prefill(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, s_max: int):
+def block_prefill(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, s_max: int,
+                  plan=None):
     """One layer of the prefill; also returns its decode cache: k/v, for
     mla ``{ckv, kr}``, for hybrid ``{"attn": {k, v}, "ssd": state}``, for
     mlstm ``{"mlstm": state}``."""
     xin = rmsnorm(x, pl["ln1"], cfg.norm_eps)
     if mixer == "gqa":
-        y, cache = attn.gqa_prefill(pl["attn"], xin, cfg, s_max)
+        y, cache = attn.gqa_prefill(pl["attn"], xin, cfg, s_max, plan=plan)
     elif mixer == "mla":
         y, cache = attn.mla_prefill(pl["attn"], xin, cfg, s_max)
     elif mixer == "hybrid":
@@ -171,15 +181,16 @@ def block_prefill(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, s
         y, mstate = ssm_mod.mlstm_apply(pl["mlstm"], xin, cfg)
         cache = {"mlstm": mstate}
     h = x + y
-    return _ffn(pl, h, cfg, ffn, n_groups), cache
+    return _ffn(pl, h, cfg, ffn, n_groups, plan), cache
 
 
-def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int):
+def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int,
+                 plan=None):
     """One decode step of one layer; ``cache`` (this layer's views of the
     stacked caches) is written in place and returned."""
     xin = rmsnorm(x, pl["ln1"], cfg.norm_eps)
     if mixer == "gqa":
-        y, cache = attn.gqa_decode(pl["attn"], xin, cache, pos, cfg)
+        y, cache = attn.gqa_decode(pl["attn"], xin, cache, pos, cfg, plan=plan)
     elif mixer == "mla":
         y, cache = attn.mla_decode(pl["attn"], xin, cache, pos, cfg)
     elif mixer == "hybrid":
@@ -191,7 +202,7 @@ def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, mixer: str, ffn: str, 
         y, mstate = ssm_mod.mlstm_decode(pl["mlstm"], xin, cache["mlstm"], cfg)
         cache["mlstm"].copy_(mstate)
     h = x + y
-    return _ffn(pl, h, cfg, ffn, n_groups), cache
+    return _ffn(pl, h, cfg, ffn, n_groups, plan), cache
 
 
 # ---------------------------------------------------------------------------
@@ -243,36 +254,43 @@ def _stack_layers(trees: list) -> Any:
     return treedef.unflatten({path: torch.stack([f[path] for f in flats]) for path in flats[0]})
 
 
-def forward_train(params, x, cfg: ArchConfig, *, n_groups: int = 0):
-    """x: (B, S, E) embedded inputs -> final hidden (B, S, E)."""
+def forward_train(params, x, cfg: ArchConfig, *, n_groups: int = 0, plan=None):
+    """x: (B, S, E) embedded inputs -> final hidden (B, S, E). ``resid`` is
+    the sequence-parallel point under ``seq_shard`` (``distributed/ctx.py``):
+    the stream between layers, and the final hidden, are this rank's
+    positions. The plan is bound into each layer's body, so a layer
+    recomputed in the backward pass (on the autograd engine's thread)
+    computes as it did."""
     from repro_torch.distributed.ctx import constrain
 
     x = constrain(x, "resid")
     for gname, n, mixer, ffn in block_groups(cfg):
         body = _remat(functools.partial(block_train, cfg=cfg, mixer=mixer, ffn=ffn,
-                                        n_groups=n_groups), cfg)
+                                        n_groups=n_groups, plan=plan), cfg)
         for pl in _unbind_layers(params["blocks"][gname], n):
             x = constrain(body(pl, x), "resid")
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return rmsnorm(x, _scale(params["final_norm"], plan), cfg.norm_eps)
 
 
-def forward_prefill(params, x, cfg: ArchConfig, s_max: int, *, n_groups: int = 0):
+def forward_prefill(params, x, cfg: ArchConfig, s_max: int, *, n_groups: int = 0, plan=None):
     """Returns (final hidden, caches) — caches stacked on L per group."""
     caches = {}
     for gname, n, mixer, ffn in block_groups(cfg):
         gp = params["blocks"][gname]
         layer_caches = []
         for i in range(n):
-            x, cache = block_prefill(_layer(gp, i), x, cfg, mixer, ffn, n_groups, s_max)
+            x, cache = block_prefill(_layer(gp, i), x, cfg, mixer, ffn, n_groups, s_max, plan)
             layer_caches.append(cache)
         caches[gname] = _stack_layers(layer_caches)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches
 
 
-def forward_decode(params, x, caches, pos: int, cfg: ArchConfig, *, n_groups: int = 0):
+def forward_decode(params, x, caches, pos: int, cfg: ArchConfig, *, n_groups: int = 0,
+                   plan=None):
     """x: (B,1,E). Returns (final hidden (B,1,E), caches written in place)."""
     for gname, n, mixer, ffn in block_groups(cfg):
         gp, gc = params["blocks"][gname], caches[gname]
         for i in range(n):
-            x, _ = block_decode(_layer(gp, i), x, _layer(gc, i), pos, cfg, mixer, ffn, n_groups)
+            x, _ = block_decode(_layer(gp, i), x, _layer(gc, i), pos, cfg, mixer, ffn, n_groups,
+                                plan)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches

@@ -575,3 +575,18 @@ def test_k3_op_cuda_cpu_and_fake_implementations(dev, dtype, with_lse):
         assert flse.shape == lse.shape
     assert counts() == (before[0] + 1, before[1] + (dt == torch.bfloat16), before[2] + with_lse)
     assert r["flops"] == 2 * 8 * visible_pairs(200, 200, True, 0) * 2 * 256
+
+
+@pytest.mark.parametrize("name", ["qwen3_serve_16", "command_r_16"])
+def test_k3_on_a_ranks_head_slice_is_bitwise_the_whole_call(dev, name):
+    """K3 on each tensor-parallel rank's q heads and its view of the kv
+    heads (qwen3's serve prefill sliced 16 ways: 1 q head, G_local 1;
+    command-r's: 6 q heads a rank reading 1 kv head, G 12) equals those
+    heads of the call over every head bit for bit; each view goes to the
+    tensor-core kernel as it is, one launch a rank."""
+    from repro_torch.kernels.flash_attention.cases import HEAD_SLICE_CASES, check_head_slices
+
+    b, h, hkv, s, d, ranks = HEAD_SLICE_CASES[name]
+    got = check_head_slices(dev, b, h, hkv, s, d, ranks)
+    assert got["bitwise"] and got["views_taken_as_is"], got
+    assert got["rank_wgmma_launches"] == ranks, got

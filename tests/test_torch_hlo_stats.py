@@ -8,8 +8,9 @@ unrolled form equals the ``unbind`` sweep over a stacked weight. A layer
 reads its slice of the stack through a view, so the sweep costs O(1)
 passes over the stack in bytes, not O(L). Collectives on a 2-rank gloo
 group count once a call with their payload (output) bytes, in-place
-``c10d`` ops and functional ones alike. K3's formula counts 2 (D + Dv) a
-visible (q, k) pair, batch row and head.
+``c10d`` ops and functional ones alike, the tensor-parallel steps' own
+(``distributed/tp.py``) among them. K3's formula counts 2 (D + Dv) a
+visible (q, k) pair, batch row and head (a rank's own heads).
 """
 
 import jax
@@ -195,3 +196,51 @@ def test_collectives_counted_per_call_with_payload():
         assert r["result"]["collectives"]["total_count"] == 8
         assert r["ok"][1:] == [(2048,), (512,), (1024,), (8, 8)]
     assert ranks[0]["ok"][0] == 12.0  # 1 + 2, doubled by each all-reduce after the first
+
+
+def _tp_collectives_rank(rank: int) -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import tp
+
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    plan = tp.Plan(group=mesh.get_group("model"), size=2, rank=rank, vocab=True, heads=True,
+                   kv_heads=True, mlp=True)
+    x = torch.full((2, 8, 64), float(rank + 1))  # 4 KiB
+    w = torch.ones(64, requires_grad=True)
+    c = StepCounter()
+    with c:
+        s = plan.all_reduce(x)  # 4 KiB
+        m = plan.all_reduce(x, "max")  # 4 KiB
+        g = plan.all_gather(x, 1)  # 8 KiB out
+        rs = plan.reduce_scatter(x, 1)  # 2 KiB out
+        y = plan.gather_seq(x * plan.copy_to(w))  # forward: an 8 KiB all-gather
+        y.sum().backward()  # a 4 KiB reduce-scatter, then the 256 B all-reduce of w's gradient
+        q = torch.randn(1, 3, 16, 8)
+        kv = torch.randn(1, 1, 16, 8)
+        _, k3 = count(flash_attention, q, kv, kv, causal=True)
+    return {"result": c.result(), "k3": k3["flops"],
+            "values": [float(s[0, 0, 0]), float(m[0, 0, 0]), tuple(g.shape),
+                       float(g[0, 8, 0]), tuple(rs.shape), float(rs[0, 0, 0]),
+                       float(w.grad[0])]}
+
+
+def test_tensor_parallel_collectives_counted():
+    """``distributed/tp.py``'s collectives on a 2-rank gloo model axis, each
+    counted once a call with its payload (output) bytes: sum and max
+    all-reduces, an all-gather and a reduce-scatter along a middle dim, and
+    under autograd the sequence gather (forward all-gather, backward
+    reduce-scatter) and ``copy_to``'s backward all-reduce; K3 on a rank's 3
+    q heads and 1 kv head counts its own heads' pairs."""
+    kib = 1024
+    for rank, r in enumerate(run_ranks(_tp_collectives_rank, 2, timeout_s=120, threads=1)):
+        by = r["result"]["collectives"]["by_kind"]
+        assert by["all-reduce"] == {"count": 3, "bytes": 8 * kib + 256}
+        assert by["all-gather"] == {"count": 2, "bytes": 16 * kib}
+        assert by["reduce-scatter"] == {"count": 2, "bytes": 6 * kib}
+        assert r["values"][:5] == [3.0, 2.0, (2, 16, 64), 2.0, (2, 4, 64)]
+        assert r["values"][5] == 3.0
+        # each element of x * w reaches the sum twice (both ranks' gathers),
+        # so w's gradient, summed over both ranks, is 2 * (1 + 2) * 2 * 8
+        assert r["values"][6] == 2 * 3 * 16
+        assert r["k3"] == 3 * visible_pairs(16, 16, True, 0) * 2 * 16

@@ -12,11 +12,24 @@ package on forced host devices.
 * The 2×2 train step agrees with the reference's ``Model.loss(...,
   n_groups=2)`` and ``adamw_update`` on unsharded inputs, in float32, to
   1e-5 of each compared tensor's largest magnitude (a data-parallel sum
-  adds in another order than one device does), for qwen3 and granite.
-* The launcher's elastic restart: ``--remesh 2x2,2x1`` with a reclaim
+  adds in another order than one device does), for qwen3 (tensor-parallel)
+  and granite (its weights gathered).
+* The tensor-parallel train step (``distributed/tp.py``) of the dense and
+  vlm families against the same unsharded reference step, with and
+  without ``seq_shard``: qwen3 and internvl2 on 2×2 (q and kv heads split)
+  and on 1×4 (qwen3: one q head a rank, G = 2, kv heads whole, each rank
+  reading a view of one), and yi-34b's smoke config with 6 heads and 2 kv
+  heads on 1×4 (its heads do not divide, as yi's 56 on 16: the attention
+  runs whole on every rank, the MLP and vocab split). With
+  ``DTensor.full_tensor`` raising, every dense and vlm train, prefill and
+  decode step runs on 2×2 and records the ``tp`` path.
+* The launcher's elastic restart: ``--remesh 2x2,1x2`` with a reclaim
   resumes from a state bitwise the published one and goes on within 1e-5
-  of an uninterrupted 2×2 run; ``--remesh 2x2,2x2`` ends bitwise equal to
-  it; a one-rank mesh equals no mesh bit for bit.
+  of an uninterrupted 2×2 run (the model axis kept, so each model rank
+  computes as before); ``--remesh 2x2,2x1`` (the model axis shrunk)
+  resumes bitwise from the published state; ``--remesh 2x2,2x2`` ends
+  bitwise equal to the uninterrupted run; a one-rank mesh equals no mesh
+  bit for bit.
 * ``sharding_context``/``constrain`` redistribute a DTensor activation to
   the placements installed for its kind.
 
@@ -334,11 +347,15 @@ def test_sharded_train_step_equals_reference(crossed, arch):
     a gradient near 0, whose float32 sum over the shards has a large
     relative error, moves its weight by up to lr either way: params and
     master weights are within 1e-5 of each max wherever the reference's
-    gradient is above 1e-3 of its largest, and within 2 lr everywhere (the
-    unsharded step's own criterion, ``test_torch_train.py``). Every rank
-    ends with the same numbers."""
-    want = crossed["want"][arch]
-    got = [r["steps"][arch] for r in crossed["ranks"]]
+    gradient is above 1e-3 of its largest or exactly 0, and within 2 lr
+    everywhere (the unsharded step's own criterion, ``test_torch_train.py``).
+    Every rank ends with the same numbers."""
+    _assert_step_equals_reference(crossed["want"][arch],
+                                  [r["steps"][arch] for r in crossed["ranks"]])
+
+
+def _assert_step_equals_reference(want: dict, got: list[dict]) -> None:
+    """``test_sharded_train_step_equals_reference``'s criteria, every rank."""
     lr = want["lr"]
     for g in got:
         assert g["step"] == 4
@@ -355,7 +372,9 @@ def test_sharded_train_step_equals_reference(crossed, arch):
             assert err.max() <= 2 * lr, k
             leaf = k.removeprefix("params/").removeprefix("opt/master/")
             mu = np.abs(np.asarray(want["new"]["opt/mu/" + leaf], np.float32))
-            firm = mu > 1e-3 * mu.max()
+            # a firm gradient, or none at all (an untied embedding's rows of
+            # tokens the batch lacks: only the weight decay moves them)
+            firm = (mu > 1e-3 * mu.max()) | (mu == 0)
             assert firm.mean() > 0.5, k
             assert err[firm].max() <= 1e-5 * max(np.abs(w).max(), 1e-12), k
     for g in got[1:]:
@@ -372,6 +391,192 @@ def test_sharding_context_redistributes_a_dtensor_activation(crossed):
         c = r["ctx"]
         assert c["placements"] and c["spec"] == ("data", None, "model")
         assert c["local"] and c["full"] and c["same"] == [True, True, True]
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute on the model axis (the dense and vlm families)
+# ---------------------------------------------------------------------------
+
+# (arch, replacements): smoke configs, float32, with these replacements in
+# both packages: yi's 6 heads and 2 kv heads on a 4-way model axis stay
+# whole, as its 56 on 16; a vocab of 254 stays whole on it too
+TP_CASES = {"qwen3-1.7b": ("qwen3-1.7b", {}), "internvl2-76b": ("internvl2-76b", {}),
+            "yi-34b": ("yi-34b", {"n_heads": 6, "n_kv_heads": 2}),
+            "qwen3-1.7b-vocab254": ("qwen3-1.7b", {"vocab": 254})}
+TP_MESHES = {(2, 2): ("qwen3-1.7b", "internvl2-76b"), (1, 4): tuple(TP_CASES)}
+TP_SCHED = {"peak_lr": 3e-3, "warmup": 5, "total_steps": 10}
+# every dense and vlm smoke arch, each step run with DTensor.full_tensor raising
+TP_ARCHS = ("qwen3-1.7b", "stablelm-12b", "yi-34b", "command-r-plus-104b", "internvl2-76b")
+
+
+def _tp_config(smoke_config, case: str):
+    import dataclasses
+
+    arch, replacements = TP_CASES[case]
+    return dataclasses.replace(smoke_config(arch).with_(dtype="float32"), **replacements)
+
+
+def _tp_batch(cfg) -> dict:
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, cfg.vocab, (4, 12)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    batch["labels"][0, :5] = -1  # unequal valid labels across the data shards
+    if cfg.vision_prefix:
+        batch["vis_embeds"] = rng.standard_normal(
+            (4, cfg.vision_prefix, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.fixture(scope="module")
+def tp_reference(tmp_path_factory):
+    """The reference's unsharded step for each of :data:`TP_CASES`, and its
+    inputs pickled for the ranks."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import Model as JModel
+    from repro.optim.adamw import AdamWConfig as JAdamW
+    from repro.optim.adamw import adamw_update as jax_adamw
+    from repro.optim.adamw import init_opt_state as jax_init_opt
+    from repro.optim.schedules import warmup_cosine as jax_warmup
+    from repro.utils import flatten_with_paths as jax_flatten
+
+    cases, want = {}, {}
+    for arch in TP_CASES:
+        jcfg = _tp_config(jax_smoke_config, arch)
+        jm = JModel(jcfg)
+        params, _ = jm.init(jax.random.PRNGKey(1))
+        opt = jax_init_opt(params, JAdamW())
+        batch = _tp_batch(jcfg)
+        state = {"params": params, "opt": opt, "step": jnp.asarray(3, jnp.int32),
+                 "rng": jnp.asarray([0, 1], jnp.uint32),
+                 "data": {"data_step": jnp.asarray(3, jnp.int32),
+                          "seed": jnp.asarray(0, jnp.int32)}}
+        loss, grads = jax.value_and_grad(
+            lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()}))(params)
+        lr = jax_warmup(state["step"], total=TP_SCHED["total_steps"], warmup=TP_SCHED["warmup"],
+                        peak_lr=TP_SCHED["peak_lr"])
+        new_p, new_o, om = jax_adamw(grads, opt, params, lr, JAdamW())
+        cases[arch] = {"state": jax.tree_util.tree_map(np.array, state), "batch": batch}
+        want[arch] = {"loss": float(loss), "lr": float(lr), "grad_norm": float(om["grad_norm"]),
+                      "new": {k: np.asarray(v) for k, v in
+                              jax_flatten({"params": new_p, "opt": new_o})[0].items()}}
+    path = tmp_path_factory.mktemp("tp") / "tp_inputs.pkl"
+    path.write_bytes(pickle.dumps(cases))
+    return path, want
+
+
+def _tp_rank(rank: int, inputs: str, mesh_shape: tuple) -> dict:
+    """One tensor-parallel step a case of this mesh (by its name), without
+    and with ``seq_shard``, from the reference's state."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.steps import make_train_step, train_state_from_numpy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils import flatten_with_paths
+
+    mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
+    with open(inputs, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for arch in TP_MESHES[mesh_shape]:
+        cfg = _tp_config(get_smoke_config, arch)
+        batch = {k: torch.from_numpy(v) if v.dtype == np.float32 else torch.from_numpy(v).long()
+                 for k, v in cases[arch]["batch"].items()}
+        for seq_shard in (False, True):
+            st = train_state_from_numpy(cases[arch]["state"], cfg, AdamWConfig(), mesh=mesh)
+            step_fn = make_train_step(cfg, AdamWConfig(), mesh=mesh, seq_shard=seq_shard,
+                                      **TP_SCHED)
+            st, m = step_fn(st, batch)
+            new = {k: v.full_tensor().numpy() for k, v in flatten_with_paths(
+                {"params": st["params"], "opt": st["opt"]})[0].items()}
+            out[arch, seq_shard] = {"new": new, "loss": float(m["loss"]), "lr": float(m["lr"]),
+                                    "grad_norm": float(m["grad_norm"]),
+                                    "step": int(st["step"].to_local()), "path": m["path"]}
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp_steps(tp_reference):
+    return {shape: run_ranks(_tp_rank, 4, args=(str(tp_reference[0]), shape),
+                             timeout_s=GROUP_TIMEOUT_S, threads=1)
+            for shape in TP_MESHES}
+
+
+@pytest.mark.parametrize("seq_shard", [False, True], ids=["", "seq_shard"])
+@pytest.mark.parametrize("shape,arch", [(s, a) for s, archs in TP_MESHES.items() for a in archs],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_tensor_parallel_train_step_equals_reference(tp_reference, tp_steps, shape, arch,
+                                                     seq_shard):
+    """The ``tp`` path's step against the reference's unsharded one, at
+    ``test_sharded_train_step_equals_reference``'s tolerances. The cases
+    cover each branch of the layers: on 2×2 the q and kv heads, the MLP
+    and the vocab split 2 ways; on 1×4 qwen3's and internvl2's one q head
+    a rank (G = 2) read a view of the whole kv projection, yi's 6 heads
+    stay whole (its attention on every rank; under ``seq_shard`` on the
+    gathered sequence, each rank keeping its positions), and a vocab of
+    254 stays whole (every rank embeds and unembeds it all; under
+    ``seq_shard`` each rank's loss covers its positions and the sums are
+    added). ``seq_shard`` splits the residual stream along S between
+    layers (internvl2's 8 prefix positions and 12 tokens included)."""
+    got = [r[arch, seq_shard] for r in tp_steps[shape]]
+    assert {g["path"] for g in got} == {"tp"}
+    _assert_step_equals_reference(tp_reference[1][arch], got)
+
+
+def _no_gather_rank(rank: int) -> dict:
+    """Every dense and vlm smoke arch's train (with and without
+    ``seq_shard``), prefill and decode steps on 2×2 with
+    ``DTensor.full_tensor`` raising; the paths they record."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.steps import (make_decode_step, make_init_fn,
+                                               make_prefill_step, make_train_step)
+    from repro_torch.optim import AdamWConfig
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a weight gathered whole: DTensor.full_tensor")
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out = {}
+    for arch in TP_ARCHS:
+        cfg = get_smoke_config(arch).with_(dtype="float32")
+        batch = {k: torch.from_numpy(v).long() for k, v in _tp_batch(cfg).items()
+                 if k != "vis_embeds"}
+        if cfg.vision_prefix:
+            batch["vis_embeds"] = torch.zeros(4, cfg.vision_prefix, cfg.d_model)
+        s_max = 16 + cfg.vision_prefix
+        st = make_init_fn(cfg, AdamWConfig(), seed=1, mesh=mesh)()
+        trains = [make_train_step(cfg, AdamWConfig(), mesh=mesh, seq_shard=ss)
+                  for ss in (False, True)]
+        pstep, _, _ = make_prefill_step(cfg, mesh, InputShape("p", 16, 4, "prefill"))
+        dstep, _, _ = make_decode_step(cfg, mesh, InputShape("d", s_max, 4, "decode"))
+        full_tensor, DTensor.full_tensor = DTensor.full_tensor, refuse
+        try:
+            paths = [fn(st, batch)[1]["path"] for fn in trains]
+            prompt = {k: v for k, v in batch.items() if k != "labels"}
+            logits, caches = pstep(st["params"], prompt)
+            logits2, _ = dstep(st["params"], caches, batch["tokens"][:, :1],
+                               12 + cfg.vision_prefix)
+        finally:
+            DTensor.full_tensor = full_tensor
+        out[arch] = {"paths": paths + [pstep.path, dstep.path],
+                     "finite": bool(torch.isfinite(logits.full_tensor()).all()
+                                    and torch.isfinite(logits2.full_tensor()).all())}
+    return out
+
+
+def test_dense_and_vlm_steps_gather_no_weight():
+    """With ``DTensor.full_tensor`` patched to raise, every dense and vlm
+    smoke arch's train (with and without ``seq_shard``), prefill and
+    decode steps run on 2×2 and record the ``tp`` path; their logits are
+    finite."""
+    for r in run_ranks(_no_gather_rank, 4, timeout_s=GROUP_TIMEOUT_S, threads=1):
+        for arch in TP_ARCHS:
+            assert r[arch] == {"paths": ["tp"] * 4, "finite": True}, (arch, r[arch])
 
 
 # ---------------------------------------------------------------------------
@@ -408,27 +613,57 @@ def uninterrupted(tmp_path_factory):
 
 
 def test_remesh_onto_a_smaller_mesh_resumes_the_published_state(tmp_path, uninterrupted):
-    """Reclaimed at step 2 on 2×2, resumed on 2×1 (the spot market's
-    smaller instance): the state the second incarnation restored (remapped
-    onto 2×1, re-pinned) is bitwise the CMI published at the reclaim; every
-    later loss is within 1e-5 of the uninterrupted 2×2 run's, the final
-    loss finite; the CMIs record each incarnation's mesh."""
-    js, job_id, rec = _run(tmp_path, "c", "--remesh", "2x2,2x1", "--preempt-at", "2")
+    """Reclaimed at step 2 on 2×2, resumed on 1×2 (the spot market's
+    smaller instance, the data axis shrunk): the state the second
+    incarnation restored (remapped onto 1×2, re-pinned) is bitwise the CMI
+    published at the reclaim; every later loss is within 1e-5 of the
+    uninterrupted 2×2 run's (each model rank computes its shards as before;
+    only the data-parallel sums change), the final loss finite; the CMIs
+    record each incarnation's mesh."""
+    js, job_id, rec = _run(tmp_path, "c", "--remesh", "2x2,1x2", "--preempt-at", "2")
     starts = [r for r in rec if r["event"] == "start"]
     assert [(s["mesh"], s["resumed"], s["step"]) for s in starts] == \
-        [("2x2", False, 0), ("2x1", True, 2)]
+        [("2x2", False, 0), ("1x2", True, 2)]
     published = next(r["cmi"] for r in rec if r["event"] == "publish" and r["step"] == 2)
     state, _ = restore_cmi(js.cmi_root(job_id), published, device="cpu")
     assert starts[1]["restored_digest"] == launch_train.state_digest(state)
     man, _ = _digests(js, job_id, published)
     assert man.arrays["opt/mu/embed"].sharding.mesh_shape == [2, 2]
     final, _ = _digests(js, job_id)
-    assert final.arrays["opt/mu/embed"].sharding.mesh_shape == [2, 1]
+    assert final.arrays["opt/mu/embed"].sharding.mesh_shape == [1, 2]
     _, _, rec_a = uninterrupted
     got, want = _steps(rec), _steps(rec_a)
     assert [s for s, _ in got] == [s for s, _ in want] == [1, 2, 3, 4]
     for (_, g), (_, w) in zip(got, want):
         assert g == pytest.approx(w, rel=1e-5)
+    assert np.isfinite(got[-1][1])
+    assert rec[-1]["incarnations"] == 2 and rec[-1]["mesh"] == ["2x2", "1x2"]
+
+
+def test_remesh_onto_a_smaller_model_axis_resumes_the_published_state(tmp_path,
+                                                                       uninterrupted):
+    """Reclaimed at step 2 on 2×2, resumed on 2×1 (the model axis shrunk to
+    1, so the resumed run computes the whole model on each rank): the
+    restored state is bitwise the CMI published at the reclaim, remapped
+    onto 2×1; the steps before the reclaim are the uninterrupted 2×2
+    run's bit for bit; every later loss is within rel 2e-4 of the
+    uninterrupted run's. In bf16 a 2-way model axis adds its partial sums
+    with roundings of its own, as the reference's GSPMD program on
+    another mesh does, so the whole model on each rank differs from it:
+    by at most 8.3e-5 over seeds 0-4 (6.8e-5 at seed 0, this test's)."""
+    js, job_id, rec = _run(tmp_path, "d", "--remesh", "2x2,2x1", "--preempt-at", "2")
+    starts = [r for r in rec if r["event"] == "start"]
+    assert [(s["mesh"], s["resumed"], s["step"]) for s in starts] == \
+        [("2x2", False, 0), ("2x1", True, 2)]
+    published = next(r["cmi"] for r in rec if r["event"] == "publish" and r["step"] == 2)
+    state, _ = restore_cmi(js.cmi_root(job_id), published, device="cpu")
+    assert starts[1]["restored_digest"] == launch_train.state_digest(state)
+    final, _ = _digests(js, job_id)
+    assert final.arrays["opt/mu/embed"].sharding.mesh_shape == [2, 1]
+    got, want = _steps(rec), _steps(uninterrupted[2])
+    assert got[:2] == want[:2] and [s for s, _ in got] == [1, 2, 3, 4]
+    for (_, g), (_, w) in zip(got[2:], want[2:]):
+        assert g == pytest.approx(w, rel=2e-4)
     assert np.isfinite(got[-1][1])
     assert rec[-1]["incarnations"] == 2 and rec[-1]["mesh"] == ["2x2", "2x1"]
 

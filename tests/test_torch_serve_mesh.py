@@ -12,11 +12,18 @@ gloo process groups (CPU ranks), against the JAX package's unsharded
   model), so the decode wrote the new position into the shard that owns
   it. MoE routing groups are one per sequence, so a batch block routes as
   the whole batch does.
+* The dense and vlm families compute on their shards (the ``tp`` path,
+  ``distributed/tp.py``): prefill keeps each rank's block of positions of
+  the caches, decode attends over it where it lies. They are held the same
+  way on 1×4 too, where qwen3's and internvl2's one q head a rank reads a
+  view of the whole kv projection and yi-34b's smoke config with 6 heads
+  and 2 kv heads (here on 2×2 and 1×4) keeps its attention whole on 1×4.
 * On a 1×1 mesh both steps equal ``Model.prefill``/``decode`` without a
   mesh bit for bit.
 * ``cache_axes`` and ``model_axes_for`` equal the reference's trees.
 """
 
+import dataclasses
 import pickle
 
 import jax
@@ -42,14 +49,18 @@ GROUP_TIMEOUT_S = 120
 # window of 32, so its attention cache rolls and decode writes slot 48 % 32
 CASES = {"qwen3-1.7b": (12, 16), "granite-moe-1b-a400m": (12, 16), "hymba-1.5b": (48, 64),
          "xlstm-1.3b": (12, 16), "deepseek-v3-671b": (12, 16), "whisper-tiny": (12, 16),
-         "internvl2-76b": (12, 16)}
+         "internvl2-76b": (12, 16), "yi-34b": (12, 16)}
+# replacements in both packages' smoke configs: yi's 6 heads do not divide 4
+OVERRIDES = {"yi-34b": {"n_heads": 6, "n_kv_heads": 2}}
+TP_ARCHS = ("qwen3-1.7b", "internvl2-76b", "yi-34b")  # the 1x4 cases (dense and vlm)
 BATCH = 4
 DECODE_STEPS = 2
 TOL = 1e-5
 
 
-def _cfg(arch):
-    return get_smoke_config(arch).with_(dtype="float32")
+def _cfg(arch, smoke_config=get_smoke_config):
+    return dataclasses.replace(smoke_config(arch).with_(dtype="float32"),
+                               **OVERRIDES.get(arch, {}))
 
 
 def _np(tree):
@@ -61,7 +72,7 @@ def reference(tmp_path_factory):
     """Inputs and the reference's prefill and decode outputs per arch."""
     cases, want = {}, {}
     for arch, (s, s_ctx) in CASES.items():
-        jcfg = jax_smoke_config(arch).with_(dtype="float32")
+        jcfg = _cfg(arch, jax_smoke_config)
         jm = JModel(jcfg)
         params, _ = jm.init(jax.random.PRNGKey(2))
         rng = np.random.default_rng(5)
@@ -88,10 +99,12 @@ def reference(tmp_path_factory):
     return path, cases, want
 
 
-def _serve_rank(rank: int, cases_path: str, mesh_shape: tuple, no_mesh: bool) -> dict:
-    """Each arch's prefill and decode steps on this rank's mesh: the whole
-    logits, this rank's cache blocks (with their index), and with
-    ``no_mesh`` the unsharded ``Model`` outputs too."""
+def _serve_rank(rank: int, cases_path: str, mesh_shape: tuple, no_mesh: bool,
+                archs: tuple = ()) -> dict:
+    """Each arch's (or each of ``archs``') prefill and decode steps on this
+    rank's mesh: the whole logits, this rank's cache blocks (with their
+    index), the steps' path, and with ``no_mesh`` the unsharded ``Model``
+    outputs too."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.distributed.sharding import place_tree, sharding_of
@@ -110,6 +123,8 @@ def _serve_rank(rank: int, cases_path: str, mesh_shape: tuple, no_mesh: bool) ->
 
     out = {}
     for arch, case in cases.items():
+        if archs and arch not in archs:
+            continue
         cfg = _cfg(arch)
         s_ctx = case["s_ctx"]
         pstep, p_sh, _ = make_prefill_step(cfg, mesh, InputShape("p", s_ctx, BATCH, "prefill"))
@@ -119,7 +134,8 @@ def _serve_rank(rank: int, cases_path: str, mesh_shape: tuple, no_mesh: bool) ->
         params = place_tree(whole, p_sh)
         batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
         logits, caches = pstep(params, batch)
-        got = {"logits": logits.full_tensor().numpy(), "prefill": blocks(caches), "decode": []}
+        got = {"logits": logits.full_tensor().numpy(), "prefill": blocks(caches), "decode": [],
+               "paths": (pstep.path, dstep.path)}
         assert [sharding_of(v).spec for v in flatten_with_paths(caches)[0].values()] == \
             [s.spec for s in flatten_with_paths(c_sh)[0].values()]
         for i, tok in enumerate(case["steps"]):
@@ -145,6 +161,12 @@ def _serve_rank(rank: int, cases_path: str, mesh_shape: tuple, no_mesh: bool) ->
 def ranks_2x2(reference):
     path = reference[0]
     return run_ranks(_serve_rank, 4, args=(str(path), (2, 2), False),
+                     timeout_s=GROUP_TIMEOUT_S, threads=2)
+
+
+@pytest.fixture(scope="module")
+def ranks_1x4(reference):
+    return run_ranks(_serve_rank, 4, args=(str(reference[0]), (1, 4), False, TP_ARCHS),
                      timeout_s=GROUP_TIMEOUT_S, threads=2)
 
 
@@ -178,9 +200,31 @@ def test_sharded_prefill_and_decode_equal_reference_on_2x2(reference, ranks_2x2,
             _close(lg, wl, f"decode {i} logits")
             _cache_blocks_close(cb, wc, f"decode {i}")
         blocks.add(tuple(sorted((k, idx) for k, (idx, _) in got["prefill"].items())))
+        tp_path = arch in TP_ARCHS or arch in ("stablelm-12b", "command-r-plus-104b")
+        assert got["paths"] == (("tp", "tp") if tp_path else ("gathered", "gathered"))
     # each rank its own blocks; the mLSTM state has no seq dim, so the two
     # ranks of a data row hold the same block
     assert len(blocks) == (2 if arch == "xlstm-1.3b" else 4)
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tensor_parallel_prefill_and_decode_equal_reference_on_1x4(reference, ranks_1x4, arch):
+    """On 1×4 (one data row, the model axis 4 ways) the ``tp`` path's
+    logits within 1e-5 of each max and each rank's block of positions of
+    every cache (all kv heads) within 1e-5 of its block of the reference's,
+    after the prefill and after each decode step: four distinct blocks."""
+    want = reference[2][arch]
+    blocks = set()
+    for r in ranks_1x4:
+        got = r[arch]
+        assert got["paths"] == ("tp", "tp")
+        _close(got["logits"], want["logits"], "prefill logits")
+        _cache_blocks_close(got["prefill"], want["prefill_caches"], "prefill")
+        for i, ((lg, cb), (wl, wc)) in enumerate(zip(got["decode"], want["decode"])):
+            _close(lg, wl, f"decode {i} logits")
+            _cache_blocks_close(cb, wc, f"decode {i}")
+        blocks.add(tuple(sorted((k, idx) for k, (idx, _) in got["prefill"].items())))
+    assert len(blocks) == 4
 
 
 def test_cache_placements_on_2x2(ranks_2x2):

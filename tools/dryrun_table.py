@@ -3,9 +3,11 @@
 
     python3 tools/dryrun_table.py experiments/dryrun_torch
 
-One row a cell JSON in the directory, production meshes first: per-device
-FLOPs, bytes, collective bytes (of them all-gathered), peak live memory and
-its ratio to an H100's 80 GB, or the skip reason or error.
+One row a cell JSON in the directory, production meshes first: how the
+steps compute (``tp`` or ``gathered``; ``+seq_shard`` after a train
+cell's shape), per-device FLOPs, bytes, collective bytes (of them
+all-gathered), peak live memory and its ratio to an H100's 80 GB, or the
+skip reason or error.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ HBM = 80e9  # an H100's device memory, bytes
 
 
 def row(rec: dict) -> str:
-    head = f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} |"
+    shape = rec["shape"] + (" +seq_shard" if rec.get("seq_shard") else "")
+    head = f"| {rec['arch']} | {shape} | {rec['mesh']} | {rec.get('path', '')} |"
     if "skipped" in rec:
         return head + " skipped: long_500k needs sub-quadratic attention | | | | |"
     if not rec.get("ok"):
@@ -33,10 +36,11 @@ def row(rec: dict) -> str:
 def main(argv: list[str]) -> int:
     cells = [json.loads(p.read_text()) for p in sorted(Path(argv[0]).glob("*.json"))]
     order = {"16x16": 0, "2x16x16": 1}
-    cells.sort(key=lambda r: (order.get(r["mesh"], 2), r["arch"], r["shape"]))
-    print("| arch | shape | mesh | FLOPs | bytes | collective bytes (all-gather) "
+    cells.sort(key=lambda r: (order.get(r["mesh"], 2), r["arch"], r["shape"],
+                              bool(r.get("seq_shard"))))
+    print("| arch | shape | mesh | path | FLOPs | bytes | collective bytes (all-gather) "
           "| peak GB | peak / 80 GB |")
-    print("|---|---|---|---|---|---|---|---|")
+    print("|---|---|---|---|---|---|---|---|---|")
     for rec in cells:
         print(row(rec))
     return 0
