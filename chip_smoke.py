@@ -42,16 +42,24 @@ with nvcc and prints one JSON line per phase:
              step's counted FLOPs within 0.1 % of the dry run's; times,
              TFLOP/s, bytes against the card's bound, peak memory beside the
              dry run's (at a model axis of 1 the tensor-parallel steps are
-             the plain model); then command-r-plus-104b at full width and
-             depth (64 layers), rank 0 of a fake 16x16 group on real card
-             tensors (its collectives move no bytes and leave their outputs
-             unwritten, so no output is compared and no time counts
-             communication): its tensor-parallel prefill_32k (2 x 32,768
-             tokens, 6 q heads reading 1 kv head: 64 tensor-core K3
-             launches) and train_4k step with ``seq_shard`` (16 x 4,096
-             tokens), each with its peak memory (below the card's) beside
-             the dry run's, device time and TFLOP/s of the dry run's
-             per-device FLOPs
+             the plain model); then command-r-plus-104b at full width
+             (depth cut: 32 and 16 of 64 layers), rank 0 of a fake 16x16
+             group on real card tensors (its collectives move no bytes and
+             leave their outputs unwritten, so no output is compared and no
+             time counts communication): its tensor-parallel prefill_32k (2
+             x 32,768 tokens, 6 q heads reading 1 kv head: one tensor-core
+             K3 launch a layer) and train_4k step with ``seq_shard`` (16 x
+             4,096 tokens); and the MoE family on its shards the same way:
+             deepseek-v3's prefill_32k (8 of 128 MLA heads, K3 at qk 192 /
+             v 128; 1 of 256 experts a MoE layer, the slots moved by
+             all-to-all) and train_4k with ``seq_shard`` and
+             ``moe_buf_shard``, each at 8 of 61 layers (its 3 dense and 5
+             MoE), granite's prefill_32k (24 layers, 2 of 32 experts a rank
+             over the model axis); each with its peak memory (below the
+             card's, within 2 % of the dry run's net of what the process
+             held beyond the step's arguments, which may not pass 200 MB)
+             beside the dry run's, device time and TFLOP/s of
+             the dry run's per-device FLOPs
   itinerary  the Fig. 8 tour at full granule size on two CUDA nodes, every hop
              through a transit CMI, preempted after the match publish and
              resumed; the product equals an uninterrupted run's
@@ -92,8 +100,9 @@ with nvcc and prints one JSON line per phase:
              and handoff legs, the recovery, each worker's memory; and
              ``launch.serve.main(--workers 2)`` against ``--workers 0``
   chaos      three cells of ``repro_torch.chaos.matrix`` with cuda workers
-             (a ``hop.*`` kill, a relay kill, a SIGKILL at stream accept):
-             each product bitwise the calm run's, ``hop_root`` empty
+             (a ``hop.*`` kill, a relay kill, a SIGKILL at stream accept),
+             each through the matrix's CLI, the three at once: each product
+             bitwise the calm run's, ``hop_root`` empty
   train      qwen3-1.7b trained at full width by the Fig. 7 launcher
              (``python -m repro_torch.launch.train``, one process a run, so
              its deterministic settings precede its first CUDA call): run B
@@ -230,12 +239,28 @@ DRYRUN_DATA_RANKS = 16  # the 16x16 production mesh's data axis: a device's shar
 DRYRUN_MESH = f"{DRYRUN_DATA_RANKS}x1"
 DRYRUN_FLOPS_TOL = 1e-3  # the real step's counted FLOPs against the dry run's, relative
 # the tensor-parallel cells run for real under a fake 16x16 group: (shape,
-# seq_shard, layers). The train cell's depth is cut (its widths kept) to keep
-# the smoke well inside its time limit: 64 layers take 16.3 s a step on the
-# card and the smoke ran 1095 s with them, 1013 s with 32 (PR 23); its peak at
-# 64 layers is the dry run's
+# seq_shard, layers). Their depth is cut (their widths kept) to keep the
+# smoke inside its time limit: the train cell's 64 layers take 16.3 s a step
+# on the card and the smoke ran 1095 s with them, 1013 s with 32; with the
+# MoE cells below it ran 1127 s, so the prefill runs 32 of 64 layers too;
+# at 64 layers each peak was the dry run's
 DRYRUN_TP_ARCH = "command-r-plus-104b"
-DRYRUN_TP_CELLS = (("prefill_32k", False, 0), ("train_4k", True, 16))
+DRYRUN_TP_CELLS = (("prefill_32k", False, 32), ("train_4k", True, 16))
+# the MoE family on its shards under the same fake 16x16 group: (arch,
+# shape, seq_shard, moe_buf_shard, layers). deepseek-v3 at its widths (8 of
+# 128 MLA heads, 1 of 256 experts a rank), each step cut to its 3 dense
+# layers and 5 MoE layers (the dry run's trace of the 61-layer train step
+# takes ~54 s of CPU, which the phase would wait for; the prefill ran 5.5-5.9
+# s at 61 layers, within 0.04 % of the dry run's peak, and the smoke took
+# 1157 s with it); granite through all 24 layers (2 of 32 experts a rank,
+# over the model axis)
+DRYRUN_MOE_CELLS = (("deepseek-v3-671b", "prefill_32k", False, False, 8),
+                    ("deepseek-v3-671b", "train_4k", True, True, 8),
+                    ("granite-moe-1b-a400m", "prefill_32k", False, False, 0))
+DRYRUN_PEAK_TOL = 0.02  # a sharded cell's peak on the card against its dry run's count
+# what a sharded cell's process may hold beyond its step's arguments (cuBLAS's
+# workspaces, ~70 MB, which the dry run does not count); more is a leak
+DRYRUN_HELD_MAX = 200 * 10**6
 
 
 def serve_argv(arch: str, prompt_len: int = PROMPT_LEN, layers: int = 0) -> list[str]:
@@ -285,7 +310,7 @@ DISK_WRITE_LIMIT = 40 * 2**30
 # profiler ranges whose kernels form groups of their own
 RANGES = {"flash_attention_backward": "attention backward (plain torch)",
           "adamw_update": "optimizer (AdamW)",
-          "moe_dispatch": "MoE dispatch (router, sort, searchsorted, gather, index_put)",
+          "moe_dispatch": "MoE dispatch (router, sort, searchsorted, gathers)",
           "moe_experts": "MoE expert GEMMs (bmm)",
           "moe_combine": "MoE combine (gather, ordered sum)",
           "mla": "MLA projections and absorbed decode",
@@ -446,10 +471,24 @@ class DiskWrites:
 # ---------------------------------------------------------------------------
 
 
-def run_navlint() -> dict:
-    """``python -m repro_torch.analysis --check --coverage`` over the port:
-    exit 0, no finding, the coverage cross-check (fire sites, ``SITES``,
-    the chaos cells, ``docs/fabric.md``) included; then every fixture of
+def start_navlint() -> dict:
+    """``python -m repro_torch.analysis --check --coverage`` over the port,
+    as text and as JSON, started now (they need no card) and read by
+    :func:`run_navlint`."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
+    argv = [sys.executable, "-m", "repro_torch.analysis", "--check", "--coverage",
+            "src/repro_torch", "--docs", "docs/fabric.md"]
+    return {"argv": argv, "t0": time.perf_counter(),
+            **{key: subprocess.Popen(argv + extra, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+               for key, extra in (("text", []), ("json", ["--json"]))}}
+
+
+def run_navlint(started: dict) -> dict:
+    """The runs of :func:`start_navlint`: exit 0, no finding, the coverage
+    cross-check (fire sites, ``SITES``, the chaos cells,
+    ``docs/fabric.md``) included; then every fixture of
     ``tests/lint_fixtures`` gives exactly the findings its ``# EXPECT:``
     comments name (the reference's goldens; the CPU tests also hold them
     equal to the JAX package's navlint, which this script may not import),
@@ -458,16 +497,13 @@ def run_navlint() -> dict:
 
     from repro_torch.analysis import lint_paths, main as navlint_main
 
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
-    argv = [sys.executable, "-m", "repro_torch.analysis", "--check", "--coverage",
-            "src/repro_torch", "--docs", "docs/fabric.md"]
-    t0 = time.perf_counter()
-    text = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
-    seconds = time.perf_counter() - t0
+    argv = started["argv"]
+    out, err = started["text"].communicate(timeout=300)
+    seconds = time.perf_counter() - started["t0"]
+    text = subprocess.CompletedProcess(argv, started["text"].returncode, out, err)
     assert text.returncode == 0 and "navlint: clean" in text.stdout, text.stdout + text.stderr
-    js = subprocess.run(argv + ["--json"], capture_output=True, text=True, cwd=ROOT, env=env,
-                        timeout=300)
+    out, err = started["json"].communicate(timeout=300)
+    js = subprocess.CompletedProcess(argv, started["json"].returncode, out, err)
     report = json.loads(js.stdout)
     assert js.returncode == 0 and report["findings"] == [] and report["checked_files"] > 70, report
     expect = re.compile(r"#\s*EXPECT:\s*([A-Z0-9, ]+)")
@@ -724,7 +760,11 @@ def check_flash_attention(dev) -> dict:
     # (2,048 tokens against them), both non-causal, and its decoder's
     # causal self-attention (2,048 tokens); internvl2-76b's prefill (256
     # patch embeddings + 2,048 tokens, 64 q / 8 kv heads: G = 8); the
-    # dryrun phase's per-device prefill_32k (2 sequences of 32,768)
+    # dryrun phase's per-device prefill_32k (2 sequences of 32,768):
+    # qwen3's, command-r's (6 q heads, 1 kv head), deepseek-v3's (8 of
+    # its 128 MLA heads, qk 192 / v 128) and granite's (1 q head reading 1
+    # kv head, D 64); deepseek-v3's per-device train_4k (16 x 4,096, its 8
+    # heads)
     shapes = [(2, 4, 4, 128, 128, 64, 64, True, 0, "float32", None),
               (1, 8, 2, 257, 257, 64, 64, True, 0, "float32", None),
               (2, 4, 2, 200, 200, 128, 128, True, 64, "float32", None),
@@ -741,7 +781,10 @@ def check_flash_attention(dev) -> dict:
               (4, 6, 6, 2048, 2048, 64, 64, True, 0, "bfloat16", "whisper_decoder"),
               (1, 64, 8, 2304, 2304, 128, 128, True, 0, "bfloat16", "internvl2"),
               (2, 16, 8, 32768, 32768, 128, 128, True, 0, "bfloat16", "prefill_32k"),
-              (2, 6, 1, 32768, 32768, 128, 128, True, 0, "bfloat16", "command_r_32k")]
+              (2, 6, 1, 32768, 32768, 128, 128, True, 0, "bfloat16", "command_r_32k"),
+              (2, 8, 8, 32768, 32768, 192, 128, True, 0, "bfloat16", "mla_32k"),
+              (2, 1, 1, 32768, 32768, 64, 64, True, 0, "bfloat16", "granite_32k"),
+              (16, 8, 8, 4096, 4096, 192, 128, True, 0, "bfloat16", "mla_train_4k")]
     timed = {}
     for i, (b, h, hkv, sq, sk, d, dv, causal, window, dt, label) in enumerate(shapes):
         rng = np.random.default_rng(i)
@@ -831,19 +874,33 @@ def check_flash_attention(dev) -> dict:
                                           "causal (command-r-plus-104b's prefill_32k on a "
                                           "device of 16x16: its 6 q heads, 1 kv head)",
                                  **{key: timed["command_r_32k"][key] for key in more}},
+            "at_mla_32k": {"shape": "q/k bf16[2,8,32768,192], v bf16[2,8,32768,128], causal "
+                                    "(deepseek-v3's prefill_32k on a device of 16x16: its 8 of "
+                                    "128 MLA heads)",
+                           **{key: timed["mla_32k"][key] for key in more}},
+            "at_granite_32k": {"shape": "q/k/v bf16[2,1,32768,64], causal (granite-moe-1b-"
+                                        "a400m's prefill_32k on a device of 16x16: 1 q head "
+                                        "reading 1 kv head)",
+                               **{key: timed["granite_32k"][key] for key in more}},
+            "at_mla_train_4k": {"shape": "q/k bf16[16,8,4096,192], v bf16[16,8,4096,128], "
+                                         "causal (deepseek-v3's train_4k on a device of "
+                                         "16x16: its 8 of 128 MLA heads)",
+                                **{key: timed["mla_train_4k"][key] for key in more}},
             "head_slices": check_k3_head_slices(dev)}
 
 
 def check_k3_head_slices(dev) -> dict:
-    """K3 on each of 16 model ranks' q heads and its view of the kv heads
-    (``kernels/flash_attention/cases.py``): bitwise those heads of the
+    """K3 on each of 16 model ranks' q heads and its view (or block) of the
+    kv heads (``kernels/flash_attention/cases.py``: qwen3's and command-r's
+    GQA, deepseek-v3's MLA at qk 192 / v 128): bitwise those heads of the
     call over every head, each view read as it is by the tensor-core
     kernel, one launch a rank."""
     from repro_torch.kernels.flash_attention.cases import HEAD_SLICE_CASES, check_head_slices
 
     out = {}
-    for name, (b, h, hkv, s, d, ranks) in HEAD_SLICE_CASES.items():
-        got = check_head_slices(dev, b, h, hkv, s, d, ranks)
+    for name, case in HEAD_SLICE_CASES.items():
+        got = check_head_slices(dev, *case)
+        ranks = case[-1]
         assert got["bitwise"] and got["views_taken_as_is"], (name, got)
         assert got["rank_wgmma_launches"] == ranks, (name, got)
         out[name] = got
@@ -1533,7 +1590,6 @@ def run_serve_moe(root: Path, dev) -> dict:
     resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
     in_model = check_model_kernel_vs_plain(engine, req["prompt"])
     on_card = check_moe_on_card(dev, cfg)
-    scatter = time_dispatch_scatter(dev, cfg)
     trace = profile_serve(engine, req["prompt"])
     for phase in ("prefill", "decode"):
         for name in ("moe_dispatch", "moe_experts", "moe_combine"):
@@ -1549,7 +1605,7 @@ def run_serve_moe(root: Path, dev) -> dict:
                          "prefill_assignments": PROMPT_LEN * cfg.top_k,
                          "decode_per_expert": moe.capacity(1, cfg)},
             "resume": resume, "kernel_vs_plain_in_model": in_model, "moe_on_card": on_card,
-            "where_the_time_goes": trace, "dispatch_scatter": scatter,
+            "where_the_time_goes": trace,
             "launches": launches, "k3_launches_per_prefill": cfg.n_layers,
             "peak_memory_bytes": peak}
 
@@ -1663,32 +1719,6 @@ def check_moe_on_card(dev, cfg, prefill_tokens: int = PROMPT_LEN) -> dict:
     return {"experts": x_, **out, "host_float32_bytes": host_bytes,
             "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
             "s": time.perf_counter() - t0}
-
-
-def time_dispatch_scatter(dev, cfg) -> dict:
-    """The dispatch's scatter alone (``index_put`` with ``accumulate=True``
-    of a prefill group's 16,384 assignments into the (X, C, E) bf16 buffer):
-    every assignment in a slot of its own, then with 500 and 2,400 of them
-    on one slot, as dropped assignments land on their expert's clamped last
-    slot. PyTorch's sort-based kernel adds a slot's rows one after another."""
-    from repro_torch.models import moe
-
-    x_, e, k = cfg.n_experts, cfg.d_model, cfg.top_k
-    cap, n = moe.capacity(PROMPT_LEN, cfg), PROMPT_LEN * k
-    eid = np.sort(np.random.default_rng(0).integers(0, x_, n))
-    pos = np.zeros(n, np.int64)
-    for x in range(x_):
-        rows = np.nonzero(eid == x)[0]
-        pos[rows] = np.arange(len(rows)) % cap
-    vals = torch.randn(n, e, device=dev, dtype=torch.bfloat16)
-    out = {"assignments": n, "capacity": cap}
-    for dup in (0, 500, 2400):
-        ei, pi = eid.copy(), pos.copy()
-        ei[:dup], pi[:dup] = 0, cap - 1
-        idx = (torch.from_numpy(ei).to(dev), torch.from_numpy(pi).to(dev))
-        out[f"ms_with_{dup}_on_one_slot"] = cuda_ms(lambda idx=idx: torch.zeros(
-            (x_, cap, e), dtype=torch.bfloat16, device=dev).index_put(idx, vals, accumulate=True), 20)
-    return out
 
 
 def run_serve_hybrid(root: Path, dev) -> dict:
@@ -2053,17 +2083,31 @@ def run_serve_fleet(root: Path, dev, local: dict) -> dict:
 
 
 def run_chaos(dev) -> dict:
-    """Three tour cells of the port's chaos matrix on workers on the card;
-    a cell that breaks an invariant raises."""
-    from repro_torch.chaos import matrix
-
+    """Three tour cells of the port's chaos matrix, each through its CLI
+    (``python -m repro_torch.chaos.matrix --cells <id>``) with its workers
+    on the card, the three at once (each in a directory of its own); a cell
+    that breaks an invariant exits non-zero."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    procs = {cell_id: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.chaos.matrix", "--cells", cell_id,
+         "--device", str(dev)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for cell_id in CHAOS_CELLS}
     cells = {}
-    for cell_id in CHAOS_CELLS:
-        cell = next(c for c in matrix.CELLS if c["id"] == cell_id)
-        t0 = time.perf_counter()
-        matrix.run_cell(cell, device=str(dev))
-        cells[cell_id] = {"s": time.perf_counter() - t0, "verdict": "ok"}
-    return {"cells": cells, "device": str(dev)}
+    try:
+        for cell_id, proc in procs.items():
+            log, _ = proc.communicate(timeout=600)
+            assert proc.returncode == 0 and "1/1 cells survived" in log, (cell_id, log[-3000:])
+            took = re.search(r"ok\s+\(\s*([0-9.]+)s\)", log)
+            cells[cell_id] = {"s": float(took.group(1)), "verdict": "ok"}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"cells": cells, "device": str(dev), "concurrent": True,
+            "wall_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -2468,17 +2512,19 @@ def run_vision(dev) -> dict:
     }
 
 
-def _dryrun_cells() -> list[tuple[str, str, bool, str, int, str]]:
-    """``(arch, shape, seq_shard, mesh, layers, file)`` of every dry-run
-    cell the phase reads: qwen3's two on :data:`DRYRUN_MESH`, then
-    command-r's tensor-parallel ones on 16x16 (``layers`` a depth cut, 0
-    for none)."""
-    cells = [(DRYRUN_ARCH, shape, False, DRYRUN_MESH, 0,
+def _dryrun_cells() -> list[tuple[str, str, bool, bool, str, int, str]]:
+    """``(arch, shape, seq_shard, moe_buf_shard, mesh, layers, file)`` of
+    every dry-run cell the phase reads: qwen3's two on :data:`DRYRUN_MESH`,
+    then command-r's tensor-parallel ones and the MoE ones on 16x16
+    (``layers`` a depth cut, 0 for none)."""
+    cells = [(DRYRUN_ARCH, shape, False, False, DRYRUN_MESH, 0,
               f"{DRYRUN_ARCH}__{shape}__mesh{DRYRUN_MESH}.json") for shape in DRYRUN_SHAPES]
-    for shape, seq_shard, layers in DRYRUN_TP_CELLS:
-        name = (f"{DRYRUN_TP_ARCH}__{shape}__pod1" + (f"__l{layers}" if layers else "")
-                + ("__seqshard" if seq_shard else ""))
-        cells.append((DRYRUN_TP_ARCH, shape, seq_shard, "16x16", layers, name + ".json"))
+    sharded = ([(DRYRUN_TP_ARCH, shape, ss, False, layers) for shape, ss, layers in DRYRUN_TP_CELLS]
+               + list(DRYRUN_MOE_CELLS))
+    for arch, shape, seq_shard, moe_buf, layers in sharded:
+        name = (f"{arch}__{shape}__pod1" + (f"__l{layers}" if layers else "")
+                + ("__seqshard" if seq_shard else "") + ("__moebuf" if moe_buf else ""))
+        cells.append((arch, shape, seq_shard, moe_buf, "16x16", layers, name + ".json"))
     return cells
 
 
@@ -2491,23 +2537,25 @@ def start_dryrun(out: Path) -> list[subprocess.Popen]:
     return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                               arch, "--shape", shape, "--out", str(out), "--force",
                               *(["--seq-shard"] if seq_shard else []),
+                              *(["--moe-buf-shard"] if moe_buf else []),
                               *(["--mesh", mesh] if mesh != "16x16" else []),
                               *(["--layers", str(layers)] if layers else [])],
                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
-            for arch, shape, seq_shard, mesh, layers, _ in _dryrun_cells()]
+            for arch, shape, seq_shard, moe_buf, mesh, layers, _ in _dryrun_cells()]
 
 
 def finish_dryrun(procs: list[subprocess.Popen], out: Path) -> dict:
     """Each dry-run cell's record by file name, its process ended with 0
-    and the cell ``ok``."""
+    and the cell ``ok`` on the ``tp`` path."""
     cells = {}
-    for (arch, shape, seq_shard, mesh, _, name), proc in zip(_dryrun_cells(), procs):
+    for (arch, shape, seq_shard, moe_buf, mesh, _, name), proc in zip(_dryrun_cells(), procs):
         log, _ = proc.communicate(timeout=300)
         assert proc.returncode == 0, (arch, shape, log[-3000:])
         rec = json.loads((out / name).read_text())
         assert rec["ok"] and rec["device"] == "cuda" and rec["mesh"] == mesh, rec
-        assert rec["seq_shard"] == seq_shard and rec["path"] == "tp", rec
+        assert rec["seq_shard"] == seq_shard and rec["moe_buf_shard"] == moe_buf, rec
+        assert rec["path"] == "tp", rec
         cells[name] = rec
     return cells
 
@@ -2693,14 +2741,16 @@ def run_dryrun(root: Path, dev) -> dict:
         # qwen3's cells in a frame of their own: none of their tensors (the
         # 30 GB decode cache) outlives it
         prefill, decode = run_1x1_cells(dev)
-        tp_cells = run_dryrun_tp(dev)
+        tp_cells = run_dryrun_tp(dev, [(DRYRUN_TP_ARCH, shape, ss, False, layers)
+                                        for shape, ss, layers in DRYRUN_TP_CELLS]
+                                 + list(DRYRUN_MOE_CELLS))
         cells = finish_dryrun(procs, out_dir)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    names = {shape: name for arch, shape, _, _, _, name in _dryrun_cells()
+    names = {shape: name for arch, shape, _, _, _, _, name in _dryrun_cells()
              if arch == DRYRUN_ARCH}
     for shape, real in (("prefill_32k", prefill), ("decode_32k", decode)):
         cell = cells[names[shape]]
@@ -2712,13 +2762,13 @@ def run_dryrun(root: Path, dev) -> dict:
                                          / cell["memory"]["peak_memory_in_bytes"])
         assert real["flops_rel_diff"] <= DRYRUN_FLOPS_TOL, (shape, real["flops"], cell["cost"])
     card = torch.cuda.get_device_properties(dev).total_memory
-    for (arch, shape, seq_shard, _, _, name), real in zip(
-            [c for c in _dryrun_cells() if c[0] == DRYRUN_TP_ARCH], tp_cells):
+    for (arch, shape, seq_shard, moe_buf, _, _, name), real in zip(
+            [c for c in _dryrun_cells() if c[0] != DRYRUN_ARCH], tp_cells):
         cell = cells[name]
         flops = cell["cost"]["flops"]
         real.update({
             "dryrun": {k: cell[k] for k in ("cost", "memory", "collectives", "trace_s",
-                                            "total_s")},
+                                            "total_s", "experts", "moe_buf_shard")},
             "dryrun_flops": flops, "tflops_per_s": flops / real["device_ms"] / 1e9,
             "bf16_peak_share": flops / (real["device_ms"] / 1e3) / BF16_FLOPS,
             "card_memory_bytes": card,
@@ -2726,8 +2776,24 @@ def run_dryrun(root: Path, dev) -> dict:
                                       / cell["memory"]["peak_memory_in_bytes"]),
             "peak_over_card": real["max_memory_allocated"] / card})
         assert real["max_memory_allocated"] < card, (name, real["max_memory_allocated"], card)
+        assert cell["experts"] == real["experts"], (name, cell["experts"], real["experts"])
+        # what the process held beyond the step's arguments (cuBLAS's
+        # workspaces, ~70 MB, which the dry run does not count) taken out
+        extra = real["arguments_bytes"] - cell["memory"]["argument_size_in_bytes"]
+        real["held_beyond_arguments_bytes"] = extra
+        assert abs(extra) <= DRYRUN_HELD_MAX, (name, extra)
+        real["peak_net_over_dryrun_peak"] = ((real["max_memory_allocated"] - extra)
+                                             / cell["memory"]["peak_memory_in_bytes"])
+        assert abs(real["peak_net_over_dryrun_peak"] - 1) <= DRYRUN_PEAK_TOL, (name, real)
+        if arch != DRYRUN_TP_ARCH:  # the MoE cells
+            real["all_to_all"] = cell["collectives"]["by_kind"].get("all-to-all")
+            if "data" in real["experts"]:  # tokens move to experts over (data, model)
+                assert real["all_to_all"] and real["all_to_all"]["count"] > 0, (name, real)
+    n_tp = len(DRYRUN_TP_CELLS)
     tp = dict(zip([f"{shape}" + ("_seq_shard" if ss else "") for shape, ss, _ in DRYRUN_TP_CELLS],
-                  tp_cells))
+                  tp_cells[:n_tp]))
+    moe = {f"{arch}__{shape}" + ("__seq_shard" if ss else "") + ("__moe_buf_shard" if mb else ""):
+           rec for (arch, shape, ss, mb, _), rec in zip(DRYRUN_MOE_CELLS, tp_cells[n_tp:])}
     launches = {k: prefill["launches"][k] + sum(c["launches"][k] for c in tp_cells)
                 for k in prefill["launches"]}
     return {"arch": DRYRUN_ARCH, "mesh": "1x1 (data, model), cuda, nccl, world 1",
@@ -2739,6 +2805,9 @@ def run_dryrun(root: Path, dev) -> dict:
                 "of 256 on real card tensors", "not_compared": "the fake group's collectives "
                 "move no bytes and leave their outputs unwritten: no output is compared with "
                 "anything, and no time includes communication", **tp},
+            "moe": {"mesh": "16x16 (data, model), rank 0 of a fake group of 256 on real card "
+                            "tensors", "not_compared": "as tensor_parallel's: shapes, launches, "
+                    "memory and the dry run's FLOPs only", **moe},
             "launches": launches}
 
 
@@ -2765,17 +2834,33 @@ def _real_dtensors(specs, shardings, dev, seed: int):
     return treedef.unflatten(out)
 
 
-def run_dryrun_tp(dev) -> list[dict]:
-    """:data:`DRYRUN_TP_ARCH` at full width and depth, rank 0's
-    tensor-parallel steps of :data:`DRYRUN_TP_CELLS` on the card: this
-    process joins a fake group of 256 ranks (its collectives return at once
-    and write nothing) and makes the 16x16 production mesh over it; the
-    params and train state are rank 0's real blocks (:func:`_real_dtensors`),
-    the batch the global one (each step takes its data block). K3's counts
-    set to 0 just before each step and read just after: the prefill's 64
-    launches all tensor-core. Each step's wall and device time (CUDA
-    events; the collectives take none) and peak memory, each step run
-    once. The group is destroyed at the end."""
+# each sharded cell's arch at full width: (layers, d_model, heads, kv heads,
+# d_ff, vocab, dtype), and what a device of 16x16 holds of it
+_WIDTHS = {
+    "command-r-plus-104b": ((64, 12288, 96, 8, 33792, 256000, "bfloat16"),
+                            "6 q heads / 1 kv head, mlp 2112, vocab 16000 a model rank"),
+    "deepseek-v3-671b": ((61, 7168, 128, 128, 18432, 129280, "bfloat16"),
+                         "8 of 128 MLA heads (qk 192 / v 128), 1 of 256 experts a MoE layer, "
+                         "mlp 1152 (shared expert 128), vocab 8080 a device"),
+    "granite-moe-1b-a400m": ((24, 1024, 16, 8, 512, 49155, "bfloat16"),
+                             "1 q head / its kv head, 2 of 32 experts a layer (over model), "
+                             "vocab 49155 whole"),
+}
+
+
+def run_dryrun_tp(dev, cells) -> list[dict]:
+    """Rank 0's tensor-parallel steps of ``cells`` (``(arch, shape,
+    seq_shard, moe_buf_shard, layers)``: command-r-plus-104b's, then the
+    MoE ones) on the card, each arch at full width: this process joins a
+    fake group of 256 ranks (its collectives return at once and write
+    nothing) and makes the 16x16 production mesh over it; the params and
+    train state are rank 0's real blocks (:func:`_real_dtensors`), the
+    batch the global one (each step takes its data block). K3's counts set
+    to 0 just before each step and read just after: a prefill's one launch
+    a layer, a train step's two with lse (the forward and its recompute),
+    all tensor-core. Each step's wall and device time (CUDA events; the
+    collectives take none) and peak memory, each step run once. The group
+    is destroyed at the end."""
     import torch.distributed as dist
 
     from repro_torch.configs import SHAPES, get_config
@@ -2787,10 +2872,6 @@ def run_dryrun_tp(dev) -> list[dict]:
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.optim import AdamWConfig
 
-    cfg = get_config(DRYRUN_TP_ARCH)
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-            cfg.d_ff, cfg.vocab, cfg.dtype) == (64, 12288, 96, 8, 128, 33792, 256000,
-                                                "bfloat16"), cfg
     gen = torch.Generator(dev).manual_seed(2)
     out = []
 
@@ -2802,7 +2883,11 @@ def run_dryrun_tp(dev) -> list[dict]:
     join_fake_group(256)
     try:
         mesh = make_production_mesh(multi_pod=False, device_type="cuda")
-        for shape_name, seq_shard, layers in DRYRUN_TP_CELLS:
+        for arch, shape_name, seq_shard, moe_buf, layers in cells:
+            cfg = get_config(arch)
+            widths, holds = _WIDTHS[arch]
+            assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab,
+                    cfg.dtype) == widths, cfg
             shape = SHAPES[shape_name]
             ccfg = cfg.with_(n_layers=layers) if layers else cfg
             gc.collect()
@@ -2814,10 +2899,12 @@ def run_dryrun_tp(dev) -> list[dict]:
                 args = (_real_dtensors(model_axes_for(ccfg)[1], p_sh, dev, 0), {"tokens": tokens})
             else:
                 opt_cfg = AdamWConfig(moment_dtype=ccfg.opt_moment_dtype)
-                step = make_train_step(ccfg, opt_cfg, mesh=mesh, seq_shard=seq_shard)
-                state = _real_dtensors(state_struct_for(ccfg, opt_cfg),
-                                       train_state_shardings(ccfg, opt_cfg, mesh), dev, 0)
-                args = (state, {"tokens": tokens, "labels": tokens})
+                step = make_train_step(ccfg, opt_cfg, mesh=mesh, seq_shard=seq_shard,
+                                       moe_buf_shard=moe_buf)
+                # no name binds the state: it goes with args, before the next cell
+                args = (_real_dtensors(state_struct_for(ccfg, opt_cfg),
+                                       train_state_shardings(ccfg, opt_cfg, mesh), dev, 0),
+                        {"tokens": tokens, "labels": tokens})
             torch.cuda.synchronize(dev)
             held = torch.cuda.memory_allocated(dev)
             flash_attention.launches = flash_attention.wgmma_launches = 0
@@ -2827,11 +2914,13 @@ def run_dryrun_tp(dev) -> list[dict]:
             launches = counts()
             peak = torch.cuda.max_memory_allocated(dev)
             del res
-            rec = {"shape": f"{shape_name}: B{shape.global_batch // 16} S{shape.seq_len} a "
-                            "device (16 data ranks), 6 q heads / 1 kv head, mlp 2112, vocab "
-                            "16000 a model rank" + (", seq_shard" if seq_shard else ""),
-                   "path": step.path, "wall_s": wall, "device_ms": dev_ms,
-                   "launches": launches, "arguments_bytes": held,
+            rec = {"arch": arch,
+                   "shape": f"{shape_name}: B{shape.global_batch // 16} S{shape.seq_len} a "
+                            f"device (16 data ranks), {holds}"
+                            + (", seq_shard" if seq_shard else "")
+                            + (", moe_buf_shard" if moe_buf else ""),
+                   "path": step.path, "experts": step.experts, "wall_s": wall,
+                   "device_ms": dev_ms, "launches": launches, "arguments_bytes": held,
                    "max_memory_allocated": peak,
                    "depth_cut": f"{layers} of {cfg.n_layers} layers" if layers else None}
             if shape.kind == "prefill":
@@ -3084,6 +3173,7 @@ def main() -> int:
          disk_free_bytes=shutil.disk_usage(ROOT).free, proc_io_write_bytes=proc_write_bytes())
     disk = DiskWrites()
 
+    navlint = start_navlint()
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
@@ -3096,7 +3186,7 @@ def main() -> int:
     emit("build", seconds=build_s, sources=list(_build.SOURCES), ptxas=ptxas,
          k2_spill_bytes=k2_spills, k3_wgmma_spill_bytes=k3_spills,
          disk=disk.mark("build", dir_bytes(ROOT / "build" / "kernels")))
-    emit("navlint", **run_navlint(), disk=disk.mark("navlint", 0))
+    emit("navlint", **run_navlint(navlint), disk=disk.mark("navlint", 0))
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -3120,6 +3210,8 @@ def main() -> int:
         # and at the new phases' shapes: deepseek's MLA prefill, whisper's
         # encoder, cross and decoder attention (its training forward's)
         k3_lse_new = {"mla": k3_lse_case(dev, 1, 128, 128, 2048, 2048, 192, 128, True, 0, 1),
+                      "mla_train_4k": k3_lse_case(dev, 16, 8, 8, 4096, 4096, 192, 128, True,
+                                                  0, 7),
                       "whisper_encoder": k3_lse_case(dev, 4, 6, 6, 1500, 1500, 64, 64, False, 0, 4),
                       "whisper_cross": k3_lse_case(dev, 4, 6, 6, 2048, 1500, 64, 64, False, 0, 5),
                       "whisper_decoder": k3_lse_case(dev, 4, 6, 6, 2048, 2048, 64, 64, True, 0, 6)}
@@ -3139,6 +3231,10 @@ def main() -> int:
         dry = run_dryrun(work / "dryrun", dev)
         by_path["dryrun"] = {"flash_attention": dry["launches"]["flash_attention"]}
         emit("dryrun", **dry, k3=k3["at_prefill_32k"], k3_tensor_parallel=k3["at_command_r_32k"],
+             k3_moe={"deepseek_prefill_32k": k3["at_mla_32k"],
+                     "deepseek_train_4k": k3["at_mla_train_4k"],
+                     "deepseek_train_4k_lse": k3_lse_new["mla_train_4k"],
+                     "granite_prefill_32k": k3["at_granite_32k"]},
              k3_head_slices=k3["head_slices"], nvidia_smi=smi,
              disk=disk.mark("dryrun", dir_bytes(work / "dryrun")))
         del dry
@@ -3370,6 +3466,9 @@ def main() -> int:
                          "at_internvl2": k["at_internvl2"],
                          "at_prefill_32k": k["at_prefill_32k"],
                          "at_command_r_32k": k["at_command_r_32k"],
+                         "at_mla_32k": k["at_mla_32k"],
+                         "at_granite_32k": k["at_granite_32k"],
+                         "at_mla_train_4k": k["at_mla_train_4k"],
                          "head_slices": k["head_slices"], "training": k3_train,
                          "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid,
                          "lse_new_shapes": k3_lse_new}

@@ -1,8 +1,8 @@
 """Sharding-constraint context.
 
 Port of the JAX package's ``repro/distributed/ctx.py``. The model code
-stays mesh-agnostic: it calls ``constrain(x, kind)`` at a few points
-(residual stream, MoE dispatch buffer), and a step builder installs a
+stays mesh-agnostic: it calls ``constrain(x, kind)`` where the reference
+constrains (the residual stream), and a step builder installs a
 constraint for each kind. Where the reference steers GSPMD with
 ``with_sharding_constraint``:
 
@@ -16,10 +16,16 @@ constraint for each kind. Where the reference steers GSPMD with
   and the FFN and reduce-scatter their outputs).
 
 Anything else, or a kind with nothing installed, is returned unchanged.
+The reference's other kind, ``moe_buf`` (its ``moe_buf_shard``: the MoE
+dispatch buffer placed as the experts are), is not a constraint here but
+carried by the step's plan (``Plan.moe_buf_shard``, read by
+``models/moe.py``): the buffer lives inside a layer that the train step
+recomputes in its backward, on the autograd engine's device thread, which
+does not see this context; ``resid`` is applied between the layers, so
+the context reaches it.
 
 Kinds:
   resid    — (B, S, E) residual stream between layers
-  moe_buf  — (X, C, E) expert dispatch buffer
 """
 
 from __future__ import annotations

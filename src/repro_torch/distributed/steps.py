@@ -22,33 +22,41 @@ is the global mean, as the reference's. How a rank computes depends on
 the family, and the step records it (``path`` in the train step's
 metrics, ``.path`` on every step):
 
-* ``"tp"`` (``dense`` and ``vlm``: plain GQA and a dense FFN): on its own
-  shards, as the reference's GSPMD program does (``distributed/tp.py``:
-  vocab-parallel embedding and loss, column- then row-parallel FFN and
-  attention, K3 on the rank's q heads). The gradients are the local
-  shards; a whole weight a rank used on its part of the work has its
-  gradient summed over the model axis; the global norm counts every
-  element once; AdamW takes the ``OPT_RULES`` block of each local shard.
-  ``seq_shard`` splits the residual stream along S between layers
-  (Megatron's sequence parallelism).
-* ``"gathered"`` (MoE, MLA, the hybrid and mLSTM mixers, the
-  encoder–decoder, until their ROADMAP items): every weight gathered whole
-  on each rank, the model run on plain local tensors.
+* ``"tp"`` (``dense``, ``vlm`` and ``moe``: GQA or MLA, a dense or MoE
+  FFN): on its own shards, as the reference's GSPMD program does
+  (``distributed/tp.py``: vocab-parallel embedding and loss, column- then
+  row-parallel FFN and attention, K3 on the rank's q heads, MLA on its
+  heads, the MoE experts on their (data, model) or model blocks,
+  ``models/moe.py``). The gradients are the local shards, summed over the
+  batch axes a weight is not split over (an expert split over data has
+  its whole gradient after the backward of the dispatch's collectives); a
+  whole weight a rank used on its part of the work has its gradient
+  summed over the model axis; the global norm counts every element once;
+  AdamW takes the ``OPT_RULES`` block of each local shard. ``seq_shard``
+  splits the residual stream along S between layers (Megatron's sequence
+  parallelism); ``moe_buf_shard`` places the MoE dispatch buffer as the
+  experts are, so tokens move to the experts (all-to-all) where without
+  it each model column's expert weights are gathered over the data axis.
+* ``"gathered"`` (the hybrid and mLSTM mixers, the encoder–decoder, until
+  their ROADMAP items): every weight gathered whole on each rank, the
+  model run on plain local tensors.
 
-On a mesh whose model axis has size 1 nothing is split, and on one whose
-batch axes have size 1 nothing is summed: a 1×1 mesh is the unsharded
-step bit for bit.
+On a mesh that splits nothing (a model axis of size 1, and no experts
+over the data axis) the model runs its plain code, and on one whose batch
+axes have size 1 nothing is summed: a 1×1 mesh is the unsharded step bit
+for bit.
 
 The serve steps (:func:`make_prefill_step`, :func:`make_decode_step`)
-compute the same two ways. Their caches are DTensors placed by
-``CACHE_RULES`` (batch over pod×data, seq over model, every kv head). On
-the ``tp`` path prefill keeps each rank's block of positions of every
-layer's cache (the kv heads gathered along the model axis where they are
-split) and decode attends over each rank's block where it lies
-(flash-decoding's combine across the model axis), the new position
-written by the rank that owns it. On the ``gathered`` path decode gathers
-its batch block's caches along seq and writes the new position back into
-the shard that owns it.
+compute the same two ways (their MoE layers move tokens to the experts).
+Their caches are DTensors placed by ``CACHE_RULES`` (batch over
+pod×data, seq over model, every kv head). On the ``tp`` path prefill
+keeps each rank's block of positions of every layer's cache (GQA's k/v,
+the kv heads gathered along the model axis; MLA's latent rows) and decode
+attends over each rank's block where it lies (flash-decoding's combine
+across the model axis; MLA's absorbed form scores every head there), the
+new position written by the rank that owns it. On the ``gathered`` path
+decode gathers its batch block's caches along seq and writes the new
+position back into the shard that owns it.
 """
 
 from __future__ import annotations
@@ -228,26 +236,24 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3
     MoE routing groups default to the data-parallel degree, as in the
     reference (the product of the mesh's batch axes; 1 on one device), so
     each batch shard routes as its own group. ``seq_shard`` (the
-    reference's sequence-parallel residual stream) needs a mesh and the
-    ``tp`` path. ``moe_buf_shard`` (the reference's expert-sharded
-    dispatch buffer) is refused: the MoE runs on gathered local tensors
-    until its expert-parallel compute lands (:func:`tp.later_items`)."""
-    if moe_buf_shard:
-        raise NotImplementedError(
-            "moe_buf_shard: the sharded step gathers the experts and runs the MoE on local "
-            "tensors, so there is no expert-sharded dispatch buffer; it comes with "
-            "expert-parallel compute (ROADMAP queue 1, item 4d)")
-    if seq_shard and mesh is None:
-        raise ValueError("seq_shard splits the residual stream over a mesh's model axis: "
-                         "it needs a mesh")
-    if seq_shard and tp.compute_path(cfg) != "tp":
-        raise NotImplementedError(
-            f"seq_shard: {cfg.name}'s sharded step gathers its weights and computes on "
-            f"local tensors; its tensor-parallel compute is {tp.later_items(cfg)}")
+    reference's sequence-parallel residual stream) and ``moe_buf_shard``
+    (its expert-placed dispatch buffer: tokens move to the experts) need a
+    mesh and the ``tp`` path; ``moe_buf_shard`` changes nothing for a
+    model without MoE layers, as in the reference."""
+    for flag, on, what in (("seq_shard", seq_shard, "splits the residual stream over a mesh's "
+                            "model axis"),
+                           ("moe_buf_shard", moe_buf_shard, "places the MoE dispatch buffer on "
+                            "a mesh's expert axes")):
+        if on and mesh is None:
+            raise ValueError(f"{flag} {what}: it needs a mesh")
+        if on and tp.compute_path(cfg) != "tp":
+            raise NotImplementedError(
+                f"{flag}: {cfg.name}'s sharded step gathers its weights and computes on "
+                f"local tensors; its tensor-parallel compute is {tp.later_items(cfg)}")
     if mesh is not None:
         return _make_sharded_train_step(cfg, opt_cfg, mesh, peak_lr=peak_lr, warmup=warmup,
                                         total_steps=total_steps, n_route_groups=n_route_groups,
-                                        seq_shard=seq_shard)
+                                        seq_shard=seq_shard, moe_buf_shard=moe_buf_shard)
     n_groups = n_route_groups or 1
     # torch.utils.checkpoint's first call imports torch._dynamo, and that
     # import keeps its caller's frames alive for good: whatever train state
@@ -293,7 +299,7 @@ def _local(t):
 
 def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, peak_lr: float,
                              warmup: int, total_steps: int, n_route_groups: int,
-                             seq_shard: bool):
+                             seq_shard: bool, moe_buf_shard: bool):
     import torch.distributed as dist
     import torch._dynamo  # noqa: F401  (see make_train_step)
 
@@ -307,7 +313,9 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
     path = tp.compute_path(cfg)
     model_axes, params_struct = model_axes_for(cfg)
     p_sh = tree_shardings(model_axes, params_struct, mesh, DEFAULT_RULES)
-    plan = tp.plan_for(cfg, p_sh, mesh, seq_shard=seq_shard) if path == "tp" else None
+    plan = (tp.plan_for(cfg, p_sh, mesh, seq_shard=seq_shard, moe_buf_shard=moe_buf_shard)
+            if path == "tp" else None)
+    experts = list(plan.experts.axes) if plan is not None else []
 
     @torch.no_grad()
     def shard_batch(batch: dict[str, torch.Tensor]):
@@ -352,27 +360,29 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
         with torch.no_grad():
             if axes:
                 reduce(loss, axes)
-                for g in grads.values():
-                    reduce(g, axes)
+                for k, g in grads.items():  # not over an axis the weight is split over
+                    reduce(g, [a for a in axes if a not in _split_axes(p_flat[k])])
             lr = warmup_cosine(_local(state["step"]), peak_lr=peak_lr, warmup=warmup,
                                total=total_steps)
             om = _adamw_sharded(grads, state["opt"], p_flat, lr, opt_cfg, plan)
         del grads
         _local(state["step"]).add_(1)
         _local(state["data"]["data_step"]).add_(1)
-        return state, {"loss": loss, "lr": lr, **om, "path": path}
+        return state, {"loss": loss, "lr": lr, **om, "path": path,
+                       "moe_buf_shard": moe_buf_shard, "experts": experts}
 
     mesh_coordinate(mesh)  # this rank must be in the mesh
-    train_step.path = path
+    train_step.path, train_step.moe_buf_shard, train_step.experts = path, moe_buf_shard, experts
     return train_step
 
 
-def _split_on_model(t) -> bool:
-    """Whether a DTensor's placements split it over the model axis."""
+def _split_axes(t) -> tuple[str, ...]:
+    """The mesh axes (of size > 1) a DTensor's placements split it over."""
     from torch.distributed.tensor import Shard
 
-    names = axis_names(t.device_mesh)
-    return "model" in names and isinstance(t.placements[names.index("model")], Shard)
+    names, sizes = axis_names(t.device_mesh), t.device_mesh.shape
+    return tuple(a for i, a in enumerate(names)
+                 if sizes[i] > 1 and isinstance(t.placements[i], Shard))
 
 
 def _grad_block(g: torch.Tensor, p, master) -> torch.Tensor:
@@ -397,6 +407,11 @@ def _sum_squares(tensors: list, device) -> torch.Tensor:
     return total
 
 
+def _axis_sum(x: torch.Tensor, group) -> torch.Tensor:
+    f = torch.ops._c10d_functional
+    return f.wait_tensor(f.all_reduce(x.contiguous(), "sum", group.group_name))
+
+
 @torch.no_grad()
 def _adamw_sharded(grads: dict[str, torch.Tensor], opt_state: dict, p_flat: dict, lr,
                    cfg: AdamWConfig, plan=None) -> dict:
@@ -405,8 +420,9 @@ def _adamw_sharded(grads: dict[str, torch.Tensor], opt_state: dict, p_flat: dict
     each rank updating its block of the moments and the master weights;
     each param is the new master cast to its dtype and gathered to the
     param's placements. Under a plan the global norm counts each element
-    once: the split leaves' squares summed over the model axis, the whole
-    leaves' (the same on every model rank) once."""
+    once: each leaf's squares summed over the axes it is split over (the
+    model axis, the data axis too for an expert), a whole leaf's (the
+    same on every rank) once."""
     with torch.profiler.record_function("adamw_update"):
         mu_flat, _ = flatten_with_paths(opt_state["mu"])
         nu_flat, _ = flatten_with_paths(opt_state["nu"])
@@ -416,10 +432,17 @@ def _adamw_sharded(grads: dict[str, torch.Tensor], opt_state: dict, p_flat: dict
         if plan is None:
             gnorm = global_norm(grads)
         else:
-            split = {k: _split_on_model(p_flat[k]) for k in grads}
-            sq_split = _sum_squares([g for k, g in grads.items() if split[k]], count.device)
-            sq_whole = _sum_squares([g for k, g in grads.items() if not split[k]], count.device)
-            gnorm = torch.sqrt(plan.all_reduce(sq_split) + sq_whole)
+            by_axes: dict[tuple, list] = {}
+            for k, g in grads.items():
+                by_axes.setdefault(_split_axes(p_flat[k]), []).append(g)
+            total = _sum_squares(by_axes.pop((), []), count.device)
+            mesh = next(iter(p_flat.values())).device_mesh
+            for split_axes, gs in sorted(by_axes.items()):
+                sq = _sum_squares(gs, count.device)
+                for a in split_axes:
+                    sq = _axis_sum(sq, mesh.get_group(a))
+                total = total + sq
+            gnorm = torch.sqrt(total)
         scale, c1, c2 = adamw_scalars(gnorm, count, cfg)
         for path, g in grads.items():
             master = m_flat[path]
@@ -500,6 +523,18 @@ def _params_for(params, path: str):
     return _gather_params(params)
 
 
+def _serve_plan(cfg: ArchConfig, p_sh, mesh, path: str, c_flat: dict, shapes: dict):
+    """The serve steps' plan on the ``tp`` path (``None`` on the other or
+    where nothing is split): the MoE dispatch moves tokens to the experts,
+    and ``cache_seq`` is this rank's block of the first layer group's
+    attention cache (``k``, or MLA's ``ckv``)."""
+    plan = tp.plan_for(cfg, p_sh, mesh, moe_buf_shard=True) if path == "tp" else None
+    if plan is None:
+        return None
+    leaf = next(k for k in ("g0/k", "g0/ckv") if k in c_flat)
+    return plan.with_(cache_seq=_cache_rows(c_flat[leaf], shapes[leaf]))
+
+
 def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
     """Returns ``(prefill_step, params_shardings, (logits_sharding,
     cache_shardings))``. ``prefill_step(params, batch) -> (logits,
@@ -523,9 +558,7 @@ def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
     logits_shape = (shape.global_batch, cfg.vocab)
     logits_sh = NamedSharding(mesh, data_pspec(mesh, 2, shape.global_batch))
     path = tp.compute_path(cfg)
-    plan = tp.plan_for(cfg, p_sh, mesh) if path == "tp" else None
-    if plan is not None:
-        plan = plan.with_(cache_seq=_cache_rows(c_flat["g0/k"], glob["g0/k"]))
+    plan = _serve_plan(cfg, p_sh, mesh, path, c_flat, glob)
 
     @torch.no_grad()
     def prefill_step(params, batch: dict):
@@ -558,6 +591,8 @@ def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
         return from_local(logits, logits_shape, logits_sh), treedef.unflatten(out)
 
     prefill_step.path = path
+    prefill_step.experts = list(plan.experts.axes) if plan is not None else []
+    prefill_step.moe_buf_shard = bool(prefill_step.experts)  # MoE tokens move to their experts
     return prefill_step, p_sh, (logits_sh, c_sh)
 
 
@@ -583,11 +618,8 @@ def make_decode_step(cfg: ArchConfig, mesh, shape: InputShape):
     names = axis_names(mesh)
     seq_dims = _seq_dims(cfg)
     path = tp.compute_path(cfg)
-    plan = tp.plan_for(cfg, p_sh, mesh) if path == "tp" else None
-    if plan is not None:
-        k_spec = flatten_with_paths(cache_struct)[0]["g0/k"]
-        plan = plan.with_(cache_seq=_cache_rows(flatten_with_paths(c_sh)[0]["g0/k"],
-                                                k_spec.shape))
+    plan = _serve_plan(cfg, p_sh, mesh, path, flatten_with_paths(c_sh)[0],
+                       {k: v.shape for k, v in flatten_with_paths(cache_struct)[0].items()})
 
     @torch.no_grad()
     def decode_step(params, caches, tokens, pos: int):
@@ -627,4 +659,6 @@ def make_decode_step(cfg: ArchConfig, mesh, shape: InputShape):
         return from_local(logits, logits_shape, logits_sh), caches
 
     decode_step.path = path
+    decode_step.experts = list(plan.experts.axes) if plan is not None else []
+    decode_step.moe_buf_shard = bool(decode_step.experts)  # MoE tokens move to their experts
     return decode_step, p_sh, c_sh

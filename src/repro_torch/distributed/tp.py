@@ -1,8 +1,9 @@
-"""Tensor-parallel compute on the mesh's ``model`` axis.
+"""Tensor-parallel and expert-parallel compute on the mesh's shards.
 
 The reference jits its steps with the params placed by ``DEFAULT_RULES``
 (``heads``, ``kv_heads``, ``mlp`` and ``vocab`` on ``model``: Megatron's
-layout), and GSPMD then computes every projection on its shard and
+layout; ``experts`` over ``("data", "model")`` where they divide it, else
+over ``model``), and GSPMD then computes every product on its shard and
 inserts the collectives between them. No JAX module spells that program
 out; this module is its counterpart for the port's plain local tensors:
 
@@ -12,34 +13,41 @@ out; this module is its counterpart for the port's plain local tensors:
   heads do not divide a 16-way axis, so its attention stays whole and runs
   on every model rank (the reference's ``spec_for`` fallback) while its
   MLP and vocab are split; 8 kv heads on 16 stay whole, and each rank
-  reads the view of them its q heads need.
+  reads the view of them its q heads need. MLA's heads are read from
+  ``wq_b``, ``wkv_b`` and ``wo``. The MoE experts' axes are a field of
+  their own (:class:`Experts`): not a model-axis split but a block of
+  experts a rank over the flattened ``("data", "model")`` (or ``model``)
+  axes, with the data axis's group for moving tokens or weights within a
+  model column (``models/moe.py``).
 * The collectives, each an autograd function (Megatron's f/g pair and the
   sequence-parallel pair), built on ``torch.distributed``'s functional
   collectives so a trace (``launch/hlo_stats.py``'s ``StepCounter``) sees
   them as ``_c10d_functional`` ops:
 
     =====================  =========================  ========================
-    ``Plan`` method        forward                    backward
+    method                 forward                    backward
     =====================  =========================  ========================
-    ``copy_to``            identity                   all-reduce
-    ``reduce_from``        all-reduce                 identity
-    ``gather_seq``         all-gather along S         reduce-scatter along S
-    ``scatter_seq``        reduce-scatter along S     all-gather along S
-    ``split_seq``          this rank's S block        all-gather along S
+    ``Plan.copy_to``       identity                   all-reduce
+    ``Plan.reduce_from``   all-reduce                 identity
+    ``Plan.gather_seq``    all-gather along S         reduce-scatter along S
+    ``Plan.scatter_seq``   reduce-scatter along S     all-gather along S
+    ``Plan.split_seq``     this rank's S block        all-gather along S
+    ``Experts.all_to_all`` all-to-all over data       the reverse all-to-all
+    ``Experts.gather``     all-gather over data       reduce-scatter over data
     =====================  =========================  ========================
 
-  and ``all_reduce``, ``all_gather``, ``reduce_scatter`` without a
-  gradient. ``copy_to`` also marks a whole weight that a rank uses on its own
+  and ``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``
+  without a gradient. ``copy_to`` also marks a whole weight that a rank uses on its own
   part of the work (a norm scale on its rows under ``seq_shard``, ``q_norm``
-  on its heads): the rank's gradient of it is a partial sum, and the
-  all-reduce makes it whole on every rank.
+  on its heads, the router on its column's experts): the rank's gradient of
+  it is a partial sum, and the all-reduce makes it whole on every rank.
+  On an axis of size 1 each is the identity.
 * :class:`SeqParallel` — the ``resid`` constraint of ``seq_shard``
   (``distributed/ctx.py``): the residual stream between layers is each
   rank's block of the sequence.
 
-With no plan (no mesh, a model axis of size 1, or a family that still
-computes on gathered weights) the model runs its plain code, so a 1×1
-mesh is the unsharded model bit for bit.
+With no plan (no mesh, or one that splits nothing) the model runs its
+plain code, so a 1×1 mesh is the unsharded model bit for bit.
 """
 
 from __future__ import annotations
@@ -50,19 +58,15 @@ from typing import Any
 
 import torch
 
-# the families whose layers are plain GQA and a dense FFN: computed here;
-# every other family gathers its weights (ROADMAP queue 1, the mesh)
-TP_FAMILIES = ("dense", "vlm")
+# the families computed here: GQA or MLA, a dense or MoE FFN; every other
+# family gathers its weights (ROADMAP queue 1, the mesh)
+TP_FAMILIES = ("dense", "vlm", "moe")
 
 
 def later_items(cfg) -> str:
     """The ROADMAP items (queue 1, item 4) that bring ``cfg``'s family to
     tensor-parallel compute; until then its steps gather the weights."""
     items = []
-    if cfg.moe:
-        items.append("4d (MoE expert-parallel compute and moe_buf_shard)")
-    if cfg.mla:
-        items.append("4e (MLA heads)")
     if cfg.ssm or cfg.mlstm:
         items.append("4f (the hybrid and mLSTM mixers)")
     if cfg.encdec:
@@ -72,10 +76,46 @@ def later_items(cfg) -> str:
 
 def compute_path(cfg) -> str:
     """``"tp"`` for a family whose sharded steps compute on their shards
-    (:data:`TP_FAMILIES`: plain GQA and a dense FFN), ``"gathered"`` for
-    one whose steps still gather every weight (:func:`later_items`)."""
-    plain = not (cfg.moe or cfg.mla or cfg.ssm or cfg.mlstm or cfg.encdec)
+    (:data:`TP_FAMILIES`: GQA or MLA, a dense or MoE FFN), ``"gathered"``
+    for one whose steps still gather every weight (:func:`later_items`)."""
+    plain = not (cfg.ssm or cfg.mlstm or cfg.encdec)
     return "tp" if cfg.family in TP_FAMILIES and plain else "gathered"
+
+
+@dataclass(frozen=True)
+class Experts:
+    """How a MoE layer's experts lie on the mesh: ``axes`` the mesh axes
+    their dim is split over (``("data", "model")``, ``("model",)`` or
+    ``()``, whole), ``rows`` the data axis's size where it is among them
+    (else 1) and ``group`` its process group. Rank ``(d, m)`` holds block ``d * M + m`` of the experts (``m``
+    where only ``model`` splits them): its *column* is the blocks ``d' * M
+    + m`` of every data row ``d'``, the experts whose slots it builds from
+    its own tokens (``models/moe.py``)."""
+
+    axes: tuple[str, ...] = ()
+    rows: int = 1
+    group: Any = None
+
+    def column(self, n_experts: int, plan: "Plan") -> list[int]:
+        """The global expert ids of this rank's column, block by block in
+        data-row order (all of them where nothing splits the experts)."""
+        if "model" not in self.axes and self.rows == 1:
+            return list(range(n_experts))
+        m, size = (plan.rank, plan.size) if "model" in self.axes else (0, 1)
+        per = n_experts // (self.rows * size)
+        return [(d * size + m) * per + j for d in range(self.rows) for j in range(per)]
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s ``rows`` blocks along dim 0 exchanged over the data axis
+        (block ``d'`` to row ``d'``; the result's block ``d'`` from row
+        ``d'``); the gradient the reverse exchange."""
+        return _AllToAll.apply(x, self.group, self.rows) if self.rows > 1 else x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The data rows' ``x`` concatenated along dim 0 in row order; the
+        gradient reduce-scattered back (each row's block summed over the
+        rows)."""
+        return _GatherRows.apply(x, self.group, self.rows) if self.rows > 1 else x
 
 
 @dataclass(frozen=True)
@@ -83,10 +123,15 @@ class Plan:
     """What is split on the model axis, and the axis itself.
 
     ``vocab``: the embedding tables' rows; ``heads``: q heads (``wq``,
-    ``bq``, ``wo``); ``kv_heads``: k/v heads; ``mlp``: the FFN's hidden
-    units. ``seq_shard``: the residual stream is split along S between
-    layers. ``cache_seq``: ``(start, stop, length)`` of this rank's block of
-    the decode cache's positions (the serve steps set it)."""
+    ``bq``, ``wo``; MLA's ``wq_b``, ``wkv_b``, ``wo``); ``kv_heads``: k/v
+    heads (MLA's are its heads); ``mlp``: the FFN's (and the shared
+    expert's) hidden units. ``experts``: the MoE experts' placement
+    (:class:`Experts`); ``moe_buf_shard``: the dispatch buffer is placed as
+    the experts are, so tokens move to the experts (else their weights are
+    gathered within a model column). ``seq_shard``: the residual stream is
+    split along S between layers. ``cache_seq``: ``(start, stop, length)``
+    of this rank's block of the decode cache's positions (the serve steps
+    set it)."""
 
     group: Any
     size: int
@@ -97,6 +142,8 @@ class Plan:
     mlp: bool
     seq_shard: bool = False
     cache_seq: tuple[int, int, int] | None = None
+    experts: Experts = Experts()
+    moe_buf_shard: bool = False
 
     def with_(self, **kw) -> "Plan":
         return dataclasses.replace(self, **kw)
@@ -130,44 +177,50 @@ class Plan:
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``x`` reduced (``"sum"`` or ``"max"``) over the model axis; no
         gradient."""
-        return _all_reduce(x, self, op)
+        return _all_reduce(x, self, op) if self.size > 1 else x
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The model ranks' ``x`` concatenated along ``dim`` in rank
         order; no gradient."""
-        return _all_gather(x, self, dim)
+        return _all_gather(x, self, dim) if self.size > 1 else x
 
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block along ``dim`` of the model ranks' sum; no
         gradient."""
-        return _reduce_scatter(x, self, dim)
+        return _reduce_scatter(x, self, dim) if self.size > 1 else x
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s ``size`` blocks along dim 0 exchanged over the model axis
+        (block ``r`` to rank ``r``; the result's block ``r`` from rank
+        ``r``); no gradient."""
+        return _all_to_all(x, self.group, self.size) if self.size > 1 else x
 
     def copy_to(self, x: torch.Tensor) -> torch.Tensor:
         """Identity; the gradient all-reduced over the model axis
         (Megatron's f: the input of a split region, or a whole weight used
         on a rank's part of the work)."""
-        return _CopyTo.apply(x, self)
+        return _CopyTo.apply(x, self) if self.size > 1 else x
 
     def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
         """The model ranks' partial sums added (Megatron's g: the output
         of a row-parallel product); the gradient passes as it is."""
-        return _ReduceFrom.apply(x, self)
+        return _ReduceFrom.apply(x, self) if self.size > 1 else x
 
     def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """The whole sequence from each rank's block (entering a split
         region under ``seq_shard``); the gradient reduce-scattered back."""
-        return _GatherSeq.apply(x, self, dim)
+        return _GatherSeq.apply(x, self, dim) if self.size > 1 else x
 
     def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """This rank's sequence block of the partial sums' total (leaving
         a split region under ``seq_shard``); the gradient all-gathered."""
-        return _ScatterSeq.apply(x, self, dim)
+        return _ScatterSeq.apply(x, self, dim) if self.size > 1 else x
 
     def split_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """This rank's block along ``dim`` of a tensor every model rank
         holds whole; the gradient all-gathered (so each rank's
         whole-tensor gradient is the same)."""
-        return _SplitSeq.apply(x, self, dim)
+        return _SplitSeq.apply(x, self, dim) if self.size > 1 else x
 
 
 def _splits_on_model(sharding, dim: int) -> bool:
@@ -181,31 +234,74 @@ def _splits_on_model(sharding, dim: int) -> bool:
     return "model" in axes
 
 
-def plan_for(cfg, params_shardings: Any, mesh, *, seq_shard: bool = False) -> Plan | None:
+def _leaf_splits(flat: dict, group: str) -> tuple[tuple, bool | None, tuple | None]:
+    """``((heads, kv_heads), mlp or None, experts' axes or None)`` of one
+    layer group's attention and FFN leaves (``None``: the group has no such
+    leaf)."""
+    a, f = f"blocks/{group}/attn/", f"blocks/{group}/ffn/"
+    if a + "wq_b" in flat:  # MLA: q and kv expanded per head; wo row-parallel
+        heads = {_splits_on_model(flat[a + "wq_b"], 2), _splits_on_model(flat[a + "wkv_b"], 2),
+                 _splits_on_model(flat[a + "wo"], 1)}
+        if len(heads) != 1:
+            raise ValueError(f"MLA's wq_b, wkv_b and wo split their heads differently ({group})")
+        (h,) = heads
+        attn = (h, h)
+    else:
+        attn = (_splits_on_model(flat[a + "wq"], 2), _splits_on_model(flat[a + "wk"], 2))
+    experts = mlp = None
+    if f + "w_router" in flat:  # a MoE group: the experts dim, the shared expert's units
+        from repro_torch.distributed.sharding import entry_axes
+
+        spec = flat[f + "wg"].spec
+        experts = entry_axes(spec[1]) if len(spec) > 1 else ()
+        if f + "ws_g" in flat:
+            mlp = _splits_on_model(flat[f + "ws_g"], 2)
+    elif f + "wg" in flat:
+        mlp = _splits_on_model(flat[f + "wg"], 2)
+    return attn, mlp, experts
+
+
+def plan_for(cfg, params_shardings: Any, mesh, *, seq_shard: bool = False,
+             moe_buf_shard: bool = False) -> Plan | None:
     """The :class:`Plan` of ``cfg``'s params placed by ``params_shardings``
     (a :class:`~repro_torch.distributed.sharding.NamedSharding` tree) on
-    ``mesh``; ``None`` where the mesh has no model axis or it has size 1
-    (nothing to split: the model's plain code runs). Raises for a family
-    outside :data:`TP_FAMILIES` and for layer groups split differently."""
+    ``mesh``; ``None`` where nothing is split (no model axis or one of
+    size 1, and no experts split over data): the model's plain code runs.
+    Raises for a family outside :data:`TP_FAMILIES` and for layer groups
+    split differently."""
     from repro_torch.distributed.sharding import axis_sizes
     from repro_torch.utils import flatten_with_paths
 
     if compute_path(cfg) != "tp":
         raise ValueError(f"{cfg.name} ({cfg.family}) has no tensor-parallel compute")
-    if axis_sizes(mesh).get("model", 1) == 1:
-        return None
+    sizes = axis_sizes(mesh)
     flat, _ = flatten_with_paths(params_shardings)
     vocab = {_splits_on_model(flat[p], 0) for p in ("embed", "unembed") if p in flat}
     groups = sorted({p.split("/")[1] for p in flat if p.startswith("blocks/")})
-    dims = {(_splits_on_model(flat[f"blocks/{g}/attn/wq"], 2),
-             _splits_on_model(flat[f"blocks/{g}/attn/wk"], 2),
-             _splits_on_model(flat[f"blocks/{g}/ffn/wg"], 2)) for g in groups}
-    if len(vocab) != 1 or len(dims) != 1:
-        raise ValueError(f"embedding tables or layer groups split differently: {vocab} {dims}")
-    (heads, kv_heads, mlp), = dims
-    plan = Plan(group=mesh.get_group("model"), size=axis_sizes(mesh)["model"],
+    attn, mlp, experts = set(), set(), set()
+    for g in groups:
+        a, m, x = _leaf_splits(flat, g)
+        attn.add(a)
+        if m is not None:
+            mlp.add(m)
+        if x is not None:
+            experts.add(x)
+    if len(vocab) != 1 or len(attn) != 1 or len(mlp) > 1 or len(experts) > 1:
+        raise ValueError(f"embedding tables or layer groups split differently: {vocab} "
+                         f"{attn} {mlp} {experts}")
+    ((heads, kv_heads),) = attn
+    axes = experts.pop() if experts else ()
+    if axes not in ((), ("model",), ("data", "model")):
+        raise ValueError(f"experts split over {axes}: expert-parallel compute takes "
+                         "(data, model) or model")
+    if sizes.get("model", 1) == 1 and "data" not in axes:
+        return None
+    rows = sizes["data"] if "data" in axes else 1
+    placed = Experts(axes=axes, rows=rows, group=mesh.get_group("data") if rows > 1 else None)
+    plan = Plan(group=mesh.get_group("model"), size=sizes.get("model", 1),
                 rank=mesh.get_local_rank("model"), vocab=vocab.pop(), heads=heads,
-                kv_heads=kv_heads, mlp=mlp, seq_shard=seq_shard)
+                kv_heads=kv_heads, mlp=bool(mlp and mlp.pop()), seq_shard=seq_shard,
+                experts=placed, moe_buf_shard=moe_buf_shard)
     plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)  # raises for a layout K3 cannot take
     return plan
 
@@ -245,6 +341,40 @@ def _reduce_scatter(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
     out = f.wait_tensor(f.reduce_scatter_tensor(x.contiguous(), "sum", plan.size,
                                                 plan.group.group_name))
     return out[0] if dim else out
+
+
+def _all_to_all(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """``x``'s ``n`` equal blocks along dim 0 exchanged over ``group``."""
+    f = _ops()
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not split {n} ways")
+    split = [x.shape[0] // n] * n
+    return f.wait_tensor(f.all_to_all_single(x.contiguous(), split, split, group.group_name))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _all_to_all(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group, ctx.n), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        f = _ops()
+        return f.wait_tensor(f.all_gather_into_tensor(x.contiguous(), n, group.group_name))
+
+    @staticmethod
+    def backward(ctx, g):
+        f = _ops()
+        return f.wait_tensor(f.reduce_scatter_tensor(g.contiguous(), "sum", ctx.n,
+                                                     ctx.group.group_name)), None, None
 
 
 class _CopyTo(torch.autograd.Function):

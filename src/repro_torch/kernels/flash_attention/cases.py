@@ -14,29 +14,33 @@ from __future__ import annotations
 
 import torch
 
-# (batch, q heads, kv heads, positions, head dim, model ranks): qwen3-1.7b's
-# serve prefill on a 16-way model axis (1 q head a rank, G 2: one kv head
-# of the whole projection), command-r-plus-104b's (6 q heads a rank, G 12)
+# (batch, q heads, kv heads, positions, qk head dim, v head dim, model
+# ranks): qwen3-1.7b's serve prefill on a 16-way model axis (1 q head a
+# rank, G 2: one kv head of the whole projection), command-r-plus-104b's
+# (6 q heads a rank, G 12), deepseek-v3's MLA (8 of 128 heads a rank, qk
+# 192 / v 128, the kv heads split with the q heads)
 HEAD_SLICE_CASES = {
-    "qwen3_serve_16": (1, 16, 8, 2048, 128, 16),
-    "command_r_16": (2, 96, 8, 2048, 128, 16),
+    "qwen3_serve_16": (1, 16, 8, 2048, 128, 128, 16),
+    "command_r_16": (2, 96, 8, 2048, 128, 128, 16),
+    "deepseek_mla_16": (1, 128, 128, 2048, 192, 128, 16),
 }
 
 
-def check_head_slices(dev, b: int, h: int, hkv: int, s: int, d: int, ranks: int,
+def check_head_slices(dev, b: int, h: int, hkv: int, s: int, d: int, dv: int, ranks: int,
                       seed: int = 0) -> dict:
-    """Causal bf16 K3 over every head of (B, S, H, D) q and (B, S, KV, D)
-    k/v (the model's layouts), then each of ``ranks`` ranks' call on its q
-    heads (a contiguous tensor, as its own projection is) and its view of
-    k/v: ``bitwise`` when every rank's output equals its heads of the
-    whole call bit for bit; ``views_taken_as_is`` when the TMA read every
-    view without a copy; the tensor-core launches of the rank calls."""
+    """Causal bf16 K3 over every head of (B, S, H, D) q, (B, S, KV, D) k
+    and (B, S, KV, Dv) v (the model's layouts), then each of ``ranks``
+    ranks' call on its q heads (a contiguous tensor, as its own projection
+    is) and its block (where the kv heads split) or view of k/v:
+    ``bitwise`` when every rank's output equals its heads of the whole
+    call bit for bit; ``views_taken_as_is`` when the TMA read every view
+    without a copy; the tensor-core launches of the rank calls."""
     from repro_torch.distributed.tp import Plan
     from repro_torch.kernels.flash_attention.ops import _tma_ready, flash_attention
 
     gen = torch.Generator(dev).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
     whole = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             causal=True)
     bitwise, as_is, ranges = True, True, []
@@ -54,8 +58,8 @@ def check_head_slices(dev, b: int, h: int, hkv: int, s: int, d: int, ranks: int,
         bitwise &= torch.equal(got, whole[:, h0:h1])
         ranges.append((h0, h1, k0, k1))
     torch.cuda.synchronize(dev)
-    return {"shape": f"q bf16[{b},{h},{s},{d}] k/v bf16[{b},{hkv},{s},{d}] causal, "
-                     f"{ranks} ranks of [{b},{h // ranks},{s},{d}]",
+    return {"shape": f"q bf16[{b},{h},{s},{d}] k bf16[{b},{hkv},{s},{d}] v bf16[{b},{hkv},{s},"
+                     f"{dv}] causal, {ranks} ranks of [{b},{h // ranks},{s},{d}]",
             "first_rank_heads": ranges[0], "bitwise": bool(bitwise),
             "views_taken_as_is": bool(as_is),
             "rank_wgmma_launches": flash_attention.wgmma_launches - before}

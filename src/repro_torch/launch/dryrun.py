@@ -17,19 +17,22 @@ with the reference's keys (``arch``, ``shape``, ``mesh``, ``chips``,
 ``params``, ``active_params``, ``ok``/``error``/``traceback`` or
 ``skipped``, ``total_s``, ``cost`` with ``flops`` and ``bytes
 accessed``, ``hlo``, ``collectives``, ``memory``), ``trace_s`` in place
-of ``lower_s``/``compile_s``, and ``path``: how the steps compute
-(``distributed/steps.py``). Every number is per device. On the ``tp``
-path (the dense and vlm families) a rank computes on its shards of the
-model axis, as the reference's GSPMD program does; on the ``gathered``
-path (MoE, MLA, the hybrid and mLSTM mixers, the encoder–decoder, until
-their ROADMAP items) it gathers every weight and runs the model on its
-batch block.
+of ``lower_s``/``compile_s``, ``path``: how the steps compute
+(``distributed/steps.py``), ``moe_buf_shard`` and ``experts`` (the mesh
+axes the MoE experts lie over). Every number is per device. On the
+``tp`` path (the dense, vlm and MoE families) a rank computes on its
+shards, as the reference's GSPMD program does (its experts on their
+(data, model) block, their tokens moved by all-to-alls); on the
+``gathered`` path (the hybrid and mLSTM mixers, the encoder–decoder,
+until their ROADMAP items) it gathers every weight and runs the model on
+its batch block.
 
 ``--seq-shard`` (the sequence-parallel residual stream of the train
-step; ``__seqshard`` in a train cell's file name) is taken for the
-``tp`` families and refused for the others, as is ``--moe-buf-shard``
-(the dense and vlm families have no MoE buffer, so it changes nothing
-there, as in the reference).
+step; ``__seqshard`` in a train cell's file name) and ``--moe-buf-shard``
+(the train step's expert-placed dispatch buffer; ``__moebuf``) are taken
+for the ``tp`` families and refused for the others (a dense or vlm model
+has no MoE buffer, so the second changes nothing there, as in the
+reference).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --device cpu --arch qwen3-1.7b \\
         --shape prefill_32k [--multi-pod | --both-meshes] [--out DIR]
@@ -111,12 +114,12 @@ def _fake_dtensors(specs, shardings, device):
 
 
 def build_lowered(cfg: ArchConfig, shape: InputShape, mesh, device: str, *,
-                  seq_shard: bool = False) -> tuple:
+                  seq_shard: bool = False, moe_buf_shard: bool = False) -> tuple:
     """``(step, args)``: the cell's step and its arguments, DTensors of fake
     blocks placed by the step's shardings (call under ``FakeTensorMode``).
     The reference's function of this name lowers the jitted step; here the
-    trace is the run (:func:`trace_cell`). ``seq_shard`` goes to the train
-    step."""
+    trace is the run (:func:`trace_cell`). ``seq_shard`` and
+    ``moe_buf_shard`` go to the train step."""
     import torch
 
     from repro_torch.distributed.steps import (batch_shardings, make_decode_step,
@@ -129,7 +132,8 @@ def build_lowered(cfg: ArchConfig, shape: InputShape, mesh, device: str, *,
     specs = input_specs(cfg, shape)
     if shape.kind == "train":
         opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
-        step = make_train_step(cfg, opt_cfg, mesh=mesh, seq_shard=seq_shard)
+        step = make_train_step(cfg, opt_cfg, mesh=mesh, seq_shard=seq_shard,
+                               moe_buf_shard=moe_buf_shard)
         state = _fake_dtensors(state_struct_for(cfg, opt_cfg),
                                train_state_shardings(cfg, opt_cfg, mesh), device)
         # the train step takes the global batch whole on every rank
@@ -150,17 +154,18 @@ def build_lowered(cfg: ArchConfig, shape: InputShape, mesh, device: str, *,
 
 
 def trace_cell(cfg: ArchConfig, shape: InputShape, mesh, device: str, *,
-               seq_shard: bool = False) -> dict:
+               seq_shard: bool = False, moe_buf_shard: bool = False) -> dict:
     """One step of the cell on ``mesh`` under ``FakeTensorMode``, counted:
     ``{"hlo": StepCounter.result(), "memory": ..., "trace_s": ...,
-    "flops_by_op": ..., "path": ...}``."""
+    "flops_by_op": ..., "path": ..., "experts": ...}``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.hlo_stats import StepCounter
 
     counter = StepCounter()
     with FakeTensorMode():
-        step, args = build_lowered(cfg, shape, mesh, device, seq_shard=seq_shard)
+        step, args = build_lowered(cfg, shape, mesh, device, seq_shard=seq_shard,
+                                   moe_buf_shard=moe_buf_shard)
         counter.hold(args)
         t0 = time.perf_counter()
         with counter:
@@ -168,7 +173,7 @@ def trace_cell(cfg: ArchConfig, shape: InputShape, mesh, device: str, *,
         trace_s = time.perf_counter() - t0
         memory = counter.memory(out)
     return {"hlo": counter.result(), "memory": memory, "trace_s": trace_s,
-            "flops_by_op": counter.by_op, "path": step.path}
+            "flops_by_op": counter.by_op, "path": step.path, "experts": step.experts}
 
 
 PRODUCTION = {False: "16x16", True: "2x16x16"}  # multi_pod -> the mesh
@@ -177,13 +182,13 @@ PRODUCTION = {False: "16x16", True: "2x16x16"}  # multi_pod -> the mesh
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: bool = False,
              *, variant: str = "", cfg_overrides: dict | None = None, device: str = "cuda",
              mesh_spec: str = "", smoke: bool = False, seq_len: int = 0,
-             seq_shard: bool = False, layers: int = 0) -> dict:
+             seq_shard: bool = False, moe_buf_shard: bool = False, layers: int = 0) -> dict:
     """Trace one cell and write its JSON (or read it back, without
     ``force``). For small cells (tests): ``mesh_spec`` ("4x4", "2x2x2")
     replaces the production mesh, ``smoke`` takes the arch's smoke config,
     ``seq_len`` replaces the shape's, ``layers`` cuts the depth (widths
-    kept; ``__l<N>`` in the name). ``seq_shard`` applies to train cells
-    (``__seqshard`` in their name)."""
+    kept; ``__l<N>`` in the name). ``seq_shard`` and ``moe_buf_shard``
+    apply to train cells (``__seqshard``, ``__moebuf`` in their name)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.train import mesh_for, parse_mesh
@@ -192,8 +197,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: 
     tag = f"{arch}__{shape_name}__" + (f"mesh{spec}" if mesh_spec else
                                        ("pod2" if multi_pod else "pod1"))
     seq_shard = seq_shard and SHAPES[shape_name].kind == "train"
+    moe_buf_shard = moe_buf_shard and SHAPES[shape_name].kind == "train"
     for suffix in ("smoke" if smoke else "", f"s{seq_len}" if seq_len else "",
-                   f"l{layers}" if layers else "", "seqshard" if seq_shard else "", variant):
+                   f"l{layers}" if layers else "", "seqshard" if seq_shard else "",
+                   "moebuf" if moe_buf_shard else "", variant):
         if suffix:
             tag += f"__{suffix}"
     out_file = out_dir / f"{tag}.json"
@@ -217,6 +224,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: 
         "active_params": cfg.active_param_count(),
         "device": device,
         "seq_shard": seq_shard,
+        "moe_buf_shard": moe_buf_shard,
+        "layers": layers,
     }
     skip = should_skip(cfg, shape)
     if skip:
@@ -229,8 +238,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path, force: 
         join_fake_group(rec["chips"])
         mesh = (mesh_for(spec, device) if mesh_spec
                 else make_production_mesh(multi_pod=multi_pod, device_type=device))
-        traced = trace_cell(cfg, shape, mesh, device, seq_shard=seq_shard)
+        traced = trace_cell(cfg, shape, mesh, device, seq_shard=seq_shard,
+                            moe_buf_shard=moe_buf_shard)
         rec["path"] = traced["path"]
+        rec["experts"] = traced["experts"]
         rec["trace_s"] = round(traced["trace_s"], 2)
         rec["memory"] = traced["memory"]
         rec["cost"] = {"flops": traced["hlo"]["flops"], "bytes accessed": traced["hlo"]["bytes"]}
@@ -259,7 +270,7 @@ def trace_in_group(arch: str, shape_name: str, multi_pod: bool, device: str) -> 
     mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
     traced = trace_cell(get_config(arch), SHAPES[shape_name], mesh, device)
     return {**traced["hlo"], "memory": traced["memory"], "trace_s": traced["trace_s"],
-            "path": traced["path"]}
+            "path": traced["path"], "experts": traced["experts"]}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -296,7 +307,8 @@ def main(argv: list[str] | None = None) -> int:
                 rec = run_cell(arch, shape, mp, out_dir, force=args.force, variant=args.variant,
                                cfg_overrides=cfg_overrides, device=args.device,
                                mesh_spec=args.mesh, smoke=args.smoke, seq_len=args.seq_len,
-                               seq_shard=args.seq_shard, layers=args.layers)
+                               seq_shard=args.seq_shard, moe_buf_shard=args.moe_buf_shard,
+                               layers=args.layers)
                 if not rec.get("ok") and "skipped" not in rec:
                     n_fail += 1
     if n_fail:

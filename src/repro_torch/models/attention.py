@@ -29,6 +29,14 @@ KVr), "kr": (B, S_max, Rr)}``, with the reference's roundings: ``q_lat``
 a bf16 product, the scores float32, the probabilities rounded to the
 cache's dtype before the latent product. The projections and the
 absorbed decode run in the profiler range ``mla`` (K3 outside it).
+
+Under a tensor-parallel plan (``distributed/tp.py``) MLA runs on the
+rank's heads: ``wq_b`` and ``wkv_b`` column-parallel on ``heads``, ``wo``
+row-parallel, the low-rank ``wq_a``/``wkv_a`` and their norms whole
+(every model rank computes the latent rows; their gradients are summed
+over the axis), K3 on the rank's H/M heads. Prefill keeps the rank's
+block of positions of the latent cache; the absorbed decode scores every
+head over that block (see :func:`mla_decode`).
 """
 
 from __future__ import annotations
@@ -148,19 +156,47 @@ def gqa_prefill(p, x, cfg: ArchConfig, s_max: int, *, use_rope: bool = True, pla
     s_max) from one projection: the reference's ``gqa_train`` and
     ``gqa_prefill_cache``, which project q/k/v twice to equal results.
     Under a ``plan`` the cache is this rank's block of positions
-    (``plan.cache_seq``) with every kv head, the kv heads gathered along the
-    model axis where they are split."""
+    (``plan.cache_seq``) with every kv head (:func:`_cache_heads`)."""
     if plan is None:
         q, k, v = _rope_qkv(p, x, cfg, use_rope)
         return _attend(p, q, k, v, cfg, True), _cache_from(k, v, x.shape[1], s_max, cfg)
     y, k, v = _tp_attention(p, x, cfg, plan, causal=True, use_rope=use_rope)
-    if plan.kv_heads:
-        k, v = plan.all_gather(k, 2), plan.all_gather(v, 2)
     cache = _cache_from(k, v, x.shape[1], s_max, cfg)
-    if plan.cache_seq is not None:
+    if plan.heads or plan.kv_heads:
+        cache = {name: _cache_heads(c, cfg, plan) for name, c in cache.items()}
+    elif plan.cache_seq is not None:
         a, b, _ = plan.cache_seq
         cache = {name: c[:, a:b].clone() for name, c in cache.items()}
     return y, cache
+
+
+def _cache_heads(c: torch.Tensor, cfg: ArchConfig, plan) -> torch.Tensor:
+    """Every kv head of this rank's block of cache positions
+    (``plan.cache_seq``; all of them without one) from the model ranks'
+    caches c (B, S, H_kv local, Dh) of their own kv heads: an all-to-all
+    along the positions where the cache splits them (each rank receives
+    only its block), else an all-gather. Where only q heads are split each
+    kv head is taken from the first rank whose q heads read it."""
+    a, b, n = plan.cache_seq or (0, c.shape[1], c.shape[1])
+    if (a, b) == (0, n):
+        got = plan.all_gather(c, 2)
+    else:
+        assert (a, b) == plan.block(n), (plan.cache_seq, plan.size)
+        parts = plan.all_to_all(c.transpose(0, 1))  # rank r's heads at my positions, by r
+        got = parts.unflatten(0, (plan.size, -1)).permute(2, 1, 0, 3, 4).flatten(2, 3)
+    return got if plan.kv_heads else got[:, :, _kv_sources(cfg, plan)]
+
+
+def _kv_sources(cfg: ArchConfig, plan) -> list[int]:
+    """Where only q heads are split: for each kv head, its place in the
+    model ranks' kv projections all-gathered along the heads (rank ``r``
+    projects the kv heads ``[k0, k1)`` its q heads read)."""
+    out: dict[int, int] = {}
+    for r in range(plan.size):
+        _, _, k0, k1 = plan.with_(rank=r).head_ranges(cfg.n_heads, cfg.n_kv_heads)
+        for j in range(k0, k1):
+            out.setdefault(j, r * (k1 - k0) + j - k0)
+    return [out[j] for j in range(cfg.n_kv_heads)]
 
 
 def _tp_split(name: str, plan) -> bool:
@@ -172,20 +208,22 @@ def _tp_split(name: str, plan) -> bool:
 def _tp_attention(p, x, cfg: ArchConfig, plan, *, causal: bool, use_rope: bool):
     """Self-attention on this rank's q heads: ``(y, k, v)``, y (B, S, E)
     (this rank's positions under ``seq_shard``) and the k/v projections of
-    the kv heads the rank holds (its block where ``kv_heads`` is split,
-    all of them where they are whole).
+    the kv heads the rank computes (its block where ``kv_heads`` is split;
+    where only q heads are split, the ones they read; all of them where
+    the heads are whole).
 
     ``x`` enters the split region (all-gathered along S under
     ``seq_shard``); q/k/v are projected from the local weights; K3 runs on
     the rank's q heads ``[h0, h1)`` and the kv heads they read (where only
-    q heads are split, the view ``[h0 // G, (h1 - 1) // G + 1)`` of the
-    whole projection); ``wo`` is row-parallel and its partial sums are
+    q heads are split, ``[h0 // G, (h1 - 1) // G + 1)``, projected from
+    those heads of the whole ``wk``/``wv``, as the reference's GSPMD
+    program does); ``wo`` is row-parallel and its partial sums are
     added (reduce-scattered along S under ``seq_shard``), ``bo`` once
     after. Where the heads are whole, every rank computes them all (on the
     gathered sequence under ``seq_shard``, then keeps its own positions).
     A whole weight used on the rank's part of the work (``q_norm`` on its
-    heads, a whole kv projection read through a view, any weight under
-    ``seq_shard``) has its gradient summed over the model axis."""
+    heads, a whole kv projection of which it uses some heads, any weight
+    under ``seq_shard``) has its gradient summed over the model axis."""
     partial = plan.heads or plan.seq_shard
     w = {name: plan.copy_to(t) if partial and name != "bo" and not _tp_split(name, plan) else t
          for name, t in p.items()}
@@ -193,12 +231,12 @@ def _tp_attention(p, x, cfg: ArchConfig, plan, *, causal: bool, use_rope: bool):
         x = plan.gather_seq(x)
     elif plan.heads:
         x = plan.copy_to(x)
-    q, k, v = _rope_qkv(w, x, cfg, use_rope)
     h0, h1, k0, k1 = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
-    kr, vr = k, v
     if plan.heads and not plan.kv_heads:  # the kv heads these q heads read
-        kr, vr = k[:, :, k0:k1], v[:, :, k0:k1]
-    o = flash_attention(q.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2),
+        w = {name: t[:, k0:k1] if name in ("wk", "wv") else t[k0:k1] if name in ("bk", "bv")
+             else t for name, t in w.items()}
+    q, k, v = _rope_qkv(w, x, cfg, use_rope)
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=causal, window=cfg.window)
     return _tp_out(w, o.transpose(1, 2), cfg, plan), k, v
 
@@ -335,76 +373,144 @@ def init_mla(gen, cfg: ArchConfig, n_layers: int, device) -> dict:
     return p
 
 
-def _mla_qkv(p, x, cfg: ArchConfig, positions: torch.Tensor):
-    """(q_nope (B,S,H,nd), q_rope (B,S,H,rd), ckv (B,S,KVr), k_rope (B,S,rd))."""
+def _mla_qkv(p, x, cfg: ArchConfig, positions: torch.Tensor, plan=None):
+    """(q_nope (B,S,H,nd), q_rope (B,S,H,rd), ckv (B,S,KVr), k_rope (B,S,rd)).
+    Under a ``plan`` ``x`` is this rank's block of the sequence (see
+    :func:`_mla_attend`): the low-rank products run on it and their rows
+    are all-gathered along S, the rest on the whole sequence."""
     nd, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
-    cq = rmsnorm(torch.matmul(x, p["wq_a"]), p["q_ln"], cfg.norm_eps)
+    a, c = torch.matmul(x, p["wq_a"]), torch.matmul(x, p["wkv_a"])
+    if plan is not None:
+        a, c = plan.gather_seq(a), plan.gather_seq(c)
+    cq = rmsnorm(a, p["q_ln"], cfg.norm_eps)
     q = _proj(cq, p["wq_b"])  # (B, S, H, nd + rd)
     q_nope, q_rope = q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
-    ckv_full = torch.matmul(x, p["wkv_a"])
-    ckv = rmsnorm(ckv_full[..., :kvr], p["kv_ln"], cfg.norm_eps)
-    k_rope = apply_rope(ckv_full[..., kvr:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    ckv = rmsnorm(c[..., :kvr], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope(c[..., kvr:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, ckv, k_rope
 
 
-def _mla_attend(p, x, cfg: ArchConfig, causal: bool):
+def _mla_weights(p, plan):
+    """The MLA leaves a rank computes with: under a plan whose heads are
+    split (or under ``seq_shard``) each whole leaf, used on the rank's part
+    of the work, through ``copy_to``."""
+    if plan is None or not (plan.heads or plan.seq_shard):
+        return p
+    split = ("wq_b", "wkv_b", "wo") if plan.heads else ()
+    return {name: t if name in split else plan.copy_to(t) for name, t in p.items()}
+
+
+def _mla_attend(p, x, cfg: ArchConfig, causal: bool, plan=None):
     """The expanded attention through K3 and its latent cache rows:
-    (y (B,S,E), ckv (B,S,KVr), k_rope (B,S,rd))."""
-    b, s, _ = x.shape
+    (y (B,S,E), ckv (B,S,KVr), k_rope (B,S,rd)). Under a plan on the
+    rank's heads (y the ranks' partial sums added, this rank's positions
+    under ``seq_shard``), the latent rows of the whole sequence. ``x``
+    reaches only the low-rank ``wq_a`` and ``wkv_a``, which every rank holds
+    whole. Under ``seq_shard`` each model rank multiplies its own
+    positions and the rows are all-gathered along S (their gradient
+    reduce-scattered back); in the serve steps (``plan.cache_seq`` set)
+    it multiplies its block of the positions the same way, as the
+    reference's GSPMD prefill does, so the products are not repeated on
+    every rank. The train step without ``seq_shard`` multiplies them whole
+    on every model rank, as the reference's train program does (and where
+    S does not split or the heads are whole)."""
+    w = _mla_weights(p, plan)
+    split = plan is not None and (plan.seq_shard or (plan.heads and plan.cache_seq is not None
+                                                     and x.shape[1] % plan.size == 0))
+    b, s = x.shape[0], x.shape[1] * (plan.size if plan is not None and plan.seq_shard else 1)
     nd = cfg.qk_nope_dim
     with record_function("mla"):
-        q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, torch.arange(s, device=x.device))
-        kvx = _proj(ckv, p["wkv_b"])  # (B, S, H, nd + vd)
+        if split:  # x reaches only wq_a and wkv_a: their products on the rank's positions
+            xb = x if plan.seq_shard else plan.split_seq(x)
+            q_nope, q_rope, ckv, k_rope = _mla_qkv(w, xb, cfg, torch.arange(s, device=x.device),
+                                                   plan)
+        else:
+            xin = plan.copy_to(x) if plan is not None and plan.heads else x
+            q_nope, q_rope, ckv, k_rope = _mla_qkv(w, xin, cfg, torch.arange(s, device=x.device))
+        kvx = _proj(ckv, w["wkv_b"])  # (B, S, H, nd + vd): the rank's heads
         k_nope, v = kvx[..., :nd], kvx[..., nd:]
         # MHA == GQA with KV == H, G == 1; the rope key copied into every
         # head of one dense k (an expand's zero head stride would cost K3 a copy)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, cfg.n_heads, -1)], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, k_nope.shape[2], -1)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
     with record_function("mla"):
-        y = torch.matmul(o.transpose(1, 2).flatten(-2), p["wo"].flatten(0, 1))
+        if plan is None:
+            y = torch.matmul(o.transpose(1, 2).flatten(-2), w["wo"].flatten(0, 1))
+        else:
+            y = _tp_out(w, o.transpose(1, 2), cfg, plan)
     return y, ckv, k_rope
 
 
-def mla_train(p, x, cfg: ArchConfig, *, causal: bool = True):
-    """MLA (B, S, E) -> (B, S, E), expanded, through K3 at qk 192 / v 128."""
-    return _mla_attend(p, x, cfg, causal)[0]
+def mla_train(p, x, cfg: ArchConfig, *, causal: bool = True, plan=None):
+    """MLA (B, S, E) -> (B, S, E), expanded, through K3 at qk 192 / v 128;
+    on the rank's heads under a tensor-parallel ``plan``."""
+    return _mla_attend(p, x, cfg, causal, plan)[0]
 
 
-def mla_prefill(p, x, cfg: ArchConfig, s_max: int):
+def mla_prefill(p, x, cfg: ArchConfig, s_max: int, plan=None):
     """The prefill's attention output and its latent decode cache (padded
     to s_max) from one projection: the reference's ``mla_train`` and
-    ``mla_prefill_cache``."""
+    ``mla_prefill_cache``. Under a ``plan`` the cache is this rank's block
+    of positions (``plan.cache_seq``)."""
     b, s, _ = x.shape
-    y, ckv, k_rope = _mla_attend(p, x, cfg, True)
+    y, ckv, k_rope = _mla_attend(p, x, cfg, True, plan)
     ckv_c = ckv.new_zeros((b, s_max, cfg.kv_lora_rank))
     kr_c = k_rope.new_zeros((b, s_max, cfg.qk_rope_dim))
     ckv_c[:, :s] = ckv
     kr_c[:, :s] = k_rope
+    if plan is not None and plan.cache_seq is not None:
+        a, e, _ = plan.cache_seq
+        ckv_c, kr_c = ckv_c[:, a:e].clone(), kr_c[:, a:e].clone()
     return y, {"ckv": ckv_c, "kr": kr_c}
 
 
 @record_function("mla")
-def mla_decode(p, x, cache: dict, pos: int, cfg: ArchConfig):
+def mla_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, plan=None):
     """Absorbed one-token decode: scores and output in the latent space, so
     a step reads O(S (KVr + Rr)) of cache, not O(S H Dh). Writes ``ckv``
-    and ``kr`` at ``pos`` in place."""
+    and ``kr`` at ``pos`` in place.
+
+    Under a ``plan``, as ``_tp_decode``: the rank's heads' ``q_lat`` and
+    ``q_rope`` all-gathered over the heads (a few KB); every head scored
+    over the rank's block of the latent cache (``plan.cache_seq``), the new
+    position written by the rank whose block holds it; the row maximum,
+    the sum of exponentials and the latent output all-reduced
+    (flash-decoding's combine); then the rank's heads of ``o_lat`` through
+    its ``wkv_b`` v part and the row-parallel ``wo``."""
     b, s1, _ = x.shape
     nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
     posv = torch.full((s1,), pos, device=x.device)
     q_nope, q_rope, ckv_new, kr_new = _mla_qkv(p, x, cfg, posv)
     ckv, kr = cache["ckv"], cache["kr"]
-    ckv[:, pos:pos + s1] = ckv_new
-    kr[:, pos:pos + s1] = kr_new
+    a, e, s_max = plan.cache_seq if plan is not None and plan.cache_seq else (0, ckv.shape[1],
+                                                                           ckv.shape[1])
+    if a <= pos < e:  # this rank's block holds the new position
+        ckv[:, pos - a:pos - a + s1] = ckv_new
+        kr[:, pos - a:pos - a + s1] = kr_new
     wkv_k, wkv_v = p["wkv_b"][..., :nd], p["wkv_b"][..., nd:]  # (KVr, H, nd), (KVr, H, vd)
     q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, wkv_k)  # absorb the k expansion
+    if plan is not None and plan.heads:
+        q_lat, q_rope = plan.all_gather(q_lat, 2), plan.all_gather(q_rope, 2)
     # (B,H,q,KVr) x (B,1,KVr,S) and (B,H,q,rd) x (B,1,rd,S): float32 scores
     sc = torch.matmul(q_lat.transpose(1, 2).float(), ckv.float().transpose(1, 2)[:, None])
     sc = sc + torch.matmul(q_rope.transpose(1, 2).float(), kr.float().transpose(1, 2)[:, None])
     sc = sc / math.sqrt(nd + rd)
-    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
-    probs = torch.softmax(torch.where(valid, sc, NEG), dim=-1).to(ckv.dtype)
-    o_lat = torch.matmul(probs, ckv[:, None]).transpose(1, 2)  # (B, q, H, KVr)
+    valid = torch.arange(a, a + ckv.shape[1], device=x.device) <= pos
+    sc = torch.where(valid, sc, NEG)
+    if e - a == s_max:  # the whole cache on this rank: nothing to combine
+        probs = torch.softmax(sc, dim=-1).to(ckv.dtype)
+        o_lat = torch.matmul(probs, ckv[:, None]).transpose(1, 2)  # (B, q, H, KVr)
+    else:
+        m = plan.all_reduce(sc.amax(dim=-1, keepdim=True), "max")
+        ex = torch.exp(sc - m)
+        probs = (ex / plan.all_reduce(ex.sum(dim=-1, keepdim=True))).to(ckv.dtype)
+        o_lat = torch.matmul(probs, ckv[:, None])  # this block's share
+        o_lat = plan.all_reduce(o_lat.float()).to(ckv.dtype).transpose(1, 2)
+    if plan is not None and plan.heads:
+        h0, h1, _, _ = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
+        o_lat = o_lat[:, :, h0:h1]
     out = torch.einsum("bqhk,khv->bqhv", o_lat, wkv_v)
-    y = torch.matmul(out.flatten(-2), p["wo"].flatten(0, 1))
-    return y, cache
+    if plan is None:
+        return torch.matmul(out.flatten(-2), p["wo"].flatten(0, 1)), cache
+    return _tp_out(p, out, cfg, plan), cache

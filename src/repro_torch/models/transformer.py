@@ -140,7 +140,7 @@ def _ffn(pl, h, cfg: ArchConfig, ffn: str, n_groups: int, plan=None):
         return h
     f, x = pl["ffn"], rmsnorm(h, _scale(pl["ln2"], plan), cfg.norm_eps)
     if ffn == "moe":
-        return h + moe_mod.moe_ffn(f, x, cfg, n_groups=n_groups)
+        return h + moe_mod.moe_ffn(f, x, cfg, n_groups=n_groups, plan=plan)
     return h + swiglu(x, f["wg"], f["wu"], f["wd"], plan)
 
 
@@ -148,7 +148,7 @@ def _mixer_train(pl, x, cfg: ArchConfig, mixer: str, plan=None):
     if mixer == "gqa":
         return attn.gqa_train(pl["attn"], x, cfg, plan=plan)
     if mixer == "mla":
-        return attn.mla_train(pl["attn"], x, cfg)
+        return attn.mla_train(pl["attn"], x, cfg, plan=plan)
     if mixer == "hybrid":
         return (attn.gqa_train(pl["attn"], x, cfg) + ssm_mod.ssd_train(pl["ssd"], x, cfg)) * 0.5
     return ssm_mod.mlstm_train(pl["mlstm"], x, cfg)
@@ -156,8 +156,8 @@ def _mixer_train(pl, x, cfg: ArchConfig, mixer: str, plan=None):
 
 def block_train(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, plan=None):
     """One layer of the training forward; under a tensor-parallel ``plan``
-    (GQA and the dense FFN only, ``distributed/tp.py``) on this rank's
-    shards, and on its positions under ``seq_shard``."""
+    (GQA or MLA, the dense or MoE FFN, ``distributed/tp.py``) on this
+    rank's shards, and on its positions under ``seq_shard``."""
     h = x + _mixer_train(pl, rmsnorm(x, _scale(pl["ln1"], plan), cfg.norm_eps), cfg, mixer,
                          plan)
     return _ffn(pl, h, cfg, ffn, n_groups, plan)
@@ -172,7 +172,7 @@ def block_prefill(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, s
     if mixer == "gqa":
         y, cache = attn.gqa_prefill(pl["attn"], xin, cfg, s_max, plan=plan)
     elif mixer == "mla":
-        y, cache = attn.mla_prefill(pl["attn"], xin, cfg, s_max)
+        y, cache = attn.mla_prefill(pl["attn"], xin, cfg, s_max, plan)
     elif mixer == "hybrid":
         ya, ac = attn.gqa_prefill(pl["attn"], xin, cfg, s_max)
         ys, sstate = ssm_mod.ssd_apply(pl["ssd"], xin, cfg)
@@ -192,7 +192,7 @@ def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, mixer: str, ffn: str, 
     if mixer == "gqa":
         y, cache = attn.gqa_decode(pl["attn"], xin, cache, pos, cfg, plan=plan)
     elif mixer == "mla":
-        y, cache = attn.mla_decode(pl["attn"], xin, cache, pos, cfg)
+        y, cache = attn.mla_decode(pl["attn"], xin, cache, pos, cfg, plan)
     elif mixer == "hybrid":
         ya, _ = attn.gqa_decode(pl["attn"], xin, cache["attn"], pos, cfg)
         ys, sstate = ssm_mod.ssd_decode(pl["ssd"], xin, cache["ssd"], cfg)

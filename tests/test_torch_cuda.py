@@ -512,6 +512,55 @@ def test_one_rank_cuda_mesh_equals_no_mesh(dev, tmp_path):
     assert records["mesh"].mesh_shape == [1, 1]
 
 
+def test_one_rank_cuda_mesh_equals_no_mesh_deepseek(dev):
+    """deepseek-v3's smoke model (MLA + MoE) on a 1×1 cuda mesh (an NCCL
+    group of one, nothing split: the model's plain code): one train step's
+    loss, gradient norm and every param after it, then the prefill's and
+    a decode step's logits and caches, bit for bit the steps without a
+    mesh on the same card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.group import free_port, in_group
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.distributed.steps import (make_decode_step, make_init_fn,
+                                               make_prefill_step, make_train_step)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils import flatten_with_paths
+
+    cfg = get_smoke_config("deepseek-v3-671b")
+    gen = torch.Generator(dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (4, 16), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    plain = make_init_fn(cfg, AdamWConfig(), seed=1, device=dev)()
+    _, m0 = make_train_step(cfg, AdamWConfig())(plain, batch)
+    model = Model(cfg)
+    want_l, want_c = model.prefill(plain["params"], {"tokens": tokens}, 20)
+    want_c = flatten_with_paths(want_c)
+    want_d, _ = model.decode(plain["params"], want_c[1].unflatten(
+        {k: v.clone() for k, v in want_c[0].items()}), tokens[:, :1], 16)
+    with in_group(0, 1, free_port(), "cuda", 600):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        st = make_init_fn(cfg, AdamWConfig(), seed=1, mesh=mesh)()
+        step = make_train_step(cfg, AdamWConfig(), mesh=mesh)
+        _, m1 = step(st, batch)
+        assert step.path == "tp" and step.experts == []
+        for k, v in flatten_with_paths(plain["params"])[0].items():
+            assert torch.equal(flatten_with_paths(st["params"])[0][k].to_local(), v), k
+        assert float(m0["loss"]) == float(m1["loss"])
+        assert float(m0["grad_norm"]) == float(m1["grad_norm"])
+        pstep, p_sh, _ = make_prefill_step(cfg, mesh, InputShape("p", 20, 4, "prefill"))
+        dstep, _, _ = make_decode_step(cfg, mesh, InputShape("d", 20, 4, "decode"))
+        params = place_tree(plain["params"], p_sh)
+        logits, caches = pstep(params, {"tokens": tokens})
+        assert torch.equal(logits.to_local(), want_l)
+        for k, c in flatten_with_paths(caches)[0].items():
+            assert torch.equal(c.to_local(), want_c[0][k]), k
+        d_logits, _ = dstep(params, caches, tokens[:, :1], 16)
+        assert torch.equal(d_logits.to_local(), want_d)
+
+
 # ---------------------------------------------------------------------------
 # MLA on the card
 # ---------------------------------------------------------------------------
@@ -577,16 +626,16 @@ def test_k3_op_cuda_cpu_and_fake_implementations(dev, dtype, with_lse):
     assert r["flops"] == 2 * 8 * visible_pairs(200, 200, True, 0) * 2 * 256
 
 
-@pytest.mark.parametrize("name", ["qwen3_serve_16", "command_r_16"])
+@pytest.mark.parametrize("name", ["qwen3_serve_16", "command_r_16", "deepseek_mla_16"])
 def test_k3_on_a_ranks_head_slice_is_bitwise_the_whole_call(dev, name):
-    """K3 on each tensor-parallel rank's q heads and its view of the kv
-    heads (qwen3's serve prefill sliced 16 ways: 1 q head, G_local 1;
-    command-r's: 6 q heads a rank reading 1 kv head, G 12) equals those
-    heads of the call over every head bit for bit; each view goes to the
-    tensor-core kernel as it is, one launch a rank."""
+    """K3 on each tensor-parallel rank's q heads and its view (or block)
+    of the kv heads (qwen3's serve prefill sliced 16 ways: 1 q head,
+    G_local 1; command-r's: 6 q heads a rank reading 1 kv head, G 12;
+    deepseek-v3's MLA: 8 of 128 heads a rank at qk 192 / v 128) equals
+    those heads of the call over every head bit for bit; each view goes
+    to the tensor-core kernel as it is, one launch a rank."""
     from repro_torch.kernels.flash_attention.cases import HEAD_SLICE_CASES, check_head_slices
 
-    b, h, hkv, s, d, ranks = HEAD_SLICE_CASES[name]
-    got = check_head_slices(dev, b, h, hkv, s, d, ranks)
+    got = check_head_slices(dev, *HEAD_SLICE_CASES[name])
     assert got["bitwise"] and got["views_taken_as_is"], got
-    assert got["rank_wgmma_launches"] == ranks, got
+    assert got["rank_wgmma_launches"] == HEAD_SLICE_CASES[name][-1], got

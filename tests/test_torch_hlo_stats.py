@@ -244,3 +244,40 @@ def test_tensor_parallel_collectives_counted():
         # so w's gradient, summed over both ranks, is 2 * (1 + 2) * 2 * 8
         assert r["values"][6] == 2 * 3 * 16
         assert r["k3"] == 3 * visible_pairs(16, 16, True, 0) * 2 * 16
+
+
+def _experts_collectives_rank(rank: int) -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import tp
+
+    mesh = init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "model"))
+    placed = tp.Experts(axes=("data", "model"), rows=2, group=mesh.get_group("data"))
+    x = torch.full((2, 4, 64), float(rank + 1), requires_grad=True)  # 2 KiB, 2 blocks
+    w = torch.full((3, 8), float(rank + 1), requires_grad=True)  # 96 B
+    c = StepCounter()
+    with c:
+        y = placed.all_to_all(x)  # block d' from row d'
+        g = placed.gather(w)  # the rows' w in row order
+        (y * torch.tensor([1.0, 2.0])[:, None, None]).sum().backward()
+        g.sum().backward()
+    return {"result": c.result(),
+            "values": [float(y[0, 0, 0]), float(y[1, 0, 0]), float(x.grad[0, 0, 0]),
+                       float(x.grad[1, 0, 0]), tuple(g.shape), float(g[3, 0]),
+                       float(w.grad[0, 0])]}
+
+
+def test_expert_collectives_counted():
+    """The MoE experts' collectives on a 2-row data axis (gloo), each
+    counted by kind with its payload (output) bytes: the dispatch's
+    all-to-all of 2 KiB (block ``d'`` to row ``d'``) and, in its backward,
+    the reverse one; the column's weight gather (192 B) and its backward
+    reduce-scatter (96 B), each row's gradient the rows' sum."""
+    for rank, r in enumerate(run_ranks(_experts_collectives_rank, 2, timeout_s=120, threads=1)):
+        by = r["result"]["collectives"]["by_kind"]
+        assert by["all-to-all"] == {"count": 2, "bytes": 2 * 2048}
+        assert by["all-gather"] == {"count": 1, "bytes": 192}
+        assert by["reduce-scatter"] == {"count": 1, "bytes": 96}
+        # y's block d' came from row d'; x's block d' went to row d', whose
+        # gradient there weighs its block r by r + 1
+        assert r["values"] == [1.0, 2.0, rank + 1.0, rank + 1.0, (6, 8), 2.0, 2.0]

@@ -12,8 +12,8 @@ package on forced host devices.
 * The 2×2 train step agrees with the reference's ``Model.loss(...,
   n_groups=2)`` and ``adamw_update`` on unsharded inputs, in float32, to
   1e-5 of each compared tensor's largest magnitude (a data-parallel sum
-  adds in another order than one device does), for qwen3 (tensor-parallel)
-  and granite (its weights gathered).
+  adds in another order than one device does), for qwen3 and granite
+  (both on their shards).
 * The tensor-parallel train step (``distributed/tp.py``) of the dense and
   vlm families against the same unsharded reference step, with and
   without ``seq_shard``: qwen3 and internvl2 on 2×2 (q and kv heads split)
@@ -23,6 +23,14 @@ package on forced host devices.
   runs whole on every rank, the MLP and vocab split). With
   ``DTensor.full_tensor`` raising, every dense and vlm train, prefill and
   decode step runs on 2×2 and records the ``tp`` path.
+* The MoE family on its shards (granite: GQA + MoE; deepseek-v3: MLA +
+  MoE), against the reference's unsharded step with as many routing groups
+  as data rows, on 2×2 (experts over (data, model), and granite with 6
+  experts over model alone) and 1×4, each without and with
+  ``moe_buf_shard`` and ``seq_shard``; a MoE layer alone at a capacity that
+  drops assignments, against the reference's; with
+  ``DTensor.full_tensor`` raising, their train, prefill and decode steps
+  run on 2×2 and record the ``tp`` path.
 * The launcher's elastic restart: ``--remesh 2x2,1x2`` with a reclaim
   resumes from a state bitwise the published one and goes on within 1e-5
   of an uninterrupted 2×2 run (the model axis kept, so each model rank
@@ -525,10 +533,10 @@ def test_tensor_parallel_train_step_equals_reference(tp_reference, tp_steps, sha
     _assert_step_equals_reference(tp_reference[1][arch], got)
 
 
-def _no_gather_rank(rank: int) -> dict:
-    """Every dense and vlm smoke arch's train (with and without
-    ``seq_shard``), prefill and decode steps on 2×2 with
-    ``DTensor.full_tensor`` raising; the paths they record."""
+def _no_gather_rank(rank: int, archs: tuple = TP_ARCHS, moe_buf: bool = False) -> dict:
+    """Each of ``archs``' train (with and without ``seq_shard``, and with
+    ``moe_buf_shard`` too where ``moe_buf``), prefill and decode steps on
+    2×2 with ``DTensor.full_tensor`` raising; the paths they record."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
 
@@ -542,7 +550,8 @@ def _no_gather_rank(rank: int) -> dict:
 
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     out = {}
-    for arch in TP_ARCHS:
+    flags = [(ss, mb) for mb in ((False, True) if moe_buf else (False,)) for ss in (False, True)]
+    for arch in archs:
         cfg = get_smoke_config(arch).with_(dtype="float32")
         batch = {k: torch.from_numpy(v).long() for k, v in _tp_batch(cfg).items()
                  if k != "vis_embeds"}
@@ -550,8 +559,8 @@ def _no_gather_rank(rank: int) -> dict:
             batch["vis_embeds"] = torch.zeros(4, cfg.vision_prefix, cfg.d_model)
         s_max = 16 + cfg.vision_prefix
         st = make_init_fn(cfg, AdamWConfig(), seed=1, mesh=mesh)()
-        trains = [make_train_step(cfg, AdamWConfig(), mesh=mesh, seq_shard=ss)
-                  for ss in (False, True)]
+        trains = [make_train_step(cfg, AdamWConfig(), mesh=mesh, seq_shard=ss,
+                                  moe_buf_shard=mb) for ss, mb in flags]
         pstep, _, _ = make_prefill_step(cfg, mesh, InputShape("p", 16, 4, "prefill"))
         dstep, _, _ = make_decode_step(cfg, mesh, InputShape("d", s_max, 4, "decode"))
         full_tensor, DTensor.full_tensor = DTensor.full_tensor, refuse
@@ -577,6 +586,234 @@ def test_dense_and_vlm_steps_gather_no_weight():
     for r in run_ranks(_no_gather_rank, 4, timeout_s=GROUP_TIMEOUT_S, threads=1):
         for arch in TP_ARCHS:
             assert r[arch] == {"paths": ["tp"] * 4, "finite": True}, (arch, r[arch])
+
+
+# ---------------------------------------------------------------------------
+# the MoE family on its shards (granite: GQA + MoE; deepseek-v3: MLA + MoE)
+# ---------------------------------------------------------------------------
+
+# (arch, replacements): granite with 6 experts puts them over the model axis
+# alone on 2x2 (6 do not split 4 ways); 8 lie over (data, model)
+MOE_CASES = {"granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}),
+             "deepseek-v3-671b": ("deepseek-v3-671b", {}),
+             "granite-moe-1b-a400m-x6": ("granite-moe-1b-a400m", {"n_experts": 6})}
+MOE_MESHES = {(2, 2): tuple(MOE_CASES), (1, 4): ("granite-moe-1b-a400m", "deepseek-v3-671b")}
+# (seq_shard, moe_buf_shard)
+MOE_VARIANTS = {"plain": (False, False), "moe_buf_shard": (False, True),
+                "seq_shard": (True, False), "seq_shard+moe_buf_shard": (True, True)}
+MOE_EXPERTS = {"granite-moe-1b-a400m": ["data", "model"], "deepseek-v3-671b": ["data", "model"],
+               "granite-moe-1b-a400m-x6": ["model"]}
+
+
+def _moe_config(smoke_config, case: str):
+    import dataclasses
+
+    arch, replacements = MOE_CASES[case]
+    return dataclasses.replace(smoke_config(arch).with_(dtype="float32"), **replacements)
+
+
+@pytest.fixture(scope="module")
+def moe_reference(tmp_path_factory):
+    """The reference's unsharded step for each case and data degree (its
+    routing groups: one a data row, as the sharded step's), and the inputs
+    pickled for the ranks."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import Model as JModel
+    from repro.optim.adamw import AdamWConfig as JAdamW
+    from repro.optim.adamw import adamw_update as jax_adamw
+    from repro.optim.adamw import init_opt_state as jax_init_opt
+    from repro.optim.schedules import warmup_cosine as jax_warmup
+    from repro.utils import flatten_with_paths as jax_flatten
+
+    cases, want = {}, {}
+    for case in MOE_CASES:
+        jcfg = _moe_config(jax_smoke_config, case)
+        jm = JModel(jcfg)
+        params, _ = jm.init(jax.random.PRNGKey(1))
+        opt = jax_init_opt(params, JAdamW())
+        batch = _tp_batch(jcfg)
+        state = {"params": params, "opt": opt, "step": jnp.asarray(3, jnp.int32),
+                 "rng": jnp.asarray([0, 1], jnp.uint32),
+                 "data": {"data_step": jnp.asarray(3, jnp.int32),
+                          "seed": jnp.asarray(0, jnp.int32)}}
+        cases[case] = {"state": jax.tree_util.tree_map(np.array, state), "batch": batch}
+        for groups in sorted({shape[0] for shape, names in MOE_MESHES.items() if case in names}):
+            loss, grads = jax.value_and_grad(lambda p: jm.loss(
+                p, {k: jnp.asarray(v) for k, v in batch.items()}, n_groups=groups))(params)
+            lr = jax_warmup(state["step"], total=TP_SCHED["total_steps"],
+                            warmup=TP_SCHED["warmup"], peak_lr=TP_SCHED["peak_lr"])
+            new_p, new_o, om = jax_adamw(grads, opt, params, lr, JAdamW())
+            want[case, groups] = {
+                "loss": float(loss), "lr": float(lr), "grad_norm": float(om["grad_norm"]),
+                "new": {k: np.asarray(v) for k, v in
+                        jax_flatten({"params": new_p, "opt": new_o})[0].items()}}
+    path = tmp_path_factory.mktemp("moe") / "moe_inputs.pkl"
+    path.write_bytes(pickle.dumps(cases))
+    return path, want
+
+
+def _moe_rank(rank: int, inputs: str, mesh_shape: tuple) -> dict:
+    """One step a case of this mesh and a variant, from the reference's
+    state."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.steps import make_train_step, train_state_from_numpy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils import flatten_with_paths
+
+    mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
+    with open(inputs, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for case in MOE_MESHES[mesh_shape]:
+        cfg = _moe_config(get_smoke_config, case)
+        batch = {k: torch.from_numpy(v).long() for k, v in cases[case]["batch"].items()}
+        for variant, (seq_shard, moe_buf_shard) in MOE_VARIANTS.items():
+            st = train_state_from_numpy(cases[case]["state"], cfg, AdamWConfig(), mesh=mesh)
+            step_fn = make_train_step(cfg, AdamWConfig(), mesh=mesh, seq_shard=seq_shard,
+                                      moe_buf_shard=moe_buf_shard, **TP_SCHED)
+            st, m = step_fn(st, batch)
+            new = {k: v.full_tensor().numpy() for k, v in flatten_with_paths(
+                {"params": st["params"], "opt": st["opt"]})[0].items()}
+            out[case, variant] = {"new": new, "loss": float(m["loss"]), "lr": float(m["lr"]),
+                                  "grad_norm": float(m["grad_norm"]),
+                                  "step": int(st["step"].to_local()),
+                                  "meta": (m["path"], m["moe_buf_shard"], m["experts"])}
+    return out
+
+
+@pytest.fixture(scope="module")
+def moe_steps(moe_reference):
+    return {shape: run_ranks(_moe_rank, 4, args=(str(moe_reference[0]), shape),
+                             timeout_s=GROUP_TIMEOUT_S, threads=1)
+            for shape in MOE_MESHES}
+
+
+@pytest.mark.parametrize("variant", list(MOE_VARIANTS))
+@pytest.mark.parametrize("shape,case", [(s, c) for s, cases in MOE_MESHES.items() for c in cases],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_moe_train_step_on_its_shards_equals_reference(moe_reference, moe_steps, shape, case,
+                                                        variant):
+    """The ``tp`` path's MoE step against the reference's unsharded one
+    (routing groups one a data row), at ``test_sharded_train_step_equals_reference``'s
+    tolerances, every rank. On 2×2 granite's and deepseek's 8 experts lie
+    over (data, model), 2 a rank: without ``moe_buf_shard`` each model
+    column's expert weights are all-gathered over data, with it the slots
+    move by all-to-all; granite with 6 experts puts them over the model
+    axis alone (3 a rank, no token moves). On 1×4 (one data row) the
+    experts split 4 ways over the model axis. ``seq_shard`` routes each
+    data row's gathered sequence. deepseek's MLA heads split 2 and 4
+    ways; its router bias has no gradient in either package. Each step
+    records the path, the flag and the experts' axes."""
+    got = [r[case, variant] for r in moe_steps[shape]]
+    assert all(g["meta"] == ("tp", MOE_VARIANTS[variant][1], MOE_EXPERTS[case]) for g in got)
+    _assert_step_equals_reference(moe_reference[1][case, shape[0]], got)
+
+
+def _moe_layer_rank(rank: int, inputs: str) -> dict:
+    """A MoE layer alone on 2×2 (each layout, without and with the
+    buffer placed): this rank's rows of its output."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.distributed.steps import DEFAULT_RULES, model_axes_for, tree_shardings
+    from repro_torch.models import moe, params_from_numpy
+    from repro_torch.utils import flatten_with_paths
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    with open(inputs, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for case, c in cases.items():
+        cfg = _moe_config(get_smoke_config, case).with_(capacity_factor=0.5)
+        axes, specs = model_axes_for(cfg)
+        p_sh = tree_shardings(axes, specs, mesh, DEFAULT_RULES)
+        params = place_tree(params_from_numpy(c["params"], cfg, "cpu"), p_sh)
+        g = "g1" if cfg.first_dense_layers else "g0"
+        local = {k: v.to_local()[0] for k, v in
+                 flatten_with_paths(params["blocks"][g]["ffn"])[0].items()}
+        x = torch.from_numpy(c["x"])
+        rows = x[rank // 2 * 2:(rank // 2 + 1) * 2]  # this data row's two sequences
+        for flag in (False, True):
+            plan = tp.plan_for(cfg, p_sh, mesh, moe_buf_shard=flag)
+            with torch.no_grad():
+                out[case, flag] = moe.moe_ffn(local, rows, cfg, n_groups=1, plan=plan).numpy()
+    return out
+
+
+def test_moe_layer_on_its_shards_equals_reference(tmp_path):
+    """A MoE layer alone (float32, capacity factor 0.5, so at least half of
+    each group's assignments are dropped: a kept set that differed from the
+    reference's would move the output by whole values) on 2×2, each data
+    row routing its two sequences as one group: every rank's output within
+    1e-5 of the max of the reference's ``moe_ffn`` on those rows with the
+    same weights, for experts over (data, model) (granite, deepseek with its
+    sigmoid router and shared expert) and over the model axis alone
+    (granite with 6), with the buffer placed as the experts are (tokens
+    moved by all-to-all) and without (weights gathered in a column)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import Model as JModel
+    from repro.models import moe as jmoe
+
+    cases, want = {}, {}
+    rng = np.random.default_rng(7)
+    for case in MOE_CASES:
+        jcfg = _moe_config(jax_smoke_config, case).with_(capacity_factor=0.5)
+        params, _ = JModel(jcfg).init(jax.random.PRNGKey(4))
+        x = rng.standard_normal((4, 12, jcfg.d_model)).astype(np.float32)
+        g = "g1" if jcfg.first_dense_layers else "g0"
+        ffn = jax.tree_util.tree_map(lambda t: t[0], params["blocks"][g]["ffn"])
+        want[case] = np.asarray(jmoe.moe_ffn(ffn, jnp.asarray(x), jcfg, n_groups=2))
+        cases[case] = {"params": jax.tree_util.tree_map(np.asarray, params), "x": x}
+    inputs = tmp_path / "layer.pkl"
+    inputs.write_bytes(pickle.dumps(cases))
+    for rank, r in enumerate(run_ranks(_moe_layer_rank, 4, args=(str(inputs),),
+                                       timeout_s=GROUP_TIMEOUT_S, threads=1)):
+        for (case, flag), got in r.items():
+            ref = want[case][rank // 2 * 2:(rank // 2 + 1) * 2]
+            err = float(np.abs(got - ref).max())
+            assert err <= 1e-5 * float(np.abs(ref).max()), (case, flag, rank, err)
+
+
+def test_moe_steps_gather_no_weight():
+    """With ``DTensor.full_tensor`` patched to raise, granite's and
+    deepseek's train steps (without and with ``seq_shard`` and
+    ``moe_buf_shard``), prefill and decode run on 2×2 and record the
+    ``tp`` path; their logits are finite."""
+    archs = ("granite-moe-1b-a400m", "deepseek-v3-671b")
+    for r in run_ranks(_no_gather_rank, 4, args=(archs, True), timeout_s=GROUP_TIMEOUT_S,
+                       threads=1):
+        for arch in archs:
+            assert r[arch] == {"paths": ["tp"] * 6, "finite": True}, (arch, r[arch])
+
+
+@pytest.mark.parametrize("flag", ["seq_shard", "moe_buf_shard"])
+@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "4f"), ("xlstm-1.3b", "4f"),
+                                       ("whisper-tiny", "4g")])
+def test_families_still_gathered_refuse_the_flags(arch, item, flag):
+    """hymba's, xlstm's and whisper's sharded steps still gather their
+    weights, so ``make_train_step`` refuses ``seq_shard`` and
+    ``moe_buf_shard`` on a mesh, citing their ROADMAP item (4f, 4g), and
+    the dry run's ``check_flags`` refuses the same; granite and deepseek
+    take both."""
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.launch.dryrun import check_flags
+    from repro_torch.optim import AdamWConfig
+
+    mesh = AbstractMesh((2, 2), ("data", "model"))  # refused before the mesh is used
+    with pytest.raises(NotImplementedError, match=f"{flag}.*item {item}"):
+        make_train_step(get_smoke_config(arch), AdamWConfig(), mesh=mesh, **{flag: True})
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        check_flags([arch], flag == "seq_shard", flag == "moe_buf_shard")
+    check_flags(["granite-moe-1b-a400m", "deepseek-v3-671b"], True, True)
 
 
 # ---------------------------------------------------------------------------

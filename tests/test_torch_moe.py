@@ -367,10 +367,11 @@ def test_train_step_routes_the_batch_as_one_group():
     """``make_train_step``'s default ``n_route_groups`` (the data-parallel
     degree, 1 on one device) gives the loss of ``Model.loss(n_groups=1)``
     and the reference's loss with the same groups; the mesh-only
-    ``moe_buf_shard`` raises."""
+    ``moe_buf_shard`` raises without a mesh (the expert-placed buffer of
+    the sharded step, ``tests/test_torch_mesh.py``)."""
     jm, jparams, m, params = _models(capacity_factor=0.5)
     cfg = m.cfg
-    with pytest.raises(NotImplementedError, match="moe_buf_shard"):
+    with pytest.raises(ValueError, match="moe_buf_shard"):
         make_train_step(cfg, AdamWConfig(), moe_buf_shard=True)
     state = make_init_fn(cfg, AdamWConfig(), seed=0, device="cpu")()
     state["params"] = params

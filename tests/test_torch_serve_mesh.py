@@ -12,12 +12,16 @@ gloo process groups (CPU ranks), against the JAX package's unsharded
   model), so the decode wrote the new position into the shard that owns
   it. MoE routing groups are one per sequence, so a batch block routes as
   the whole batch does.
-* The dense and vlm families compute on their shards (the ``tp`` path,
-  ``distributed/tp.py``): prefill keeps each rank's block of positions of
-  the caches, decode attends over it where it lies. They are held the same
-  way on 1×4 too, where qwen3's and internvl2's one q head a rank reads a
-  view of the whole kv projection and yi-34b's smoke config with 6 heads
-  and 2 kv heads (here on 2×2 and 1×4) keeps its attention whole on 1×4.
+* The dense, vlm and MoE families compute on their shards (the ``tp``
+  path, ``distributed/tp.py``): prefill keeps each rank's block of
+  positions of the caches (GQA's k/v, MLA's latent ``ckv``/``kr``), decode
+  attends over it where it lies (MLA's absorbed form scoring every head
+  over the rank's block); the MoE experts lie over (data, model) and their
+  slots move by all-to-all. They are held the same way on 1×4 too, where
+  qwen3's, internvl2's and granite's one q head a rank reads one kv head
+  of the whole kv projection, deepseek's 4 MLA heads split 4 ways, and
+  yi-34b's smoke config with 6 heads and 2 kv heads (here on 2×2 and 1×4)
+  keeps its attention whole on 1×4.
 * On a 1×1 mesh both steps equal ``Model.prefill``/``decode`` without a
   mesh bit for bit.
 * ``cache_axes`` and ``model_axes_for`` equal the reference's trees.
@@ -52,7 +56,9 @@ CASES = {"qwen3-1.7b": (12, 16), "granite-moe-1b-a400m": (12, 16), "hymba-1.5b":
          "internvl2-76b": (12, 16), "yi-34b": (12, 16)}
 # replacements in both packages' smoke configs: yi's 6 heads do not divide 4
 OVERRIDES = {"yi-34b": {"n_heads": 6, "n_kv_heads": 2}}
-TP_ARCHS = ("qwen3-1.7b", "internvl2-76b", "yi-34b")  # the 1x4 cases (dense and vlm)
+# the 1x4 cases (dense, vlm and MoE)
+TP_ARCHS = ("qwen3-1.7b", "internvl2-76b", "yi-34b", "granite-moe-1b-a400m", "deepseek-v3-671b")
+MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-v3-671b")
 BATCH = 4
 DECODE_STEPS = 2
 TOL = 1e-5
@@ -135,7 +141,8 @@ def _serve_rank(rank: int, cases_path: str, mesh_shape: tuple, no_mesh: bool,
         batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
         logits, caches = pstep(params, batch)
         got = {"logits": logits.full_tensor().numpy(), "prefill": blocks(caches), "decode": [],
-               "paths": (pstep.path, dstep.path)}
+               "paths": (pstep.path, dstep.path), "experts": pstep.experts}
+        assert dstep.experts == pstep.experts
         assert [sharding_of(v).spec for v in flatten_with_paths(caches)[0].values()] == \
             [s.spec for s in flatten_with_paths(c_sh)[0].values()]
         for i, tok in enumerate(case["steps"]):
@@ -201,6 +208,7 @@ def test_sharded_prefill_and_decode_equal_reference_on_2x2(reference, ranks_2x2,
             _cache_blocks_close(cb, wc, f"decode {i}")
         blocks.add(tuple(sorted((k, idx) for k, (idx, _) in got["prefill"].items())))
         tp_path = arch in TP_ARCHS or arch in ("stablelm-12b", "command-r-plus-104b")
+        assert got["experts"] == (["data", "model"] if arch in MOE_ARCHS else [])
         assert got["paths"] == (("tp", "tp") if tp_path else ("gathered", "gathered"))
     # each rank its own blocks; the mLSTM state has no seq dim, so the two
     # ranks of a data row hold the same block
