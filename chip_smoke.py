@@ -98,7 +98,8 @@ with nvcc and prints one JSON line per phase:
              adopt), ``fsck`` clean, ``hop_root`` empty. TTFT, routed
              prefill and decode tok/s beside the in-process ones, the warm
              and handoff legs, the recovery, each worker's memory; and
-             ``launch.serve.main(--workers 2)`` against ``--workers 0``
+             ``launch.serve.main(--workers 2)`` on two of the requests, 8
+             tokens each, against ``--workers 0``'s first 8
   chaos      three cells of ``repro_torch.chaos.matrix`` with cuda workers
              (a ``hop.*`` kill, a relay kill, a SIGKILL at stream accept),
              each through the matrix's CLI, the three at once: each product
@@ -115,13 +116,11 @@ with nvcc and prints one JSON line per phase:
              its lse in every layer's forward and remat recompute, all
              tensor-core launches. Step seconds, tokens/s, model TFLOP/s,
              publish and restart seconds and bytes, peak memory, free disk;
-             one profiled step in this process split by kernel group; K3
-             with lse against its plain version and against SDPA, the plain
+             K3 with lse against its plain version and against SDPA, the plain
              attention backward timed, and a 2-layer float32 model's
              gradients with K3 against plain attention under autograd
   train_moe  the same two launcher runs for granite-moe-1b-a400m (the runs
-             keep 4 of 24 layers, widths kept), its full-depth step timed
-             and profiled in this process, K3 with lse at head dim 64
+             keep 4 of 24 layers, widths kept), K3 with lse at head dim 64
   serve_hybrid  hymba-1.5b at full width (32 layers of windowed attention
              in parallel with SSD heads): 4 requests of 4096 prompt tokens,
              past the 2048-token window, and 32 generated; 4 x 32 K3
@@ -130,9 +129,8 @@ with nvcc and prints one JSON line per phase:
              re-prefill from a CMI holding its SSD states; one hybrid layer
              on the card against the float32 CPU path; where the time goes
   train_hybrid  the two launcher runs for hymba at 2 x 4096 tokens a step
-             (the runs keep 1 of 32 layers), every loss finite; its
-             full-depth step in this process; K3 with lse at its heads and
-             window
+             (the runs keep 1 of 32 layers), every loss finite; K3 with lse
+             at its heads and window
   xlstm      xlstm-1.3b at full width (48 mLSTM layers, no attention, no
              TPU kernel): served as the serve phase is, transcripts equal,
              one request resumed with zero re-prefill from its 202 MB mLSTM
@@ -225,6 +223,11 @@ XLSTM_SERVE_SPEC = f"model:{XLSTM_ARCH}:full:seed=0"
 MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 4
 MLA_SERVE_SPEC = f"model:{MLA_ARCH}:full:layers={MLA_LAYERS}:seed=0"
 MLA_ON_CARD_TOKENS = 256  # the MLA layer checked against the float32 CPU path
+# deepseek's MoE layer on the card against the float32 CPU path at a
+# 512-token prefill group (capacity 20, still overflowed by the favoured
+# experts), cut from 2048 for the smoke's time: the CPU's float32 products
+# over all 256 experts took most of the check's 65 s on one H100 host
+MLA_MOE_ON_CARD_TOKENS = 512
 # train_encdec: whisper-tiny, 4 x 2048 decoder tokens and 4 x 1500 frames
 ENCDEC_ARCH = "whisper-tiny"
 VISION_ARCH = "internvl2-76b"
@@ -257,6 +260,17 @@ DRYRUN_TP_CELLS = (("prefill_32k", False, 32), ("train_4k", True, 16))
 DRYRUN_MOE_CELLS = (("deepseek-v3-671b", "prefill_32k", False, False, 8),
                     ("deepseek-v3-671b", "train_4k", True, True, 8),
                     ("granite-moe-1b-a400m", "prefill_32k", False, False, 0))
+# the hybrid, mLSTM and encoder-decoder families on their shards under the
+# same fake 16x16 group: (arch, shape, seq_shard, moe_buf_shard, layers).
+# hymba's 25 heads, xlstm's 4 and whisper's 6 do not divide 16, so each
+# device runs its mixers whole (on the gathered sequence under seq_shard)
+# and its MLP and vocab split where they divide; hymba's prefill through
+# all 32 layers, its train step and xlstm's cut to 4 layers for the smoke's
+# time, whisper's through all 4 + 4
+DRYRUN_MIXER_CELLS = (("hymba-1.5b", "prefill_32k", False, False, 0),
+                      ("hymba-1.5b", "train_4k", True, False, 4),
+                      ("whisper-tiny", "train_4k", True, False, 0),
+                      ("xlstm-1.3b", "train_4k", True, False, 4))
 DRYRUN_PEAK_TOL = 0.02  # a sharded cell's peak on the card against its dry run's count
 # what a sharded cell's process may hold beyond its step's arguments (cuBLAS's
 # workspaces, ~70 MB, which the dry run does not count); more is a leak
@@ -270,6 +284,9 @@ def serve_argv(arch: str, prompt_len: int = PROMPT_LEN, layers: int = 0) -> list
 
 
 SERVE_ARGV = serve_argv(SERVE_ARCH)
+# the serve CLI's routed mode (--workers 2) in the fleet phase: 2 of the
+# requests, 8 tokens each (every request's 32 took 77 s on one H100 host)
+CLI_FLEET_BATCH, CLI_FLEET_GEN = 2, 8
 PUBLISH_EVERY = 16
 DROP_AT_DONE = 24  # the first host is dropped here; its last publish is at done 17
 # the serving fleet: two workers, a live migration after 8 rounds, a SIGKILL at 20
@@ -299,8 +316,11 @@ def train_argv(arch: str, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH) -> lis
 # each model's runs cut depth (never width) to the most layers whose three
 # CMIs fit its budget: qwen3 2 of 28 (5.77 GB a CMI, 16.1 GiB for three),
 # granite 4 of 24 (3.70 GB), hymba 1 of 32 (1.98 GB: its untied 32,001-row
-# embeddings are most of it). The profiled steps and the K3 checks, which
-# write nothing, run at full depth.
+# embeddings are most of it). The K3 checks, which write nothing, run at
+# the models' full shapes. The three train phases' in-process full-depth
+# steps were cut for the smoke's time (with them it took 1345 s of its
+# 1200 on one H100 host); xlstm's, its only training on the card, and
+# whisper's in-process step remain.
 TRAIN_WRITE_BUDGET = 17 * 2**30
 MOE_TRAIN_WRITE_BUDGET = 12 * 2**30
 HYBRID_TRAIN_WRITE_BUDGET = 6 * 2**30
@@ -764,7 +784,10 @@ def check_flash_attention(dev) -> dict:
     # qwen3's, command-r's (6 q heads, 1 kv head), deepseek-v3's (8 of
     # its 128 MLA heads, qk 192 / v 128) and granite's (1 q head reading 1
     # kv head, D 64); deepseek-v3's per-device train_4k (16 x 4,096, its 8
-    # heads)
+    # heads); hymba-1.5b's per-device prefill_32k (its 25 q / 5 kv heads
+    # whole on 16x16, window 2048) and whisper-tiny's per-device train_4k
+    # decoder self-attention (16 x 4,096, causal) and cross attention
+    # (against 1,500 frames, non-causal), its 6 heads whole
     shapes = [(2, 4, 4, 128, 128, 64, 64, True, 0, "float32", None),
               (1, 8, 2, 257, 257, 64, 64, True, 0, "float32", None),
               (2, 4, 2, 200, 200, 128, 128, True, 64, "float32", None),
@@ -784,7 +807,10 @@ def check_flash_attention(dev) -> dict:
               (2, 6, 1, 32768, 32768, 128, 128, True, 0, "bfloat16", "command_r_32k"),
               (2, 8, 8, 32768, 32768, 192, 128, True, 0, "bfloat16", "mla_32k"),
               (2, 1, 1, 32768, 32768, 64, 64, True, 0, "bfloat16", "granite_32k"),
-              (16, 8, 8, 4096, 4096, 192, 128, True, 0, "bfloat16", "mla_train_4k")]
+              (16, 8, 8, 4096, 4096, 192, 128, True, 0, "bfloat16", "mla_train_4k"),
+              (2, 25, 5, 32768, 32768, 64, 64, True, 2048, "bfloat16", "hymba_32k"),
+              (16, 6, 6, 4096, 4096, 64, 64, True, 0, "bfloat16", "whisper_decoder_4k"),
+              (16, 6, 6, 4096, 1500, 64, 64, False, 0, "bfloat16", "whisper_cross_4k")]
     timed = {}
     for i, (b, h, hkv, sq, sk, d, dv, causal, window, dt, label) in enumerate(shapes):
         rng = np.random.default_rng(i)
@@ -886,15 +912,27 @@ def check_flash_attention(dev) -> dict:
                                          "causal (deepseek-v3's train_4k on a device of "
                                          "16x16: its 8 of 128 MLA heads)",
                                 **{key: timed["mla_train_4k"][key] for key in more}},
+            "at_hymba_32k": {"shape": "q bf16[2,25,32768,64], k/v bf16[2,5,32768,64], causal, "
+                                      "window 2048 (hymba-1.5b's prefill_32k on a device of "
+                                      "16x16: its 25 q / 5 kv heads whole)",
+                             **{key: timed["hymba_32k"][key] for key in more}},
+            "at_whisper_decoder_4k": {"shape": "q/k/v bf16[16,6,4096,64], causal (whisper-tiny's "
+                                               "train_4k decoder on a device of 16x16)",
+                                      **{key: timed["whisper_decoder_4k"][key] for key in more}},
+            "at_whisper_cross_4k": {"shape": "q bf16[16,6,4096,64], k/v bf16[16,6,1500,64], "
+                                             "non-causal (whisper-tiny's train_4k cross "
+                                             "attention on a device of 16x16)",
+                                    **{key: timed["whisper_cross_4k"][key] for key in more}},
             "head_slices": check_k3_head_slices(dev)}
 
 
 def check_k3_head_slices(dev) -> dict:
-    """K3 on each of 16 model ranks' q heads and its view (or block) of the
-    kv heads (``kernels/flash_attention/cases.py``: qwen3's and command-r's
-    GQA, deepseek-v3's MLA at qk 192 / v 128): bitwise those heads of the
-    call over every head, each view read as it is by the tensor-core
-    kernel, one launch a rank."""
+    """K3 on each model rank's q heads and its view (or block) of the kv
+    heads (``kernels/flash_attention/cases.py``: qwen3's and command-r's
+    GQA and deepseek-v3's MLA at qk 192 / v 128 on 16 ranks, hymba's
+    windowed attention on 5, whisper's non-causal cross attention on 2):
+    bitwise those heads of the call over every head, each view read as it
+    is by the tensor-core kernel, one launch a rank."""
     from repro_torch.kernels.flash_attention.cases import HEAD_SLICE_CASES, check_head_slices
 
     out = {}
@@ -1900,7 +1938,7 @@ def run_serve_mla(root: Path, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     line["mla_layer_on_card"] = check_mla_layer_on_device(dev, cfg, MLA_ON_CARD_TOKENS)
-    line["moe_on_card"] = check_moe_on_card(dev, cfg)
+    line["moe_on_card"] = check_moe_on_card(dev, cfg, MLA_MOE_ON_CARD_TOKENS)
     return line
 
 
@@ -2066,14 +2104,21 @@ def run_serve_fleet(root: Path, dev, local: dict) -> dict:
         router.close()
         sup.shutdown()
 
-    # the CLI's routed mode: the same transcripts as --workers 0
+    # the CLI's routed mode: two of the requests and their first tokens (a
+    # depth cut for the smoke's time), the tokens of --workers 0's
+    argv = list(SERVE_ARGV) + ["--workers", "2"]
+    argv[argv.index("--batch") + 1] = str(CLI_FLEET_BATCH)
+    argv[argv.index("--gen") + 1] = str(CLI_FLEET_GEN)
     t0 = time.perf_counter()
-    routed = launch_serve.main(SERVE_ARGV + ["--workers", "2"])
+    routed = launch_serve.main(argv)
     routed_s = time.perf_counter() - t0
-    assert routed["transcripts"] == local["transcripts"]
+    assert len(routed["transcripts"]) == CLI_FLEET_BATCH
+    for rid, toks in routed["transcripts"].items():
+        assert len(toks) == CLI_FLEET_GEN and toks == local["transcripts"][rid][:CLI_FLEET_GEN]
     out["cli_workers_2"] = {k: routed[k] for k in ("mode", "prefill_tok_s", "decode_tok_s",
                                                     "ttft_p50_s", "ttft_max_s")}
-    out["cli_workers_2"].update(wall_s=routed_s, transcripts_equal_workers_0=True)
+    out["cli_workers_2"].update(wall_s=routed_s, batch=CLI_FLEET_BATCH, gen=CLI_FLEET_GEN,
+                                tokens_equal_workers_0=True)
     return out
 
 
@@ -2515,17 +2560,23 @@ def run_vision(dev) -> dict:
 def _dryrun_cells() -> list[tuple[str, str, bool, bool, str, int, str]]:
     """``(arch, shape, seq_shard, moe_buf_shard, mesh, layers, file)`` of
     every dry-run cell the phase reads: qwen3's two on :data:`DRYRUN_MESH`,
-    then command-r's tensor-parallel ones and the MoE ones on 16x16
-    (``layers`` a depth cut, 0 for none)."""
+    then command-r's tensor-parallel ones, the MoE ones and the hybrid,
+    mLSTM and encoder-decoder ones on 16x16 (``layers`` a depth cut, 0 for
+    none)."""
     cells = [(DRYRUN_ARCH, shape, False, False, DRYRUN_MESH, 0,
               f"{DRYRUN_ARCH}__{shape}__mesh{DRYRUN_MESH}.json") for shape in DRYRUN_SHAPES]
-    sharded = ([(DRYRUN_TP_ARCH, shape, ss, False, layers) for shape, ss, layers in DRYRUN_TP_CELLS]
-               + list(DRYRUN_MOE_CELLS))
-    for arch, shape, seq_shard, moe_buf, layers in sharded:
+    for arch, shape, seq_shard, moe_buf, layers in _sharded_cells():
         name = (f"{arch}__{shape}__pod1" + (f"__l{layers}" if layers else "")
                 + ("__seqshard" if seq_shard else "") + ("__moebuf" if moe_buf else ""))
         cells.append((arch, shape, seq_shard, moe_buf, "16x16", layers, name + ".json"))
     return cells
+
+
+def _sharded_cells() -> list[tuple[str, str, bool, bool, int]]:
+    """``(arch, shape, seq_shard, moe_buf_shard, layers)`` of the cells
+    :func:`run_dryrun_tp` runs under the fake 16x16 group, in order."""
+    return ([(DRYRUN_TP_ARCH, shape, ss, False, layers) for shape, ss, layers in DRYRUN_TP_CELLS]
+            + list(DRYRUN_MOE_CELLS) + list(DRYRUN_MIXER_CELLS))
 
 
 def start_dryrun(out: Path) -> list[subprocess.Popen]:
@@ -2741,9 +2792,7 @@ def run_dryrun(root: Path, dev) -> dict:
         # qwen3's cells in a frame of their own: none of their tensors (the
         # 30 GB decode cache) outlives it
         prefill, decode = run_1x1_cells(dev)
-        tp_cells = run_dryrun_tp(dev, [(DRYRUN_TP_ARCH, shape, ss, False, layers)
-                                        for shape, ss, layers in DRYRUN_TP_CELLS]
-                                 + list(DRYRUN_MOE_CELLS))
+        tp_cells = run_dryrun_tp(dev, _sharded_cells())
         cells = finish_dryrun(procs, out_dir)
     finally:
         for proc in procs:
@@ -2761,6 +2810,8 @@ def run_dryrun(root: Path, dev) -> dict:
         real["peak_over_dryrun_peak"] = (real["max_memory_allocated"]
                                          / cell["memory"]["peak_memory_in_bytes"])
         assert real["flops_rel_diff"] <= DRYRUN_FLOPS_TOL, (shape, real["flops"], cell["cost"])
+    from repro_torch.configs import get_config
+
     card = torch.cuda.get_device_properties(dev).total_memory
     for (arch, shape, seq_shard, moe_buf, _, _, name), real in zip(
             [c for c in _dryrun_cells() if c[0] != DRYRUN_ARCH], tp_cells):
@@ -2785,15 +2836,21 @@ def run_dryrun(root: Path, dev) -> dict:
         real["peak_net_over_dryrun_peak"] = ((real["max_memory_allocated"] - extra)
                                              / cell["memory"]["peak_memory_in_bytes"])
         assert abs(real["peak_net_over_dryrun_peak"] - 1) <= DRYRUN_PEAK_TOL, (name, real)
-        if arch != DRYRUN_TP_ARCH:  # the MoE cells
+        if get_config(arch).moe:
             real["all_to_all"] = cell["collectives"]["by_kind"].get("all-to-all")
             if "data" in real["experts"]:  # tokens move to experts over (data, model)
                 assert real["all_to_all"] and real["all_to_all"]["count"] > 0, (name, real)
-    n_tp = len(DRYRUN_TP_CELLS)
+    n_tp, n_moe = len(DRYRUN_TP_CELLS), len(DRYRUN_MOE_CELLS)
     tp = dict(zip([f"{shape}" + ("_seq_shard" if ss else "") for shape, ss, _ in DRYRUN_TP_CELLS],
                   tp_cells[:n_tp]))
-    moe = {f"{arch}__{shape}" + ("__seq_shard" if ss else "") + ("__moe_buf_shard" if mb else ""):
-           rec for (arch, shape, ss, mb, _), rec in zip(DRYRUN_MOE_CELLS, tp_cells[n_tp:])}
+
+    def by_name(cells, recs):
+        return {f"{arch}__{shape}" + ("__seq_shard" if ss else "")
+                + ("__moe_buf_shard" if mb else ""): rec
+                for (arch, shape, ss, mb, _), rec in zip(cells, recs)}
+
+    moe = by_name(DRYRUN_MOE_CELLS, tp_cells[n_tp:n_tp + n_moe])
+    mixers = by_name(DRYRUN_MIXER_CELLS, tp_cells[n_tp + n_moe:])
     launches = {k: prefill["launches"][k] + sum(c["launches"][k] for c in tp_cells)
                 for k in prefill["launches"]}
     return {"arch": DRYRUN_ARCH, "mesh": "1x1 (data, model), cuda, nccl, world 1",
@@ -2808,6 +2865,11 @@ def run_dryrun(root: Path, dev) -> dict:
             "moe": {"mesh": "16x16 (data, model), rank 0 of a fake group of 256 on real card "
                             "tensors", "not_compared": "as tensor_parallel's: shapes, launches, "
                     "memory and the dry run's FLOPs only", **moe},
+            "mixers": {"mesh": "16x16 (data, model), rank 0 of a fake group of 256 on real "
+                               "card tensors", "not_compared": "as tensor_parallel's: shapes, "
+                       "launches, memory and the dry run's FLOPs only (correctness is held "
+                       "on the CPU: tests/test_torch_mesh_hybrid.py, "
+                       "tests/test_torch_mesh_encdec.py)", **mixers},
             "launches": launches}
 
 
@@ -2837,6 +2899,14 @@ def _real_dtensors(specs, shardings, dev, seed: int):
 # each sharded cell's arch at full width: (layers, d_model, heads, kv heads,
 # d_ff, vocab, dtype), and what a device of 16x16 holds of it
 _WIDTHS = {
+    "hymba-1.5b": ((32, 1600, 25, 5, 5504, 32001, "bfloat16"),
+                   "25 q / 5 kv heads and 25 SSD heads whole (25 do not divide 16), window "
+                   "2048, mlp 344, vocab 32001 whole"),
+    "xlstm-1.3b": ((48, 2048, 4, 4, 0, 50304, "bfloat16"),
+                   "4 mLSTM heads whole (4 do not divide 16), vocab 3144 a model rank"),
+    "whisper-tiny": ((4, 384, 6, 6, 1536, 51865, "bfloat16"),
+                     "6 heads whole in each attention, mlp 96, vocab 51865 whole; 4 encoder "
+                     "layers over 1500 frames"),
     "command-r-plus-104b": ((64, 12288, 96, 8, 33792, 256000, "bfloat16"),
                             "6 q heads / 1 kv head, mlp 2112, vocab 16000 a model rank"),
     "deepseek-v3-671b": ((61, 7168, 128, 128, 18432, 129280, "bfloat16"),
@@ -2850,17 +2920,19 @@ _WIDTHS = {
 
 def run_dryrun_tp(dev, cells) -> list[dict]:
     """Rank 0's tensor-parallel steps of ``cells`` (``(arch, shape,
-    seq_shard, moe_buf_shard, layers)``: command-r-plus-104b's, then the
-    MoE ones) on the card, each arch at full width: this process joins a
-    fake group of 256 ranks (its collectives return at once and write
-    nothing) and makes the 16x16 production mesh over it; the params and
-    train state are rank 0's real blocks (:func:`_real_dtensors`), the
-    batch the global one (each step takes its data block). K3's counts set
-    to 0 just before each step and read just after: a prefill's one launch
-    a layer, a train step's two with lse (the forward and its recompute),
-    all tensor-core. Each step's wall and device time (CUDA events; the
-    collectives take none) and peak memory, each step run once. The group
-    is destroyed at the end."""
+    seq_shard, moe_buf_shard, layers)``: command-r-plus-104b's, the MoE
+    ones, then the hybrid, mLSTM and encoder-decoder ones) on the card,
+    each arch at full width: this process joins a fake group of 256 ranks
+    (its collectives return at once and write nothing) and makes the 16x16
+    production mesh over it; the params and train state are rank 0's real
+    blocks (:func:`_real_dtensors`), the batch the global one (each step
+    takes its data block; whisper's frames drawn too). K3's counts set to
+    0 just before each step and read just after: a prefill's
+    :func:`k3_per_forward` launches, a train step's twice as many with lse
+    (the forward and its recompute), all tensor-core (none for the
+    mLSTM). Each step's wall and device time (CUDA events; the collectives
+    take none) and peak memory, each step run once. The group is destroyed
+    at the end."""
     import torch.distributed as dist
 
     from repro_torch.configs import SHAPES, get_config
@@ -2894,9 +2966,15 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
             torch.cuda.empty_cache()
             tokens = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
                                    generator=gen, device=dev, dtype=torch.int32)
+            frames = {}
+            if cfg.encdec:  # the encoder's stub frames
+                frames["enc_frames"] = torch.randn(
+                    (shape.global_batch, cfg.enc_seq, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
             if shape.kind == "prefill":
                 step, p_sh, _ = make_prefill_step(ccfg, mesh, shape)
-                args = (_real_dtensors(model_axes_for(ccfg)[1], p_sh, dev, 0), {"tokens": tokens})
+                args = (_real_dtensors(model_axes_for(ccfg)[1], p_sh, dev, 0),
+                        {"tokens": tokens, **frames})
             else:
                 opt_cfg = AdamWConfig(moment_dtype=ccfg.opt_moment_dtype)
                 step = make_train_step(ccfg, opt_cfg, mesh=mesh, seq_shard=seq_shard,
@@ -2904,7 +2982,7 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
                 # no name binds the state: it goes with args, before the next cell
                 args = (_real_dtensors(state_struct_for(ccfg, opt_cfg),
                                        train_state_shardings(ccfg, opt_cfg, mesh), dev, 0),
-                        {"tokens": tokens, "labels": tokens})
+                        {"tokens": tokens, "labels": tokens, **frames})
             torch.cuda.synchronize(dev)
             held = torch.cuda.memory_allocated(dev)
             flash_attention.launches = flash_attention.wgmma_launches = 0
@@ -2923,16 +3001,15 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
                    "device_ms": dev_ms, "launches": launches, "arguments_bytes": held,
                    "max_memory_allocated": peak,
                    "depth_cut": f"{layers} of {cfg.n_layers} layers" if layers else None}
+            n = k3_per_forward(ccfg)
             if shape.kind == "prefill":
-                assert launches == {"flash_attention": ccfg.n_layers,
-                                    "flash_attention_wgmma": ccfg.n_layers,
+                assert launches == {"flash_attention": n, "flash_attention_wgmma": n,
                                     "flash_attention_lse": 0}, launches
             else:  # the forward and its recomputation in the backward, with lse
-                assert launches == {"flash_attention": 2 * ccfg.n_layers,
-                                    "flash_attention_wgmma": 2 * ccfg.n_layers,
-                                    "flash_attention_lse": 2 * ccfg.n_layers}, launches
+                assert launches == {"flash_attention": 2 * n, "flash_attention_wgmma": 2 * n,
+                                    "flash_attention_lse": 2 * n}, launches
             assert step.path == "tp", step.path
-            del args, tokens
+            del args, tokens, frames
             out.append(rec)
     finally:
         dist.destroy_process_group()
@@ -3208,13 +3285,18 @@ def main() -> int:
         k3_train_hybrid = check_k3_training(dev, HYBRID_ARCH, gradients=False,
                                             seq=HYBRID_TRAIN_SEQ, batches=(1, HYBRID_TRAIN_BATCH))
         # and at the new phases' shapes: deepseek's MLA prefill, whisper's
-        # encoder, cross and decoder attention (its training forward's)
+        # encoder, cross and decoder attention (its training forward's),
+        # and whisper's per-device train_4k decoder and cross attention
         k3_lse_new = {"mla": k3_lse_case(dev, 1, 128, 128, 2048, 2048, 192, 128, True, 0, 1),
                       "mla_train_4k": k3_lse_case(dev, 16, 8, 8, 4096, 4096, 192, 128, True,
                                                   0, 7),
                       "whisper_encoder": k3_lse_case(dev, 4, 6, 6, 1500, 1500, 64, 64, False, 0, 4),
                       "whisper_cross": k3_lse_case(dev, 4, 6, 6, 2048, 1500, 64, 64, False, 0, 5),
-                      "whisper_decoder": k3_lse_case(dev, 4, 6, 6, 2048, 2048, 64, 64, True, 0, 6)}
+                      "whisper_decoder": k3_lse_case(dev, 4, 6, 6, 2048, 2048, 64, 64, True, 0, 6),
+                      "whisper_decoder_4k": k3_lse_case(dev, 16, 6, 6, 4096, 4096, 64, 64, True,
+                                                        0, 8),
+                      "whisper_cross_4k": k3_lse_case(dev, 16, 6, 6, 4096, 1500, 64, 64, False,
+                                                      0, 9)}
 
         # the vision prefix: internvl2-76b at full width in process (its
         # train step needs the card nearly empty, so it runs first), K3's
@@ -3226,8 +3308,10 @@ def main() -> int:
 
         # the dry run and its cells' per-device steps on a 1x1 mesh, the
         # card nearly empty (the decode cell's cache is 30 GB), then
-        # command-r's tensor-parallel steps under a fake 16x16 group; K3's
-        # counts from 0 just before each step, read just after
+        # command-r's, the MoE families' and the hybrid, mLSTM and
+        # encoder-decoder families' tensor-parallel steps under a fake
+        # 16x16 group; K3's counts from 0 just before each step, read just
+        # after
         dry = run_dryrun(work / "dryrun", dev)
         by_path["dryrun"] = {"flash_attention": dry["launches"]["flash_attention"]}
         emit("dryrun", **dry, k3=k3["at_prefill_32k"], k3_tensor_parallel=k3["at_command_r_32k"],
@@ -3235,6 +3319,11 @@ def main() -> int:
                      "deepseek_train_4k": k3["at_mla_train_4k"],
                      "deepseek_train_4k_lse": k3_lse_new["mla_train_4k"],
                      "granite_prefill_32k": k3["at_granite_32k"]},
+             k3_mixers={"hymba_prefill_32k": k3["at_hymba_32k"],
+                        "whisper_train_4k_decoder": k3["at_whisper_decoder_4k"],
+                        "whisper_train_4k_decoder_lse": k3_lse_new["whisper_decoder_4k"],
+                        "whisper_train_4k_cross": k3["at_whisper_cross_4k"],
+                        "whisper_train_4k_cross_lse": k3_lse_new["whisper_cross_4k"]},
              k3_head_slices=k3["head_slices"], nvidia_smi=smi,
              disk=disk.mark("dryrun", dir_bytes(work / "dryrun")))
         del dry
@@ -3335,9 +3424,6 @@ def main() -> int:
                                                    for run in ("A", "B"))}
         from repro_torch.configs import get_config
 
-        n_layers = get_config(TRAIN_ARCH).n_layers  # full depth: these write nothing
-        torch.cuda.reset_peak_memory_stats(dev)
-        train["full_depth_step"] = profile_train(dev, n_layers)
         emit("train", **train, k3=k3_train,
              disk=disk.mark("train", train_files(work / "train", train)))
         shutil.rmtree(work / "train", ignore_errors=True)  # room for train_moe's states
@@ -3349,9 +3435,6 @@ def main() -> int:
         by_path["train_moe"] = {"flash_attention": sum(train["launches"][run]["flash_attention"]
                                                        for run in ("A", "B"))}
         launches["flash_attention"] += by_path["train_moe"]["flash_attention"]
-        n_layers = get_config(MOE_ARCH).n_layers
-        torch.cuda.reset_peak_memory_stats(dev)
-        train["full_depth_step"] = profile_train(dev, n_layers, MOE_ARCH)
         emit("train_moe", **train, k3=k3_train_moe,
              disk=disk.mark("train_moe", train_files(work / "train_moe", train)))
         shutil.rmtree(work / "train_moe", ignore_errors=True)  # room for train_hybrid's
@@ -3373,10 +3456,6 @@ def main() -> int:
         by_path["train_hybrid"] = {"flash_attention": sum(
             train["launches"][run]["flash_attention"] for run in ("A", "B"))}
         launches["flash_attention"] += by_path["train_hybrid"]["flash_attention"]
-        n_layers = get_config(HYBRID_ARCH).n_layers
-        torch.cuda.reset_peak_memory_stats(dev)
-        train["full_depth_step"] = profile_train(dev, n_layers, HYBRID_ARCH, HYBRID_TRAIN_SEQ,
-                                                 HYBRID_TRAIN_BATCH)
         emit("train_hybrid", **train, k3=k3_train_hybrid,
              disk=disk.mark("train_hybrid", train_files(work / "train_hybrid", train)))
         shutil.rmtree(work / "train_hybrid", ignore_errors=True)
@@ -3469,6 +3548,9 @@ def main() -> int:
                          "at_mla_32k": k["at_mla_32k"],
                          "at_granite_32k": k["at_granite_32k"],
                          "at_mla_train_4k": k["at_mla_train_4k"],
+                         "at_hymba_32k": k["at_hymba_32k"],
+                         "at_whisper_decoder_4k": k["at_whisper_decoder_4k"],
+                         "at_whisper_cross_4k": k["at_whisper_cross_4k"],
                          "head_slices": k["head_slices"], "training": k3_train,
                          "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid,
                          "lse_new_shapes": k3_lse_new}

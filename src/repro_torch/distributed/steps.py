@@ -19,27 +19,26 @@ mean loss by its share of the global valid labels, sums the gradients
 over the batch axes and updates its block of the moments and master
 weights, the new params gathered back to their own placements. The loss
 is the global mean, as the reference's. How a rank computes depends on
-the family, and the step records it (``path`` in the train step's
-metrics, ``.path`` on every step):
-
-* ``"tp"`` (``dense``, ``vlm`` and ``moe``: GQA or MLA, a dense or MoE
-  FFN): on its own shards, as the reference's GSPMD program does
-  (``distributed/tp.py``: vocab-parallel embedding and loss, column- then
-  row-parallel FFN and attention, K3 on the rank's q heads, MLA on its
-  heads, the MoE experts on their (data, model) or model blocks,
-  ``models/moe.py``). The gradients are the local shards, summed over the
-  batch axes a weight is not split over (an expert split over data has
-  its whole gradient after the backward of the dispatch's collectives); a
-  whole weight a rank used on its part of the work has its gradient
-  summed over the model axis; the global norm counts every element once;
-  AdamW takes the ``OPT_RULES`` block of each local shard. ``seq_shard``
-  splits the residual stream along S between layers (Megatron's sequence
-  parallelism); ``moe_buf_shard`` places the MoE dispatch buffer as the
-  experts are, so tokens move to the experts (all-to-all) where without
-  it each model column's expert weights are gathered over the data axis.
-* ``"gathered"`` (the hybrid and mLSTM mixers, the encoder–decoder, until
-  their ROADMAP items): every weight gathered whole on each rank, the
-  model run on plain local tensors.
+its own shards, as the reference's GSPMD program does, and the step
+records it (``path`` in the train step's metrics, ``.path`` on every
+step: ``"tp"``, every family's; ``distributed/tp.py``): vocab-parallel
+embedding and loss, column- then row-parallel FFN, MLP and attention, K3
+on the rank's q heads, MLA on its heads, the hybrid's SSD and the mLSTM on
+its heads (their chunked recurrence over the whole sequence), the
+encoder–decoder's attentions and MLPs on its heads and hidden units, the
+MoE experts on their (data, model) or model blocks (``models/moe.py``).
+The gradients are the local shards, summed over the batch axes a weight
+is not split over (an expert split over data has its whole gradient after
+the backward of the dispatch's collectives); a whole weight a rank used on
+its part of the work has its gradient summed over the model axis; the
+global norm counts every element once; AdamW takes the ``OPT_RULES``
+block of each local shard. ``seq_shard`` splits the residual stream along
+S between layers (Megatron's sequence parallelism; the reference's
+encoder–decoder constrains no stream, so there it changes nothing);
+``moe_buf_shard`` places the MoE dispatch buffer as the experts are, so
+tokens move to the experts (all-to-all) where without it each model
+column's expert weights are gathered over the data axis (a model without
+MoE layers has no buffer: it changes nothing there, as in the reference).
 
 On a mesh that splits nothing (a model axis of size 1, and no experts
 over the data axis) the model runs its plain code, and on one whose batch
@@ -47,16 +46,18 @@ axes have size 1 nothing is summed: a 1×1 mesh is the unsharded step bit
 for bit.
 
 The serve steps (:func:`make_prefill_step`, :func:`make_decode_step`)
-compute the same two ways (their MoE layers move tokens to the experts).
+compute the same way (their MoE layers move tokens to the experts).
 Their caches are DTensors placed by ``CACHE_RULES`` (batch over
-pod×data, seq over model, every kv head). On the ``tp`` path prefill
-keeps each rank's block of positions of every layer's cache (GQA's k/v,
-the kv heads gathered along the model axis; MLA's latent rows) and decode
-attends over each rank's block where it lies (flash-decoding's combine
-across the model axis; MLA's absorbed form scores every head there), the
-new position written by the rank that owns it. On the ``gathered`` path
-decode gathers its batch block's caches along seq and writes the new
-position back into the shard that owns it.
+pod×data, seq over model, every kv head, the recurrent states whole on
+the heads). Prefill keeps each rank's block of positions of every
+layer's cache (GQA's k/v, the kv heads gathered along the model axis; a
+rolling window's block of its slots; MLA's latent rows; the
+encoder–decoder's cross k/v over the frames) and the recurrent states
+whole; decode attends over each rank's block where it lies
+(flash-decoding's combine across the model axis; MLA's absorbed form
+scores every head there), the new position written by the rank that owns
+it, and the recurrent states' heads computed on their ranks and
+all-gathered.
 """
 
 from __future__ import annotations
@@ -238,18 +239,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3
     each batch shard routes as its own group. ``seq_shard`` (the
     reference's sequence-parallel residual stream) and ``moe_buf_shard``
     (its expert-placed dispatch buffer: tokens move to the experts) need a
-    mesh and the ``tp`` path; ``moe_buf_shard`` changes nothing for a
-    model without MoE layers, as in the reference."""
+    mesh; each changes nothing where the reference's does not
+    (``moe_buf_shard`` for a model without MoE layers, ``seq_shard`` for
+    the encoder–decoder)."""
     for flag, on, what in (("seq_shard", seq_shard, "splits the residual stream over a mesh's "
                             "model axis"),
                            ("moe_buf_shard", moe_buf_shard, "places the MoE dispatch buffer on "
                             "a mesh's expert axes")):
         if on and mesh is None:
             raise ValueError(f"{flag} {what}: it needs a mesh")
-        if on and tp.compute_path(cfg) != "tp":
-            raise NotImplementedError(
-                f"{flag}: {cfg.name}'s sharded step gathers its weights and computes on "
-                f"local tensors; its tensor-parallel compute is {tp.later_items(cfg)}")
     if mesh is not None:
         return _make_sharded_train_step(cfg, opt_cfg, mesh, peak_lr=peak_lr, warmup=warmup,
                                         total_steps=total_steps, n_route_groups=n_route_groups,
@@ -313,8 +311,7 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
     path = tp.compute_path(cfg)
     model_axes, params_struct = model_axes_for(cfg)
     p_sh = tree_shardings(model_axes, params_struct, mesh, DEFAULT_RULES)
-    plan = (tp.plan_for(cfg, p_sh, mesh, seq_shard=seq_shard, moe_buf_shard=moe_buf_shard)
-            if path == "tp" else None)
+    plan = tp.plan_for(cfg, p_sh, mesh, seq_shard=seq_shard, moe_buf_shard=moe_buf_shard)
     experts = list(plan.experts.axes) if plan is not None else []
 
     @torch.no_grad()
@@ -343,8 +340,7 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
             raise ValueError(f"{n_route_groups} routing groups do not split over {shards} "
                              "batch shards")
         p_flat, treedef = flatten_with_paths(state["params"])
-        full = flatten_with_paths(_params_for(state["params"], path))[0]
-        leaves = {k: v.detach().requires_grad_(True) for k, v in full.items()}
+        leaves = {k: _local(v).detach().requires_grad_(True) for k, v in p_flat.items()}
         constraints = {}
         if plan is not None and plan.seq_shard:
             s_total = local["tokens"].shape[1] + cfg.vision_prefix
@@ -355,7 +351,7 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
             if share is not None:
                 loss = loss * share
             grads = _gradients(loss, leaves, selection_only)
-        del leaves, full
+        del leaves
         loss = loss.detach()
         with torch.no_grad():
             if axes:
@@ -416,8 +412,8 @@ def _axis_sum(x: torch.Tensor, group) -> torch.Tensor:
 def _adamw_sharded(grads: dict[str, torch.Tensor], opt_state: dict, p_flat: dict, lr,
                    cfg: AdamWConfig, plan=None) -> dict:
     """``optim.adamw.adamw_update`` on DTensor state: ``grads`` already
-    summed, each whole (``gathered``) or the param's local shard (``tp``),
-    each rank updating its block of the moments and the master weights;
+    summed, each the param's local shard, each rank updating its block of
+    the moments and the master weights;
     each param is the new master cast to its dtype and gathered to the
     param's placements. Under a plan the global norm counts each element
     once: each leaf's squares summed over the axes it is split over (the
@@ -460,25 +456,6 @@ def _adamw_sharded(grads: dict[str, torch.Tensor], opt_state: dict, p_flat: dict
 # ---------------------------------------------------------------------------
 
 
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's whole tensor on this rank: its local block itself where
-    every mesh dim that shards it has size 1 (nothing to gather), else
-    gathered."""
-    from torch.distributed.tensor import Shard
-
-    sizes = t.device_mesh.shape
-    if all(not isinstance(pl, Shard) or sizes[i] == 1 for i, pl in enumerate(t.placements)):
-        return t.to_local()
-    return t.full_tensor()
-
-
-def _gather_params(params: Any) -> Any:
-    """Every weight whole on this rank (the FSDP-style gather)."""
-    flat, treedef = flatten_with_paths(params)
-    with torch.no_grad():
-        return treedef.unflatten({k: _whole(v) for k, v in flat.items()})
-
-
 def _rows(sharding: NamedSharding, shape, dim: int) -> tuple[int, int]:
     """``(start, stop)`` along ``dim`` of this rank's block under ``sharding``."""
     return sharding.shard_index(shape, mesh_coordinate(sharding.mesh))[dim]
@@ -501,12 +478,6 @@ def _batch_shardings(batch: dict, mesh) -> dict:
                            mesh)
 
 
-def _seq_dims(cfg: ArchConfig) -> dict[str, int | None]:
-    """``{cache leaf path: its seq dim, or None}``."""
-    flat, _ = flatten_with_paths(cache_axes(cfg), is_leaf=lambda x: isinstance(x, tuple))
-    return {path: axes.index("seq") if "seq" in axes else None for path, axes in flat.items()}
-
-
 def _cache_rows(sharding: NamedSharding, shape) -> tuple[int, int, int]:
     """``(start, stop, length)`` of this rank's block of a (L, B, S, ...)
     cache's positions."""
@@ -514,25 +485,31 @@ def _cache_rows(sharding: NamedSharding, shape) -> tuple[int, int, int]:
     return a, b, shape[2]
 
 
-def _params_for(params, path: str):
-    """The params a step computes on: each rank's own shards (``tp``) or
-    every weight whole (``gathered``, the FSDP-style gather)."""
-    if path == "tp":
-        flat, treedef = flatten_with_paths(params)
-        return treedef.unflatten({k: _local(v) for k, v in flat.items()})
-    return _gather_params(params)
+def _params_for(params):
+    """Each rank's own shards of the params, the tree a step computes on."""
+    flat, treedef = flatten_with_paths(params)
+    return treedef.unflatten({k: _local(v) for k, v in flat.items()})
 
 
-def _serve_plan(cfg: ArchConfig, p_sh, mesh, path: str, c_flat: dict, shapes: dict):
-    """The serve steps' plan on the ``tp`` path (``None`` on the other or
-    where nothing is split): the MoE dispatch moves tokens to the experts,
-    and ``cache_seq`` is this rank's block of the first layer group's
-    attention cache (``k``, or MLA's ``ckv``)."""
-    plan = tp.plan_for(cfg, p_sh, mesh, moe_buf_shard=True) if path == "tp" else None
+# the first attention cache leaf of each layout: its block of positions is
+# every self-attention cache's (plan.cache_seq)
+_ATTN_CACHE_LEAVES = ("g0/k", "g0/ckv", "g0/attn/k", "k")
+
+
+def _serve_plan(cfg: ArchConfig, p_sh, mesh, c_flat: dict, shapes: dict):
+    """The serve steps' plan (``None`` where nothing is split): the MoE
+    dispatch moves tokens to the experts; ``cache_seq`` is this rank's
+    block of the first layer group's attention cache (``k``, MLA's
+    ``ckv``, the hybrid's ``attn/k``, the encoder–decoder's ``k``; none
+    for the mLSTM) and ``cross_seq`` of the encoder–decoder's cross cache
+    (``xk``)."""
+    plan = tp.plan_for(cfg, p_sh, mesh, moe_buf_shard=True)
     if plan is None:
         return None
-    leaf = next(k for k in ("g0/k", "g0/ckv") if k in c_flat)
-    return plan.with_(cache_seq=_cache_rows(c_flat[leaf], shapes[leaf]))
+    seqs = {field: _cache_rows(c_flat[leaf], shapes[leaf]) for field, leaf in
+            (("cache_seq", next((k for k in _ATTN_CACHE_LEAVES if k in c_flat), None)),
+             ("cross_seq", "xk")) if leaf in c_flat}
+    return plan.with_(**seqs)
 
 
 def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
@@ -542,11 +519,10 @@ def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
     (``DEFAULT_RULES``), batch leaves DTensors placed by
     :func:`batch_shardings` or tensors every rank holds whole; logits (B,
     V) float32 and the caches (``s_max`` = seq_len + the vision prefix)
-    DTensors placed by the returned shardings (``CACHE_RULES``). On the
-    ``tp`` path the model computes each rank's block of positions of the
-    caches itself; on the ``gathered`` path each rank cuts its block out
-    of its batch block's whole caches. ``prefill_step.path`` names the
-    path."""
+    DTensors placed by the returned shardings (``CACHE_RULES``): the model
+    computes each rank's block of positions of the caches itself, and each
+    rank keeps its batch block of those it computes whole.
+    ``prefill_step.path`` names the path."""
     model = Model(cfg)
     s_max = shape.seq_len + cfg.vision_prefix
     model_axes, params_struct = model_axes_for(cfg)
@@ -558,14 +534,14 @@ def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape):
     logits_shape = (shape.global_batch, cfg.vocab)
     logits_sh = NamedSharding(mesh, data_pspec(mesh, 2, shape.global_batch))
     path = tp.compute_path(cfg)
-    plan = _serve_plan(cfg, p_sh, mesh, path, c_flat, glob)
+    plan = _serve_plan(cfg, p_sh, mesh, c_flat, glob)
 
     @torch.no_grad()
     def prefill_step(params, batch: dict):
         b_sh = _batch_shardings(batch, mesh)
         local = {k: _batch_block(v, b_sh[k]) for k, v in batch.items()}
         rows = _rows(b_sh["tokens"], batch["tokens"].shape, 0)
-        logits, caches = model.prefill(_params_for(params, path), local, s_max, plan=plan)
+        logits, caches = model.prefill(_params_for(params), local, s_max, plan=plan)
         flat, treedef = flatten_with_paths(caches)
         out = {}
         for name, c in flat.items():
@@ -603,9 +579,8 @@ def make_decode_step(cfg: ArchConfig, mesh, shape: InputShape):
     caches the DTensor tree placed by ``cache_shardings`` (``CACHE_RULES``),
     written in place at ``pos`` and returned; tokens (B, 1) a DTensor placed
     by :func:`batch_shardings` or a tensor every rank holds whole; pos an
-    int; logits (B, 1, V) float32 placed over the batch axes. On the ``tp``
-    path each rank attends over its block of positions where it lies; on
-    the ``gathered`` path it gathers its batch block's caches along seq.
+    int; logits (B, 1, V) float32 placed over the batch axes. Each rank
+    attends over its block of positions where it lies.
     ``decode_step.path`` names the path."""
     model = Model(cfg)
     model_axes, params_struct = model_axes_for(cfg)
@@ -614,47 +589,24 @@ def make_decode_step(cfg: ArchConfig, mesh, shape: InputShape):
     c_sh = tree_shardings(cache_axes(cfg), cache_struct, mesh, CACHE_RULES)
     logits_shape = (shape.global_batch, 1, cfg.vocab)
     logits_sh = NamedSharding(mesh, data_pspec(mesh, 3, shape.global_batch))
-    sizes = axis_sizes(mesh)
-    names = axis_names(mesh)
-    seq_dims = _seq_dims(cfg)
     path = tp.compute_path(cfg)
-    plan = _serve_plan(cfg, p_sh, mesh, path, flatten_with_paths(c_sh)[0],
+    plan = _serve_plan(cfg, p_sh, mesh, flatten_with_paths(c_sh)[0],
                        {k: v.shape for k, v in flatten_with_paths(cache_struct)[0].items()})
 
     @torch.no_grad()
     def decode_step(params, caches, tokens, pos: int):
-        from torch.distributed.tensor import Replicate
-
         pos = int(pos)
         tok_sh = _batch_shardings({"tokens": tokens}, mesh)["tokens"]
         tok = _batch_block(tokens, tok_sh)
         rows = _rows(tok_sh, tokens.shape, 0)
         flat, treedef = flatten_with_paths(caches)
-        work, gathered = {}, {}
-        for name, c in flat.items():
-            sh = sharding_of(c)
-            if _rows(sh, c.shape, 1) != rows:
+        work = {}
+        for name, c in flat.items():  # the local blocks, written in place
+            if _rows(sharding_of(c), c.shape, 1) != rows:
                 raise ValueError(f"cache {name}'s batch block is not the tokens' {rows}")
-            d = seq_dims[name]
-            seq_axes = entry_axes(sh.spec[d]) if d is not None and d < len(sh.spec) else ()
-            if path == "gathered" and any(sizes[a] > 1 for a in seq_axes):
-                # gather this batch block along seq
-                pl = list(c.placements)
-                for a in seq_axes:
-                    pl[names.index(a)] = Replicate()
-                work[name] = c.redistribute(c.device_mesh, pl).to_local()
-                gathered[name] = (d, _rows(sh, c.shape, d))
-            else:  # the local block, written in place
-                work[name] = c.to_local()
-        logits, _ = model.decode(_params_for(params, path), treedef.unflatten(work), tok, pos,
+            work[name] = c.to_local()
+        logits, _ = model.decode(_params_for(params), treedef.unflatten(work), tok, pos,
                                  plan=plan)
-        for name, (d, (a, b)) in gathered.items():
-            if name.rsplit("/", 1)[-1] in ("xk", "xv"):
-                continue  # the cross caches hold the encoder's frames: decode only reads them
-            slot = pos % work[name].shape[d]  # a window's rolling slot, else pos
-            if a <= slot < b:  # this rank's shard owns the new position
-                flat[name].to_local().narrow(d, slot - a, 1).copy_(
-                    work[name].narrow(d, slot, 1))
         del work
         return from_local(logits, logits_shape, logits_sh), caches
 

@@ -5,7 +5,8 @@ The reference jits its steps with the params placed by ``DEFAULT_RULES``
 layout; ``experts`` over ``("data", "model")`` where they divide it, else
 over ``model``), and GSPMD then computes every product on its shard and
 inserts the collectives between them. No JAX module spells that program
-out; this module is its counterpart for the port's plain local tensors:
+out; this module is its counterpart for the port's plain local tensors,
+for every family (:func:`compute_path` is ``"tp"`` for each):
 
 * :class:`Plan` — the model-axis process group, this rank's index along it,
   and which logical dims of the weights are split, **read from the
@@ -14,11 +15,14 @@ out; this module is its counterpart for the port's plain local tensors:
   on every model rank (the reference's ``spec_for`` fallback) while its
   MLP and vocab are split; 8 kv heads on 16 stay whole, and each rank
   reads the view of them its q heads need. MLA's heads are read from
-  ``wq_b``, ``wkv_b`` and ``wo``. The MoE experts' axes are a field of
-  their own (:class:`Experts`): not a model-axis split but a block of
-  experts a rank over the flattened ``("data", "model")`` (or ``model``)
-  axes, with the data axis's group for moving tokens or weights within a
-  model column (``models/moe.py``).
+  ``wq_b``, ``wkv_b`` and ``wo``; the hybrid's SSD heads from ``ssd/wx``,
+  which must split as its attention's q heads do; the mLSTM's from
+  ``mlstm/wq``; the encoder–decoder's from its encoder's, decoder's and
+  cross attention's ``wq``/``wk`` and its MLPs' ``w_in``. The MoE experts'
+  axes are a field of their own (:class:`Experts`): not a model-axis split
+  but a block of experts a rank over the flattened ``("data", "model")``
+  (or ``model``) axes, with the data axis's group for moving tokens or
+  weights within a model column (``models/moe.py``).
 * The collectives, each an autograd function (Megatron's f/g pair and the
   sequence-parallel pair), built on ``torch.distributed``'s functional
   collectives so a trace (``launch/hlo_stats.py``'s ``StepCounter``) sees
@@ -29,6 +33,7 @@ out; this module is its counterpart for the port's plain local tensors:
     =====================  =========================  ========================
     ``Plan.copy_to``       identity                   all-reduce
     ``Plan.reduce_from``   all-reduce                 identity
+    ``Plan.psum``          all-reduce                 all-reduce
     ``Plan.gather_seq``    all-gather along S         reduce-scatter along S
     ``Plan.scatter_seq``   reduce-scatter along S     all-gather along S
     ``Plan.split_seq``     this rank's S block        all-gather along S
@@ -41,7 +46,10 @@ out; this module is its counterpart for the port's plain local tensors:
   part of the work (a norm scale on its rows under ``seq_shard``, ``q_norm``
   on its heads, the router on its column's experts): the rank's gradient of
   it is a partial sum, and the all-reduce makes it whole on every rank.
-  On an axis of size 1 each is the identity.
+  ``psum`` is a sum that every rank's work reads (the mLSTM's ``ln_out``
+  over its heads' squares), so each rank's gradient of it is summed too.
+  ``Plan.enter`` and ``Plan.leave`` bracket a mixer whose heads may be
+  split. On an axis of size 1 each is the identity.
 * :class:`SeqParallel` — the ``resid`` constraint of ``seq_shard``
   (``distributed/ctx.py``): the residual stream between layers is each
   rank's block of the sequence.
@@ -58,28 +66,10 @@ from typing import Any
 
 import torch
 
-# the families computed here: GQA or MLA, a dense or MoE FFN; every other
-# family gathers its weights (ROADMAP queue 1, the mesh)
-TP_FAMILIES = ("dense", "vlm", "moe")
-
-
-def later_items(cfg) -> str:
-    """The ROADMAP items (queue 1, item 4) that bring ``cfg``'s family to
-    tensor-parallel compute; until then its steps gather the weights."""
-    items = []
-    if cfg.ssm or cfg.mlstm:
-        items.append("4f (the hybrid and mLSTM mixers)")
-    if cfg.encdec:
-        items.append("4g (the encoder-decoder)")
-    return "ROADMAP queue 1, item " + " and ".join(items)
-
-
 def compute_path(cfg) -> str:
-    """``"tp"`` for a family whose sharded steps compute on their shards
-    (:data:`TP_FAMILIES`: GQA or MLA, a dense or MoE FFN), ``"gathered"``
-    for one whose steps still gather every weight (:func:`later_items`)."""
-    plain = not (cfg.ssm or cfg.mlstm or cfg.encdec)
-    return "tp" if cfg.family in TP_FAMILIES and plain else "gathered"
+    """How ``cfg``'s sharded steps compute: ``"tp"``, on their own shards,
+    for every family (the steps and the dry run record it)."""
+    return "tp"
 
 
 @dataclass(frozen=True)
@@ -131,7 +121,8 @@ class Plan:
     gathered within a model column). ``seq_shard``: the residual stream is
     split along S between layers. ``cache_seq``: ``(start, stop, length)``
     of this rank's block of the decode cache's positions (the serve steps
-    set it)."""
+    set it; a rolling window's ``length`` is its slots); ``cross_seq`` the
+    same of the cross-attention cache's (the encoder's frames)."""
 
     group: Any
     size: int
@@ -144,6 +135,7 @@ class Plan:
     cache_seq: tuple[int, int, int] | None = None
     experts: Experts = Experts()
     moe_buf_shard: bool = False
+    cross_seq: tuple[int, int, int] | None = None
 
     def with_(self, **kw) -> "Plan":
         return dataclasses.replace(self, **kw)
@@ -216,6 +208,33 @@ class Plan:
         a split region under ``seq_shard``); the gradient all-gathered."""
         return _ScatterSeq.apply(x, self, dim) if self.size > 1 else x
 
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model axis, and its gradient too: a sum
+        that every rank's work reads (each rank's gradient of it is a part
+        of the whole)."""
+        return _PSum.apply(x, self) if self.size > 1 else x
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A layer's (B, S, E) input entering a mixer on this rank's heads:
+        the whole sequence under ``seq_shard`` (every rank then computes on
+        all positions), else marked with ``copy_to`` where the heads are
+        split (each rank's gradient of it a partial sum)."""
+        if self.seq_shard:
+            return self.gather_seq(x)
+        return self.copy_to(x) if self.heads else x
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """A mixer's (B, S, E) output from :meth:`enter`'s input: the
+        ranks' partial sums over their heads added (reduce-scattered along
+        S under ``seq_shard``); where the heads are whole, every rank
+        computed it all, and keeps its own positions under ``seq_shard``."""
+        if self.heads:
+            return self.scatter_seq(y) if self.seq_shard else self.reduce_from(y)
+        if self.seq_shard:
+            a, b = self.block(y.shape[1])
+            return y[:, a:b]
+        return y
+
     def split_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """This rank's block along ``dim`` of a tensor every model rank
         holds whole; the gradient all-gathered (so each rank's
@@ -234,30 +253,46 @@ def _splits_on_model(sharding, dim: int) -> bool:
     return "model" in axes
 
 
-def _leaf_splits(flat: dict, group: str) -> tuple[tuple, bool | None, tuple | None]:
-    """``((heads, kv_heads), mlp or None, experts' axes or None)`` of one
-    layer group's attention and FFN leaves (``None``: the group has no such
-    leaf)."""
-    a, f = f"blocks/{group}/attn/", f"blocks/{group}/ffn/"
-    if a + "wq_b" in flat:  # MLA: q and kv expanded per head; wo row-parallel
-        heads = {_splits_on_model(flat[a + "wq_b"], 2), _splits_on_model(flat[a + "wkv_b"], 2),
-                 _splits_on_model(flat[a + "wo"], 1)}
-        if len(heads) != 1:
-            raise ValueError(f"MLA's wq_b, wkv_b and wo split their heads differently ({group})")
-        (h,) = heads
-        attn = (h, h)
-    else:
-        attn = (_splits_on_model(flat[a + "wq"], 2), _splits_on_model(flat[a + "wk"], 2))
-    experts = mlp = None
-    if f + "w_router" in flat:  # a MoE group: the experts dim, the shared expert's units
-        from repro_torch.distributed.sharding import entry_axes
+def _leaf_splits(flat: dict) -> tuple[set, set, set]:
+    """``({(heads, kv_heads)}, {mlp}, {experts' axes})`` over every layer
+    stack's leaves: the mixers' heads (GQA's ``wq``/``wk``, wherever they
+    lie: ``blocks/<group>/attn``, the encoder's ``attn``, the decoder's
+    ``self_attn`` and ``cross_attn``; MLA's ``wq_b``, ``wkv_b`` and ``wo``;
+    the mLSTM's ``wq``, its q, k and v alike), the FFNs' and MLPs' hidden
+    units (``wg``, the shared expert's ``ws_g``, the GELU MLP's ``w_in``)
+    and the MoE experts' axes. The hybrid's SSD heads (``ssd/wx``) must
+    split as its attention's q heads do: one plan runs both on the rank's
+    heads."""
+    from repro_torch.distributed.sharding import entry_axes
 
-        spec = flat[f + "wg"].spec
-        experts = entry_axes(spec[1]) if len(spec) > 1 else ()
-        if f + "ws_g" in flat:
-            mlp = _splits_on_model(flat[f + "ws_g"], 2)
-    elif f + "wg" in flat:
-        mlp = _splits_on_model(flat[f + "wg"], 2)
+    attn, mlp, experts = set(), set(), set()
+    for path in flat:
+        pre, _, name = path.rpartition("/")
+        pre += "/"
+        if name == "wq_b":  # MLA: q and kv expanded per head; wo row-parallel
+            heads = {_splits_on_model(flat[pre + "wq_b"], 2),
+                     _splits_on_model(flat[pre + "wkv_b"], 2), _splits_on_model(flat[pre + "wo"], 1)}
+            if len(heads) != 1:
+                raise ValueError(f"MLA's wq_b, wkv_b and wo split their heads differently ({pre})")
+            (h,) = heads
+            attn.add((h, h))
+        elif name == "wq" and pre.endswith("/mlstm/"):
+            h = _splits_on_model(flat[path], 2)
+            attn.add((h, h))
+        elif name == "wq":
+            attn.add((_splits_on_model(flat[path], 2), _splits_on_model(flat[pre + "wk"], 2)))
+        elif name == "wx":  # the hybrid's SSD beside its attention
+            wq = pre.removesuffix("ssd/") + "attn/wq"
+            if _splits_on_model(flat[path], 2) != _splits_on_model(flat[wq], 2):
+                raise ValueError(f"the SSD's heads ({path}) and the attention's ({wq}) split "
+                                 "differently: the hybrid runs both on one plan's heads")
+        elif name == "w_router":  # a MoE group: the experts dim, the shared expert's units
+            spec = flat[pre + "wg"].spec
+            experts.add(entry_axes(spec[1]) if len(spec) > 1 else ())
+            if pre + "ws_g" in flat:
+                mlp.add(_splits_on_model(flat[pre + "ws_g"], 2))
+        elif (name == "wg" and pre + "w_router" not in flat) or name == "w_in":
+            mlp.add(_splits_on_model(flat[path], 2))
     return attn, mlp, experts
 
 
@@ -267,25 +302,14 @@ def plan_for(cfg, params_shardings: Any, mesh, *, seq_shard: bool = False,
     (a :class:`~repro_torch.distributed.sharding.NamedSharding` tree) on
     ``mesh``; ``None`` where nothing is split (no model axis or one of
     size 1, and no experts split over data): the model's plain code runs.
-    Raises for a family outside :data:`TP_FAMILIES` and for layer groups
-    split differently."""
+    Raises for layer stacks or mixers split differently."""
     from repro_torch.distributed.sharding import axis_sizes
     from repro_torch.utils import flatten_with_paths
 
-    if compute_path(cfg) != "tp":
-        raise ValueError(f"{cfg.name} ({cfg.family}) has no tensor-parallel compute")
     sizes = axis_sizes(mesh)
     flat, _ = flatten_with_paths(params_shardings)
     vocab = {_splits_on_model(flat[p], 0) for p in ("embed", "unembed") if p in flat}
-    groups = sorted({p.split("/")[1] for p in flat if p.startswith("blocks/")})
-    attn, mlp, experts = set(), set(), set()
-    for g in groups:
-        a, m, x = _leaf_splits(flat, g)
-        attn.add(a)
-        if m is not None:
-            mlp.add(m)
-        if x is not None:
-            experts.add(x)
+    attn, mlp, experts = _leaf_splits(flat)
     if len(vocab) != 1 or len(attn) != 1 or len(mlp) > 1 or len(experts) > 1:
         raise ValueError(f"embedding tables or layer groups split differently: {vocab} "
                          f"{attn} {mlp} {experts}")
@@ -300,8 +324,11 @@ def plan_for(cfg, params_shardings: Any, mesh, *, seq_shard: bool = False,
     placed = Experts(axes=axes, rows=rows, group=mesh.get_group("data") if rows > 1 else None)
     plan = Plan(group=mesh.get_group("model"), size=sizes.get("model", 1),
                 rank=mesh.get_local_rank("model"), vocab=vocab.pop(), heads=heads,
-                kv_heads=kv_heads, mlp=bool(mlp and mlp.pop()), seq_shard=seq_shard,
-                experts=placed, moe_buf_shard=moe_buf_shard)
+                kv_heads=kv_heads, mlp=bool(mlp and mlp.pop()),
+                # the reference's encoder-decoder constrains no residual stream:
+                # seq_shard changes nothing there
+                seq_shard=seq_shard and not cfg.encdec, experts=placed,
+                moe_buf_shard=moe_buf_shard)
     plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)  # raises for a layout K3 cannot take
     return plan
 
@@ -418,6 +445,17 @@ class _ScatterSeq(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_gather(g, ctx.plan, ctx.dim), None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _all_reduce(x, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.plan), None
 
 
 class _SplitSeq(torch.autograd.Function):

@@ -19,20 +19,19 @@ with the reference's keys (``arch``, ``shape``, ``mesh``, ``chips``,
 accessed``, ``hlo``, ``collectives``, ``memory``), ``trace_s`` in place
 of ``lower_s``/``compile_s``, ``path``: how the steps compute
 (``distributed/steps.py``), ``moe_buf_shard`` and ``experts`` (the mesh
-axes the MoE experts lie over). Every number is per device. On the
-``tp`` path (the dense, vlm and MoE families) a rank computes on its
-shards, as the reference's GSPMD program does (its experts on their
-(data, model) block, their tokens moved by all-to-alls); on the
-``gathered`` path (the hybrid and mLSTM mixers, the encoder–decoder,
-until their ROADMAP items) it gathers every weight and runs the model on
-its batch block.
+axes the MoE experts lie over). Every number is per device. A rank
+computes on its shards (the ``tp`` path, every family's), as the
+reference's GSPMD program does: its heads, hidden units and vocab rows
+where they split the model axis, the whole where they do not (hymba's 25
+heads and xlstm's 4 on 16), its experts on their (data, model) block,
+their tokens moved by all-to-alls.
 
 ``--seq-shard`` (the sequence-parallel residual stream of the train
 step; ``__seqshard`` in a train cell's file name) and ``--moe-buf-shard``
 (the train step's expert-placed dispatch buffer; ``__moebuf``) are taken
-for the ``tp`` families and refused for the others (a dense or vlm model
-has no MoE buffer, so the second changes nothing there, as in the
-reference).
+for every arch; each changes nothing where the reference's does not (the
+second for a model without MoE layers, the first for the
+encoder–decoder, whose reference constrains no residual stream).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --device cpu --arch qwen3-1.7b \\
         --shape prefill_32k [--multi-pod | --both-meshes] [--out DIR]
@@ -54,22 +53,6 @@ from pathlib import Path
 
 from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.configs.base import ArchConfig, InputShape
-
-REFUSED = ("{flag} needs tensor-parallel compute; {arch}'s steps gather every weight and "
-           "compute on local tensors until {items}")
-
-
-def check_flags(archs: list[str], seq_shard: bool, moe_buf_shard: bool) -> None:
-    """Raise ``NotImplementedError`` for ``--seq-shard`` or
-    ``--moe-buf-shard`` on an arch whose steps gather their weights."""
-    from repro_torch.distributed.tp import compute_path, later_items
-
-    for arch in archs:
-        cfg = get_config(arch)
-        for flag, on in (("--seq-shard", seq_shard), ("--moe-buf-shard", moe_buf_shard)):
-            if on and compute_path(cfg) != "tp":
-                raise NotImplementedError(REFUSED.format(flag=flag, arch=arch,
-                                                         items=later_items(cfg)))
 
 
 def should_skip(cfg: ArchConfig, shape: InputShape) -> str | None:
@@ -296,7 +279,6 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
     archs = [args.arch] if args.arch else list_archs()
-    check_flags(archs, args.seq_shard, args.moe_buf_shard)
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     cfg_overrides = {"remat": args.remat} if args.remat else None

@@ -30,7 +30,14 @@ a bf16 product, the scores float32, the probabilities rounded to the
 cache's dtype before the latent product. The projections and the
 absorbed decode run in the profiler range ``mla`` (K3 outside it).
 
-Under a tensor-parallel plan (``distributed/tp.py``) MLA runs on the
+Under a tensor-parallel plan (``distributed/tp.py``) GQA runs on the
+rank's q heads (:func:`_tp_attend`: self or cross attention, windowed or
+not; the hybrid mixer adds its SSD's partial sums to the attention's
+before one reduction, ``models/transformer.py``), its prefill keeps the
+rank's block of positions of the cache with every kv head (a rolling
+window's block of its slots; the cross attention's block of the
+encoder's frames) and decode attends over the blocks where they lie,
+combined over the model axis (:func:`attend_block`). MLA runs on the
 rank's heads: ``wq_b`` and ``wkv_b`` column-parallel on ``heads``, ``wo``
 row-parallel, the low-rank ``wq_a``/``wkv_a`` and their norms whole
 (every model rank computes the latent rows; their gradients are summed
@@ -143,10 +150,13 @@ def gqa_train(p, x, cfg: ArchConfig, *, causal: bool = True, use_rope: bool = Tr
     (and the encoder's) self-attention, or cross attention with k/v from
     ``kv_source`` (B, T, E). Under autograd K3 also writes its row
     statistics and its gradient is the plain backward (``FlashAttention``).
-    Under a tensor-parallel ``plan`` (self-attention only) see
-    :func:`_tp_attention`."""
+    Under a tensor-parallel ``plan`` on the rank's q heads
+    (:func:`_tp_attend`)."""
     if plan is not None:
-        return _tp_attention(p, x, cfg, plan, causal=causal, use_rope=use_rope)[0]
+        w = _tp_weights(p, cfg, plan)
+        y, _, _ = _tp_attend(w, plan.enter(x), cfg, plan, causal=causal, use_rope=use_rope,
+                             kv_source=kv_source)
+        return _tp_finish(y, w, cfg, plan)
     q, k, v = _rope_qkv(p, x, cfg, use_rope, kv_source)
     return _attend(p, q, k, v, cfg, causal)
 
@@ -156,32 +166,49 @@ def gqa_prefill(p, x, cfg: ArchConfig, s_max: int, *, use_rope: bool = True, pla
     s_max) from one projection: the reference's ``gqa_train`` and
     ``gqa_prefill_cache``, which project q/k/v twice to equal results.
     Under a ``plan`` the cache is this rank's block of positions
-    (``plan.cache_seq``) with every kv head (:func:`_cache_heads`)."""
+    (``plan.cache_seq``) with every kv head (:func:`tp_cache`)."""
     if plan is None:
         q, k, v = _rope_qkv(p, x, cfg, use_rope)
         return _attend(p, q, k, v, cfg, True), _cache_from(k, v, x.shape[1], s_max, cfg)
-    y, k, v = _tp_attention(p, x, cfg, plan, causal=True, use_rope=use_rope)
-    cache = _cache_from(k, v, x.shape[1], s_max, cfg)
+    w = _tp_weights(p, cfg, plan)
+    y, k, v = _tp_attend(w, plan.enter(x), cfg, plan, causal=True, use_rope=use_rope)
+    return _tp_finish(y, w, cfg, plan), tp_cache(k, v, s_max, cfg, plan)
+
+
+def tp_cache(k: torch.Tensor, v: torch.Tensor, s_max: int, cfg: ArchConfig, plan) -> dict:
+    """The decode cache of a prefill on the rank's heads, from the k/v
+    projections (B, S, kv heads, Dh) of the kv heads it computes
+    (:func:`_tp_attend`): this rank's block of the cache's positions
+    (``plan.cache_seq``; of a rolling window's slots) with every kv head."""
+    cache = _cache_from(k, v, k.shape[1], s_max, cfg)
+    return {name: cache_block(c, cfg, plan, plan.cache_seq) for name, c in cache.items()}
+
+
+def cache_block(c: torch.Tensor, cfg: ArchConfig, plan, seq) -> torch.Tensor:
+    """Every kv head of this rank's block ``seq`` (``(start, stop,
+    length)``; all of them where ``None``) of a cache's positions, from
+    the model ranks' c (B, S, kv heads, Dh) of the kv heads each computes:
+    exchanged over the model axis where the heads are split
+    (:func:`_cache_heads`), else cut out of the whole."""
     if plan.heads or plan.kv_heads:
-        cache = {name: _cache_heads(c, cfg, plan) for name, c in cache.items()}
-    elif plan.cache_seq is not None:
-        a, b, _ = plan.cache_seq
-        cache = {name: c[:, a:b].clone() for name, c in cache.items()}
-    return y, cache
+        return _cache_heads(c, cfg, plan, seq)
+    if seq is None:
+        return c
+    return c[:, seq[0]:seq[1]].clone()
 
 
-def _cache_heads(c: torch.Tensor, cfg: ArchConfig, plan) -> torch.Tensor:
-    """Every kv head of this rank's block of cache positions
-    (``plan.cache_seq``; all of them without one) from the model ranks'
-    caches c (B, S, H_kv local, Dh) of their own kv heads: an all-to-all
-    along the positions where the cache splits them (each rank receives
-    only its block), else an all-gather. Where only q heads are split each
-    kv head is taken from the first rank whose q heads read it."""
-    a, b, n = plan.cache_seq or (0, c.shape[1], c.shape[1])
+def _cache_heads(c: torch.Tensor, cfg: ArchConfig, plan, seq) -> torch.Tensor:
+    """Every kv head of this rank's block ``seq`` of cache positions (all
+    of them where ``None``) from the model ranks' caches c (B, S, H_kv
+    local, Dh) of their own kv heads: an all-to-all along the positions
+    where the cache splits them (each rank receives only its block), else
+    an all-gather. Where only q heads are split each kv head is taken from
+    the first rank whose q heads read it."""
+    a, b, n = seq or (0, c.shape[1], c.shape[1])
     if (a, b) == (0, n):
         got = plan.all_gather(c, 2)
     else:
-        assert (a, b) == plan.block(n), (plan.cache_seq, plan.size)
+        assert (a, b) == plan.block(n), (seq, plan.size)
         parts = plan.all_to_all(c.transpose(0, 1))  # rank r's heads at my positions, by r
         got = parts.unflatten(0, (plan.size, -1)).permute(2, 1, 0, 3, 4).flatten(2, 3)
     return got if plan.kv_heads else got[:, :, _kv_sources(cfg, plan)]
@@ -205,54 +232,62 @@ def _tp_split(name: str, plan) -> bool:
             or (plan.kv_heads and name in ("wk", "wv", "bk", "bv")))
 
 
-def _tp_attention(p, x, cfg: ArchConfig, plan, *, causal: bool, use_rope: bool):
-    """Self-attention on this rank's q heads: ``(y, k, v)``, y (B, S, E)
-    (this rank's positions under ``seq_shard``) and the k/v projections of
-    the kv heads the rank computes (its block where ``kv_heads`` is split;
-    where only q heads are split, the ones they read; all of them where
-    the heads are whole).
-
-    ``x`` enters the split region (all-gathered along S under
-    ``seq_shard``); q/k/v are projected from the local weights; K3 runs on
-    the rank's q heads ``[h0, h1)`` and the kv heads they read (where only
-    q heads are split, ``[h0 // G, (h1 - 1) // G + 1)``, projected from
-    those heads of the whole ``wk``/``wv``, as the reference's GSPMD
-    program does); ``wo`` is row-parallel and its partial sums are
-    added (reduce-scattered along S under ``seq_shard``), ``bo`` once
-    after. Where the heads are whole, every rank computes them all (on the
-    gathered sequence under ``seq_shard``, then keeps its own positions).
-    A whole weight used on the rank's part of the work (``q_norm`` on its
-    heads, a whole kv projection of which it uses some heads, any weight
-    under ``seq_shard``) has its gradient summed over the model axis."""
+def _tp_weights(p, cfg: ArchConfig, plan) -> dict:
+    """The attention leaves a rank computes with. A whole leaf it uses on
+    its part of the work (``q_norm`` on its heads, a whole kv projection of
+    which it uses some heads, any leaf under ``seq_shard``) goes through
+    ``copy_to``, so its gradient is summed over the model axis; ``bo`` is
+    added once, after the partial sums (:func:`_tp_finish`). Where only q
+    heads are split, ``wk``/``wv`` (``bk``/``bv``) are the view of the kv
+    heads ``[h0 // G, (h1 - 1) // G + 1)`` its q heads ``[h0, h1)`` read,
+    as the reference's GSPMD program projects them."""
     partial = plan.heads or plan.seq_shard
     w = {name: plan.copy_to(t) if partial and name != "bo" and not _tp_split(name, plan) else t
          for name, t in p.items()}
-    if plan.seq_shard:
-        x = plan.gather_seq(x)
-    elif plan.heads:
-        x = plan.copy_to(x)
-    h0, h1, k0, k1 = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
-    if plan.heads and not plan.kv_heads:  # the kv heads these q heads read
+    if plan.heads and not plan.kv_heads:
+        _, _, k0, k1 = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
         w = {name: t[:, k0:k1] if name in ("wk", "wv") else t[k0:k1] if name in ("bk", "bv")
              else t for name, t in w.items()}
-    q, k, v = _rope_qkv(w, x, cfg, use_rope)
+    return w
+
+
+def _tp_attend(w, x, cfg: ArchConfig, plan, *, causal: bool, use_rope: bool,
+               kv_source: torch.Tensor | None = None):
+    """Attention on this rank's q heads: ``(y, k, v)``, y (B, S, E) the
+    rank's heads through ``wo`` (the model ranks' partial sums where the
+    heads are split; :func:`_tp_finish` adds them and ``bo``) and the k/v
+    projections of the kv heads the rank computes (its block where
+    ``kv_heads`` is split; where only q heads are split, the ones they
+    read; all of them where the heads are whole). ``w`` is
+    :func:`_tp_weights`' and ``x`` the input as ``plan.enter`` gives it
+    (the whole sequence under ``seq_shard``). Cross attention takes k/v
+    from ``kv_source`` (B, T, E), which every model rank holds whole (the
+    encoder's output), through ``copy_to`` where the rank uses it on its
+    part of the work. K3 runs on the rank's q heads and the kv heads they
+    read, windowed where the config is."""
+    src = kv_source
+    if src is not None and (plan.heads or plan.seq_shard):
+        src = plan.copy_to(src)
+    q, k, v = _rope_qkv(w, x, cfg, use_rope, src)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=causal, window=cfg.window)
-    return _tp_out(w, o.transpose(1, 2), cfg, plan), k, v
+    return torch.matmul(o.transpose(1, 2).flatten(-2), w["wo"].flatten(0, 1)), k, v
+
+
+def _tp_finish(y: torch.Tensor, w, cfg: ArchConfig, plan) -> torch.Tensor:
+    """A mixer's output on this rank's heads (``plan.leave``: the partial
+    sums added where the heads are split, the rank's positions kept under
+    ``seq_shard``), ``bo`` added once after."""
+    y = plan.leave(y)
+    if not cfg.attn_bias:
+        return y
+    return y + (plan.copy_to(w["bo"]) if plan.seq_shard else w["bo"])
 
 
 def _tp_out(w, o: torch.Tensor, cfg: ArchConfig, plan) -> torch.Tensor:
     """``_out`` on this rank's heads: row-parallel where the heads are split
     (the ranks' partial sums added), ``bo`` added once after."""
-    y = torch.matmul(o.flatten(-2), w["wo"].flatten(0, 1))
-    if plan.heads:
-        y = plan.scatter_seq(y) if plan.seq_shard else plan.reduce_from(y)
-    elif plan.seq_shard:  # every rank computed every position: keep its own
-        a, b = plan.block(y.shape[1])
-        y = y[:, a:b]
-    if not cfg.attn_bias:
-        return y
-    return y + (plan.copy_to(w["bo"]) if plan.seq_shard else w["bo"])
+    return _tp_finish(torch.matmul(o.flatten(-2), w["wo"].flatten(0, 1)), w, cfg, plan)
 
 
 def gqa_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, *, use_rope: bool = True,
@@ -264,17 +299,16 @@ def gqa_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, *, use_rope: bool =
     :func:`_tp_decode`.
     """
     if plan is not None:
-        return _tp_decode(p, x, cache, pos, cfg, plan, use_rope=use_rope)
+        y = _tp_decode(p, x, cache, pos, cfg, plan, use_rope=use_rope)
+        return _tp_finish(y, p, cfg, plan), cache
     q, k, v = _decode_qkv(p, x, pos, cfg, use_rope)
     kc, vc = cache["k"], cache["v"]
     s_max = kc.shape[1]
     slot = _slot(pos, s_max, cfg)
     kc[:, slot:slot + 1] = k
     vc[:, slot:slot + 1] = v
-    sc = _decode_scores(q, kc, pos, 0, s_max, cfg)
-    probs = torch.softmax(sc, dim=-1).to(vc.dtype)
-    out = torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])  # (B,KV,G,1,Dh)
-    return _out(p, _decode_heads(out, cfg), cfg), cache
+    out = attend_block(_decode_scores(q, kc, pos, 0, s_max, cfg), vc, None, True)
+    return _out(p, decode_heads(out, cfg), cfg), cache
 
 
 def _decode_qkv(p, x, pos: int, cfg: ArchConfig, use_rope: bool):
@@ -293,22 +327,46 @@ def _slot(pos: int, s_max: int, cfg: ArchConfig) -> int:
     return pos % s_max if cfg.window and cfg.window > 0 else pos
 
 
-def _decode_scores(q, kc, pos: int, start: int, s_max: int, cfg: ArchConfig):
-    """(B, KV, G, 1, S) float32 scores of q (B, 1, H, Dh) against the cache
-    positions ``[start, start + S)`` of ``kc`` (B, S, KV, Dh), a cache of
-    ``s_max`` in all; the positions not yet written masked to NEG."""
+def decode_scores(q, kc, cfg: ArchConfig):
+    """(B, KV, G, 1, S) float32 scores of q (B, 1, H, Dh) against every
+    position of ``kc`` (B, S, KV, Dh)."""
     b, s1, _, dh = q.shape
     qg = q.reshape(b, s1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, dh)
     # (B,KV,G,1,Dh) x (B,KV,Dh,S) -> (B,KV,G,1,S)
-    sc = torch.matmul(qg.permute(0, 2, 3, 1, 4).float(),
-                      kc.permute(0, 2, 3, 1).float()[:, :, None]) / math.sqrt(dh)
+    return torch.matmul(qg.permute(0, 2, 3, 1, 4).float(),
+                        kc.permute(0, 2, 3, 1).float()[:, :, None]) / math.sqrt(dh)
+
+
+def _decode_scores(q, kc, pos: int, start: int, s_max: int, cfg: ArchConfig):
+    """:func:`decode_scores` against the cache positions ``[start, start +
+    S)`` of ``kc``, a cache of ``s_max`` in all; the positions not yet
+    written masked to NEG. A rolling window's slots are all valid once
+    ``pos`` reaches W, in any block of them."""
+    sc = decode_scores(q, kc, cfg)
     idx = torch.arange(start, start + kc.shape[1], device=q.device)
     windowed = bool(cfg.window) and cfg.window > 0
     valid = (idx <= pos) if not windowed else ((idx <= pos) | (pos >= s_max))
     return torch.where(valid, sc, NEG)
 
 
-def _decode_heads(out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def attend_block(sc: torch.Tensor, vc: torch.Tensor, plan, whole: bool) -> torch.Tensor:
+    """The (B, KV, G, 1, Dh) output of scores ``sc`` (B, KV, G, 1, S) over
+    the cache positions of ``vc`` (B, S, KV, Dh): the probabilities rounded
+    to ``vc``'s dtype. Where the rank holds a block of the positions (not
+    ``whole``), flash-decoding's combine: the row maximum and the sum of
+    exponentials all-reduced over the model axis, so the probabilities are
+    the rank's block of the whole softmax, and the partial outputs added."""
+    if whole:
+        probs = torch.softmax(sc, dim=-1).to(vc.dtype)
+        return torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])  # (B,KV,G,1,Dh)
+    m = plan.all_reduce(sc.amax(dim=-1, keepdim=True), "max")
+    ex = torch.exp(sc - m)
+    probs = (ex / plan.all_reduce(ex.sum(dim=-1, keepdim=True))).to(vc.dtype)
+    out = torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])  # this block's share
+    return plan.all_reduce(out.float()).to(vc.dtype)
+
+
+def decode_heads(out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """(B, KV, G, 1, Dh) attention outputs as (B, 1, H, Dh)."""
     b, _, _, s1, dh = out.shape
     return out.permute(0, 3, 1, 2, 4).reshape(b, s1, cfg.n_heads, dh)
@@ -317,13 +375,13 @@ def _decode_heads(out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def _tp_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, plan, *, use_rope: bool):
     """One-token decode over this rank's block of the cache's positions
     (``plan.cache_seq``: every kv head, the positions ``[a, b)`` of
-    ``s_max``), where it lies: the new q heads (and k/v heads where they
-    are split) all-gathered over the model axis (a few KB); the new k/v
-    written only by the rank whose block holds the slot; each rank's
-    scores for every head over its positions, the row maximum and the sum
-    of exponentials all-reduced (flash-decoding's combine), so each rank's
-    probabilities are its block of the whole softmax; the partial
-    outputs added; then ``wo`` row-parallel on the rank's heads."""
+    ``s_max``, a rolling window's slots where the config has one), where
+    it lies: the new q heads (and k/v heads where they are split)
+    all-gathered over the model axis (a few KB); the new k/v written only
+    by the rank whose block holds the slot; every head scored over the
+    rank's positions and combined over the axis (:func:`attend_block`);
+    then the rank's heads through ``wo``: the ranks' partial sums, which
+    :func:`_tp_finish` adds."""
     q, k, v = _decode_qkv(p, x, pos, cfg, use_rope)
     if plan.kv_heads:
         k, v = plan.all_gather(k, 2), plan.all_gather(v, 2)
@@ -335,19 +393,9 @@ def _tp_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, plan, *, use_rope: 
     if a <= slot < e:  # this rank's block holds the new position
         kc[:, slot - a:slot - a + 1] = k
         vc[:, slot - a:slot - a + 1] = v
-    sc = _decode_scores(q, kc, pos, a, s_max, cfg)
-    if e - a == s_max:  # the whole cache on every rank: nothing to combine
-        probs = torch.softmax(sc, dim=-1).to(vc.dtype)
-        out = torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])
-    else:
-        m = plan.all_reduce(sc.amax(dim=-1, keepdim=True), "max")
-        ex = torch.exp(sc - m)
-        probs = (ex / plan.all_reduce(ex.sum(dim=-1, keepdim=True))).to(vc.dtype)
-        out = torch.matmul(probs, vc.permute(0, 2, 1, 3)[:, :, None])  # this block's share
-        out = plan.all_reduce(out.float()).to(vc.dtype)
-    out = _decode_heads(out, cfg)
+    out = attend_block(_decode_scores(q, kc, pos, a, s_max, cfg), vc, plan, e - a == s_max)
     h0, h1, _, _ = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
-    return _tp_out(p, out[:, :, h0:h1], cfg, plan), cache
+    return torch.matmul(decode_heads(out, cfg)[:, :, h0:h1].flatten(-2), p["wo"].flatten(0, 1))
 
 
 # ---------------------------------------------------------------------------

@@ -21,11 +21,21 @@ ln2_s, ln2_b, mlp/{w_in, b_in, w_out, b_out}}``, ``enc_final_s/_b``,
 ``dec/{ln1_*, self_attn, lnx_*, cross_attn, ln2_*, mlp}``, ``final_s/_b``,
 stacked on L. The decode caches are one flat dict, ``{"k", "v"}: (L, B,
 S, KV, Dh)`` and the cross k/v ``{"xk", "xv"}: (L, B, enc_seq, KV, Dh)``.
+
+Under a tensor-parallel plan (``distributed/tp.py``) every attention runs
+on the rank's heads (the cross attention's k/v from the encoder's output,
+which every model rank holds whole) and both MLPs on its hidden units
+(``layers.gelu_mlp``), each output's partial sums added and its bias
+added once after; the layernorms, the position tables and the encoder's
+output are whole. The prefill keeps the rank's block of positions of the
+self and cross caches (``plan.cache_seq``, ``plan.cross_seq``) with every
+kv head, and decode attends over each block where it lies, combined over
+the model axis. The reference constrains nothing here, so ``seq_shard``
+changes nothing (``tp.plan_for`` drops it).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
@@ -90,9 +100,9 @@ def init_encdec(gen: torch.Generator | None, cfg: ArchConfig, device) -> dict[st
     return params
 
 
-def _mlp(pl, x):
+def _mlp(pl, x, plan=None):
     m = pl["mlp"]
-    return gelu_mlp(x, m["w_in"], m["b_in"], m["w_out"], m["b_out"])
+    return gelu_mlp(x, m["w_in"], m["b_in"], m["w_out"], m["b_out"], plan)
 
 
 def _layers(fn, h, stacked: dict, n: int, *extra):
@@ -110,17 +120,18 @@ def _layers(fn, h, stacked: dict, n: int, *extra):
 # ---------------------------------------------------------------------------
 
 
-def _enc_block(pl, h, cfg: ArchConfig):
+def _enc_block(pl, h, cfg: ArchConfig, plan=None):
     eps = cfg.norm_eps
     a_in = layernorm(h, pl["ln1_s"], pl["ln1_b"], eps)
-    h = h + attn.gqa_train(pl["attn"], a_in, cfg, causal=False, use_rope=False)
-    return h + _mlp(pl, layernorm(h, pl["ln2_s"], pl["ln2_b"], eps))
+    h = h + attn.gqa_train(pl["attn"], a_in, cfg, causal=False, use_rope=False, plan=plan)
+    return h + _mlp(pl, layernorm(h, pl["ln2_s"], pl["ln2_b"], eps), plan)
 
 
-def encode(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """frames: (B, T_enc, E) stub embeddings -> encoder states."""
+def encode(params, frames: torch.Tensor, cfg: ArchConfig, plan=None) -> torch.Tensor:
+    """frames: (B, T_enc, E) stub embeddings -> encoder states (whole on
+    every model rank under a plan)."""
     x = frames + params["pos_enc"][None, :frames.shape[1]]
-    x = _layers(lambda pl, h: _enc_block(pl, h, cfg), x, params["enc"], cfg.enc_layers)
+    x = _layers(lambda pl, h: _enc_block(pl, h, cfg, plan), x, params["enc"], cfg.enc_layers)
     return layernorm(x, params["enc_final_s"], params["enc_final_b"], cfg.norm_eps)
 
 
@@ -129,20 +140,24 @@ def encode(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _embed_dec(params, tokens: torch.Tensor) -> torch.Tensor:
-    return embed(tokens, params["embed"]) + params["pos_dec"][None, :tokens.shape[1]]
+def _embed_dec(params, tokens: torch.Tensor, plan=None) -> torch.Tensor:
+    return embed(tokens, params["embed"], plan) + params["pos_dec"][None, :tokens.shape[1]]
 
 
-def _cross_cache(pl, enc_out: torch.Tensor, cfg: ArchConfig) -> dict:
-    """The cross-attention's k/v of the encoder's output: (B, T_enc, KV, Dh)."""
-    p = pl["cross_attn"]
+def _cross_cache(pl, enc_out: torch.Tensor, cfg: ArchConfig, plan=None) -> dict:
+    """The cross-attention's k/v of the encoder's output: (B, T_enc, KV,
+    Dh); under a plan this rank's block of the frames (``plan.cross_seq``)
+    with every kv head, from the kv heads the rank projects."""
+    p = attn._tp_weights(pl["cross_attn"], cfg, plan) if plan is not None else pl["cross_attn"]
     k, v = attn._proj(enc_out, p["wk"]), attn._proj(enc_out, p["wv"])
     if cfg.attn_bias:
         k, v = k + p["bk"], v + p["bv"]
+    if plan is not None:
+        k, v = (attn.cache_block(c, cfg, plan, plan.cross_seq) for c in (k, v))
     return {"xk": k, "xv": v}
 
 
-def _dec_block(pl, h, enc_out, cfg: ArchConfig, s_max: int = 0):
+def _dec_block(pl, h, enc_out, cfg: ArchConfig, s_max: int = 0, plan=None):
     """One decoder layer of the training forward (``s_max`` 0) or of the
     prefill, which also returns the layer's decode cache {k, v, xk, xv}
     (self k/v padded to ``s_max``) from the same projections."""
@@ -150,61 +165,64 @@ def _dec_block(pl, h, enc_out, cfg: ArchConfig, s_max: int = 0):
     a_in = layernorm(h, pl["ln1_s"], pl["ln1_b"], eps)
     cache = None
     if s_max:
-        y, cache = attn.gqa_prefill(pl["self_attn"], a_in, cfg, s_max, use_rope=False)
+        y, cache = attn.gqa_prefill(pl["self_attn"], a_in, cfg, s_max, use_rope=False, plan=plan)
     else:
-        y = attn.gqa_train(pl["self_attn"], a_in, cfg, causal=True, use_rope=False)
+        y = attn.gqa_train(pl["self_attn"], a_in, cfg, causal=True, use_rope=False, plan=plan)
     h = h + y
     x_in = layernorm(h, pl["lnx_s"], pl["lnx_b"], eps)
     h = h + attn.gqa_train(pl["cross_attn"], x_in, cfg, causal=False, use_rope=False,
-                           kv_source=enc_out)
-    h = h + _mlp(pl, layernorm(h, pl["ln2_s"], pl["ln2_b"], eps))
+                           kv_source=enc_out, plan=plan)
+    h = h + _mlp(pl, layernorm(h, pl["ln2_s"], pl["ln2_b"], eps), plan)
     if s_max:
-        cache = {**cache, **_cross_cache(pl, enc_out, cfg)}
+        cache = {**cache, **_cross_cache(pl, enc_out, cfg, plan)}
     return h, cache
 
 
 def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor,
-                 cfg: ArchConfig) -> torch.Tensor:
-    x = _embed_dec(params, tokens)
-    x = _layers(lambda pl, h, e: _dec_block(pl, h, e, cfg)[0], x, params["dec"], cfg.n_layers,
-                enc_out)
+                 cfg: ArchConfig, plan=None) -> torch.Tensor:
+    x = _embed_dec(params, tokens, plan)
+    x = _layers(lambda pl, h, e: _dec_block(pl, h, e, cfg, plan=plan)[0], x, params["dec"],
+                cfg.n_layers, enc_out)
     return layernorm(x, params["final_s"], params["final_b"], cfg.norm_eps)
 
 
-def prefill(params, tokens, enc_out, cfg: ArchConfig, s_max: int):
+def prefill(params, tokens, enc_out, cfg: ArchConfig, s_max: int, plan=None):
     """Returns (hidden, caches): self k/v (padded to s_max) + cross k/v,
     stacked on L."""
-    x = _embed_dec(params, tokens)
+    x = _embed_dec(params, tokens, plan)
     layer_caches = []
     for pl in _unbind_layers(params["dec"], cfg.n_layers):
-        x, cache = _dec_block(pl, x, enc_out, cfg, s_max)
+        x, cache = _dec_block(pl, x, enc_out, cfg, s_max, plan)
         layer_caches.append(cache)
     caches = {key: torch.stack([c[key] for c in layer_caches]) for key in ("k", "v", "xk", "xv")}
     return layernorm(x, params["final_s"], params["final_b"], cfg.norm_eps), caches
 
 
-def _cross_decode(pl, x, cache, cfg: ArchConfig):
+def _cross_decode(pl, x, cache, cfg: ArchConfig, plan=None):
     """One token's cross-attention over the cached encoder k/v, plain
-    PyTorch: float32 scores, the probabilities rounded to v's dtype."""
-    b, s1, _ = x.shape
-    kv_n, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    dh = cfg.resolved_head_dim
+    PyTorch: float32 scores, the probabilities rounded to v's dtype. Under
+    a plan, as the self-attention's decode (``attention._tp_decode``): the
+    rank's q heads all-gathered, every head scored over the rank's block
+    of the frames (``plan.cross_seq``), which it only reads, combined over
+    the model axis; then the rank's heads through ``wo``, ``bo`` once."""
     p = pl["cross_attn"]
     q = attn._proj(x, p["wq"])
     if cfg.attn_bias:
         q = q + p["bq"]
-    qg = q.reshape(b, s1, kv_n, g, dh)
+    if plan is not None and plan.heads:
+        q = plan.all_gather(q, 2)
     xk, xv = cache["xk"], cache["xv"]
-    # (B,KV,G,1,Dh) x (B,KV,Dh,T) -> (B,KV,G,1,T) float32 scores
-    sc = torch.matmul(qg.permute(0, 2, 3, 1, 4).float(),
-                      xk.permute(0, 2, 3, 1).float()[:, :, None]) / math.sqrt(dh)
-    probs = torch.softmax(sc, dim=-1).to(xv.dtype)
-    out = torch.matmul(probs, xv.permute(0, 2, 1, 3)[:, :, None])  # (B,KV,G,1,Dh)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s1, cfg.n_heads, dh)
-    return attn._out(p, out, cfg)
+    a, e, n = (plan.cross_seq if plan is not None and plan.cross_seq
+               else (0, xk.shape[1], xk.shape[1]))
+    out = attn.decode_heads(attn.attend_block(attn.decode_scores(q, xk, cfg), xv, plan,
+                                              e - a == n), cfg)
+    if plan is None:
+        return attn._out(p, out, cfg)
+    h0, h1, _, _ = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
+    return attn._tp_out(p, out[:, :, h0:h1], cfg, plan)
 
 
-def decode_step(params, x, caches, pos: int, cfg: ArchConfig):
+def decode_step(params, x, caches, pos: int, cfg: ArchConfig, plan=None):
     """x: (B, 1, E) embedded token (+ its position). Returns (hidden, the
     caches with self k/v written at ``pos`` in place)."""
     eps = cfg.norm_eps
@@ -212,8 +230,8 @@ def decode_step(params, x, caches, pos: int, cfg: ArchConfig):
         cache = _layer(caches, i)
         a_in = layernorm(x, pl["ln1_s"], pl["ln1_b"], eps)
         y, _ = attn.gqa_decode(pl["self_attn"], a_in, {"k": cache["k"], "v": cache["v"]}, pos,
-                               cfg, use_rope=False)
+                               cfg, use_rope=False, plan=plan)
         x = x + y
-        x = x + _cross_decode(pl, layernorm(x, pl["lnx_s"], pl["lnx_b"], eps), cache, cfg)
-        x = x + _mlp(pl, layernorm(x, pl["ln2_s"], pl["ln2_b"], eps))
+        x = x + _cross_decode(pl, layernorm(x, pl["lnx_s"], pl["lnx_b"], eps), cache, cfg, plan)
+        x = x + _mlp(pl, layernorm(x, pl["ln2_s"], pl["ln2_b"], eps), plan)
     return layernorm(x, params["final_s"], params["final_b"], cfg.norm_eps), caches

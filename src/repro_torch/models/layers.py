@@ -235,27 +235,46 @@ def softmax_xent_chunked(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.T
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor, plan=None) -> torch.Tensor:
-    """SwiGLU. Under a plan whose ``mlp`` is split, column-parallel then
-    row-parallel on this rank's hidden units: ``x`` enters (all-gathered
-    along S under ``seq_shard``), the output's partial sums are added
-    (reduce-scattered along S under ``seq_shard``). Where ``mlp`` is whole
-    the rank computes it all, on its own positions under ``seq_shard`` (so
-    each weight's gradient is a partial sum there)."""
+def _mlp_enter(x: torch.Tensor, weights: tuple, plan) -> tuple:
+    """``(x, weights)`` as a rank computes an MLP with them: where ``mlp``
+    is split, ``x`` enters the rank's hidden units (all-gathered along S
+    under ``seq_shard``); where it is whole under ``seq_shard``, the rank
+    computes it all on its own positions, so each weight's gradient is a
+    partial sum (``copy_to``)."""
     if plan is not None and plan.mlp:
-        x = plan.gather_seq(x) if plan.seq_shard else plan.copy_to(x)
-    elif plan is not None and plan.seq_shard:
-        w_gate, w_up, w_down = (plan.copy_to(w) for w in (w_gate, w_up, w_down))
-    g = torch.matmul(x, w_gate)
-    u = torch.matmul(x, w_up)
-    y = torch.matmul(F.silu(g) * u, w_down)
+        return (plan.gather_seq(x) if plan.seq_shard else plan.copy_to(x)), weights
+    if plan is not None and plan.seq_shard:
+        return x, tuple(plan.copy_to(w) for w in weights)
+    return x, weights
+
+
+def _mlp_leave(y: torch.Tensor, plan) -> torch.Tensor:
+    """An MLP's output from :func:`_mlp_enter`'s input: the ranks' partial
+    sums over their hidden units added where ``mlp`` is split
+    (reduce-scattered along S under ``seq_shard``)."""
     if plan is not None and plan.mlp:
-        y = plan.scatter_seq(y) if plan.seq_shard else plan.reduce_from(y)
+        return plan.scatter_seq(y) if plan.seq_shard else plan.reduce_from(y)
     return y
 
 
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor, plan=None) -> torch.Tensor:
+    """SwiGLU. Under a plan whose ``mlp`` is split, column-parallel then
+    row-parallel on this rank's hidden units (:func:`_mlp_enter`,
+    :func:`_mlp_leave`)."""
+    x, (w_gate, w_up, w_down) = _mlp_enter(x, (w_gate, w_up, w_down), plan)
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    return _mlp_leave(torch.matmul(F.silu(g) * u, w_down), plan)
+
+
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
-             b_out: torch.Tensor) -> torch.Tensor:
+             b_out: torch.Tensor, plan=None) -> torch.Tensor:
+    """The encoder-decoder's MLP (tanh GELU, biases). Under a plan as
+    :func:`swiglu`, ``b_in`` with ``w_in``; ``b_out`` added once, after the
+    partial sums are added (on each rank before, it would count once a
+    rank)."""
+    x, (w_in, b_in, w_out) = _mlp_enter(x, (w_in, b_in, w_out), plan)
     h = torch.matmul(x, w_in) + b_in
-    return torch.matmul(F.gelu(h, approximate="tanh"), w_out) + b_out
+    y = _mlp_leave(torch.matmul(F.gelu(h, approximate="tanh"), w_out), plan)
+    return y + (plan.copy_to(b_out) if plan is not None and plan.seq_shard else b_out)

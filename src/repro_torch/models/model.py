@@ -126,9 +126,10 @@ class Model:
         ``None``, the model's plain code; the serve methods take it too."""
         cfg = self.cfg
         if cfg.encdec:
-            enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg)
-            h = encdec_mod.decode_train(params, batch["tokens"], enc_out, cfg)
-            return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk)
+            enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg, plan)
+            h = encdec_mod.decode_train(params, batch["tokens"], enc_out, cfg, plan)
+            return softmax_xent_chunked(h, self._unembed(params), batch["labels"], cfg.loss_chunk,
+                                        plan)
         x, labels = self._embed_inputs(params, batch, plan)
         h = tf.forward_train(params, x, cfg, n_groups=n_groups, plan=plan)
         return softmax_xent_chunked(h, self._unembed(params), labels, cfg.loss_chunk, plan)
@@ -138,8 +139,8 @@ class Model:
         """Returns (last-position logits (B, V) float32, caches)."""
         cfg = self.cfg
         if cfg.encdec:
-            enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg)
-            h, caches = encdec_mod.prefill(params, batch["tokens"], enc_out, cfg, s_max)
+            enc_out = encdec_mod.encode(params, batch["enc_frames"].to(pdtype(cfg)), cfg, plan)
+            h, caches = encdec_mod.prefill(params, batch["tokens"], enc_out, cfg, s_max, plan)
         else:
             x = embed(batch["tokens"], params["embed"], plan).to(pdtype(cfg))
             if cfg.vision_prefix:  # the cache holds P + S positions
@@ -153,7 +154,7 @@ class Model:
         x = embed(tokens, params["embed"], plan).to(pdtype(self.cfg))
         if self.cfg.encdec:
             x = x + params["pos_dec"][int(pos)][None]
-            h, caches = encdec_mod.decode_step(params, x, caches, int(pos), self.cfg)
+            h, caches = encdec_mod.decode_step(params, x, caches, int(pos), self.cfg, plan)
         else:
             h, caches = tf.forward_decode(params, x, caches, int(pos), self.cfg,
                                           n_groups=n_groups, plan=plan)

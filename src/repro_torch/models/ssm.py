@@ -29,6 +29,19 @@ gradients of q, k and log a become NaN (hymba at full width reaches −99.6
 on average with the reference's init). Here the upper triangle's exponent
 is set to −inf before ``exp``, so its weight is exactly 0 and so is its
 gradient; every entry the reference keeps is computed the same way.
+
+Under a tensor-parallel plan (``distributed/tp.py``) both mixers run on
+the rank's heads, as the reference's GSPMD program does: every leaf on the
+``heads`` axis (``wx``, ``wB``, ``wC``, ``w_dt``, ``dt_bias``, ``A_log``,
+``D``; the mLSTM's ``wq``, ``wk``, ``wv``, ``w_og``, ``w_i``, ``w_f``,
+``f_bias``) column-parallel, ``wo`` row-parallel, the chunked recurrence
+over the rank's heads and the whole sequence. The mLSTM's ``ln_out`` is
+one RMSNorm over every head's features, so a rank's sum of squares is
+added over the model axis with a gradient that is added too
+(``Plan.psum``), and its whole scale is used on the rank's block of
+features (``copy_to``). The decode state stays whole on the heads
+(``CACHE_RULES``): each rank computes its heads' part and the parts are
+all-gathered into it.
 """
 
 from __future__ import annotations
@@ -81,14 +94,16 @@ def chunked_linear_recurrence(
         contrib = torch.einsum("bcjhn,bcjhp->bchnp", kw, vc)  # (B, nc, H, N, P)
 
         # the carry, chunk by chunk in the reference's order; prev[c] is the
-        # state entering chunk c
+        # state entering chunk c. Each chunk's decay and contribution are
+        # views of one unbind: the backward stacks their gradients once,
+        # where indexing each chunk would make and add nc gradients of the
+        # whole (B, nc, H, N, P)
         state = (initial_state.float() if initial_state is not None
                  else torch.zeros((b, h, n, p), dtype=torch.float32, device=q.device))
-        decay = torch.exp(tot)[..., None, None]  # (B, nc, H, 1, 1)
         prev = []
-        for c in range(nc):
+        for decay, part in zip(torch.exp(tot)[..., None, None].unbind(1), contrib.unbind(1)):
             prev.append(state)
-            state = state * decay[:, c] + contrib[:, c]
+            state = state * decay + part
 
         # inter-chunk, every chunk at once
         y = y + torch.einsum("bcihn,bchnp->bcihp", qc * torch.exp(cum)[..., None],
@@ -118,6 +133,41 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _out(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("...hd,hde->...e")."""
     return torch.matmul(y.flatten(-2), wo.flatten(0, 1))
+
+
+def tp_weights(p: dict, cfg: ArchConfig, plan, whole: tuple[str, ...] = ()) -> dict:
+    """A recurrent mixer's leaves as this rank computes with them, every
+    leaf but those in ``whole`` on the heads axis (the rank's block where
+    the heads are split). Where the heads are split, the whole leaves are
+    used on the rank's heads: through ``copy_to``, and ``ln_out`` (one
+    scale a feature, ``h * dh``) cut to the rank's heads' features. Where
+    they are whole under ``seq_shard``, every rank computes every position
+    and keeps its own, so each leaf goes through ``copy_to``."""
+    if plan is None or not (plan.heads or plan.seq_shard):
+        return p
+    if not plan.heads:
+        return {name: plan.copy_to(t) for name, t in p.items()}
+    w = {name: plan.copy_to(t) if name in whole else t for name, t in p.items()}
+    if "ln_out" in w:
+        h0, h1, _, _ = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
+        dh = cfg.resolved_head_dim
+        w["ln_out"] = w["ln_out"][h0 * dh:h1 * dh]
+    return w
+
+
+def heads_of(state: torch.Tensor, cfg: ArchConfig, plan) -> torch.Tensor:
+    """This rank's heads of a decode state (B, H, ...) that is whole on
+    the heads (``CACHE_RULES``)."""
+    if plan is None or not plan.heads:
+        return state
+    h0, h1, _, _ = plan.head_ranges(cfg.n_heads, cfg.n_kv_heads)
+    return state[:, h0:h1]
+
+
+def whole_state(state: torch.Tensor, plan) -> torch.Tensor:
+    """A decode state (B, H_local, ...) of this rank's heads made whole on
+    the heads: the model ranks' parts all-gathered."""
+    return plan.all_gather(state, 1) if plan is not None and plan.heads else state
 
 
 # ---------------------------------------------------------------------------
@@ -182,12 +232,15 @@ def ssd_init_state(cfg: ArchConfig, batch: int, device=None):
                        dtype=torch.float32, device=device)
 
 
-def ssd_decode(p, x, state, cfg: ArchConfig):
-    """x: (B, 1, E); state (B, H, N, P) -> (y (B, 1, E), new_state)."""
+def ssd_decode(p, x, state, cfg: ArchConfig, plan=None):
+    """x: (B, 1, E); state (B, H, N, P) -> (y (B, 1, E), new_state). Under a
+    plan on this rank's heads: y the ranks' partial sums (the hybrid adds
+    them with its attention's), the new state whole on the heads."""
     xs, bb, cc, dt, log_a = _ssd_inputs(p, x)
     v = xs * dt[..., None].to(xs.dtype)
-    y, state = linear_recurrence_step(cc[:, 0], bb[:, 0], v[:, 0], torch.exp(log_a[:, 0]), state)
-    return _ssd_output(p, y[:, None], xs, x.dtype), state
+    y, state = linear_recurrence_step(cc[:, 0], bb[:, 0], v[:, 0], torch.exp(log_a[:, 0]),
+                                      heads_of(state, cfg, plan))
+    return _ssd_output(p, y[:, None], xs, x.dtype), whole_state(state, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -221,10 +274,30 @@ def _mlstm_qkvg(p, x, cfg: ArchConfig):
     return q, k, v, i_g, log_f, og
 
 
-def _mlstm_out(p, y, og, x_dtype, cfg: ArchConfig, eps: float):
+def _mlstm_out(p, y, og, x_dtype, cfg: ArchConfig, eps: float, plan=None):
+    """The output gate, ``ln_out`` over every head's features and ``wo``:
+    under a plan whose heads are split, the rank's heads' features, their
+    squares summed over the model axis, and the partial sums of ``wo``."""
     y = y * og  # output gate
-    flat = rmsnorm(y.flatten(-2).to(x_dtype), p["ln_out"], eps)
+    flat = y.flatten(-2).to(x_dtype)
+    if plan is not None and plan.heads:
+        flat = _rmsnorm_split(flat, p["ln_out"], eps, plan,
+                              cfg.n_heads * cfg.resolved_head_dim)
+    else:
+        flat = rmsnorm(flat, p["ln_out"], eps)
     return _out(flat.unflatten(-1, y.shape[-2:]).to(x_dtype), p["wo"])
+
+
+def _rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, eps: float, plan,
+                   n: int) -> torch.Tensor:
+    """``rmsnorm`` over ``n`` features of which ``x`` (..., n / ranks) and
+    ``scale`` are this rank's block: the sums of squares added over the
+    model axis (``psum``: every rank's normalised block reads every rank's
+    squares, so their gradients are added too)."""
+    xf = x.float()
+    var = plan.psum(torch.sum(xf * xf, dim=-1, keepdim=True)) / n
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
 
 
 def _mlstm_kv(k, v, i_g):
@@ -239,20 +312,26 @@ def _mlstm_normalise(y_aug):
     return y_aug[..., :-1] / torch.clamp(torch.abs(y_aug[..., -1:]), min=1.0)
 
 
-def mlstm_apply(p, x, cfg: ArchConfig, initial_state=None):
+def mlstm_apply(p, x, cfg: ArchConfig, initial_state=None, plan=None):
     """x: (B, S, E) -> ((B, S, E), final state (B, H, Dh, Dh + 1) float32):
-    the reference's ``mlstm_train`` and its mlstm ``block_prefill``."""
+    the reference's ``mlstm_train`` and its mlstm ``block_prefill``. Under
+    a plan on this rank's heads (``x`` this rank's positions under
+    ``seq_shard``, as the output): the state is the rank's heads'
+    (:func:`whole_state` makes it whole)."""
+    if plan is not None:
+        p, x = tp_weights(p, cfg, plan, whole=("ln_out",)), plan.enter(x)
     q, k, v, i_g, log_f, og = _mlstm_qkvg(p, x, cfg)
     k_eff, v_aug = _mlstm_kv(k, v, i_g)
     y_aug, state = chunked_linear_recurrence(q, k_eff, v_aug, log_f, chunk=cfg.chunk,
                                              initial_state=initial_state)
-    return _mlstm_out(p, _mlstm_normalise(y_aug), og, x.dtype, cfg, cfg.norm_eps), state
+    y = _mlstm_out(p, _mlstm_normalise(y_aug), og, x.dtype, cfg, cfg.norm_eps, plan)
+    return (y if plan is None else plan.leave(y)), state
 
 
-def mlstm_train(p, x, cfg: ArchConfig):
+def mlstm_train(p, x, cfg: ArchConfig, plan=None):
     """x: (B, S, E) -> (B, S, E). Matrix memory C ∈ R^{N×P} with N = P =
     head_dim, normaliser tracked as an extra v-column (h = Cq / max(|n·q|, 1))."""
-    return mlstm_apply(p, x, cfg)[0]
+    return mlstm_apply(p, x, cfg, plan=plan)[0]
 
 
 def mlstm_init_state(cfg: ArchConfig, batch: int, device=None):
@@ -260,13 +339,18 @@ def mlstm_init_state(cfg: ArchConfig, batch: int, device=None):
     return torch.zeros((batch, cfg.n_heads, dh, dh + 1), dtype=torch.float32, device=device)
 
 
-def mlstm_decode(p, x, state, cfg: ArchConfig):
-    """x: (B, 1, E); state (B, H, Dh, Dh + 1) -> (y (B, 1, E), new_state)."""
+def mlstm_decode(p, x, state, cfg: ArchConfig, plan=None):
+    """x: (B, 1, E); state (B, H, Dh, Dh + 1) -> (y (B, 1, E), new_state).
+    Under a plan on this rank's heads, the new state whole on the heads."""
+    if plan is not None:
+        p = tp_weights(p, cfg, plan, whole=("ln_out",))
     q, k, v, i_g, log_f, og = _mlstm_qkvg(p, x, cfg)
     k_eff, v_aug = _mlstm_kv(k[:, 0], v[:, 0], i_g[:, 0])
-    y_aug, state = linear_recurrence_step(q[:, 0], k_eff, v_aug, torch.exp(log_f[:, 0]), state)
-    out = _mlstm_out(p, _mlstm_normalise(y_aug), og[:, 0], x.dtype, cfg, cfg.norm_eps)
-    return out[:, None], state
+    y_aug, state = linear_recurrence_step(q[:, 0], k_eff, v_aug, torch.exp(log_f[:, 0]),
+                                          heads_of(state, cfg, plan))
+    out = _mlstm_out(p, _mlstm_normalise(y_aug), og[:, 0], x.dtype, cfg, cfg.norm_eps,
+                     plan)[:, None]
+    return (out if plan is None else plan.leave(out)), whole_state(state, plan)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,12 @@ Decode writes every cache in place, as ``gqa_decode`` writes k/v: a hybrid
 layer's SSD state and an mLSTM layer's matrix memory are copied into their
 slot of the stacked cache, since the request's caches are its state.
 
+Under a tensor-parallel plan (``distributed/tp.py``) every mixer runs on
+the rank's heads: a hybrid layer's attention and SSD read one input and
+their partial sums are averaged and added over the model axis once
+(:func:`_tp_hybrid`); the recurrent states stay whole on the heads, each
+rank computing its heads' part.
+
 The training forward's layer-scan remat maps onto ``torch.utils.checkpoint``
 per layer, after the reference's ``_REMAT_POLICIES``: ``nothing`` keeps no
 activation of a layer and recomputes it in the backward pass, ``dots``
@@ -150,14 +156,41 @@ def _mixer_train(pl, x, cfg: ArchConfig, mixer: str, plan=None):
     if mixer == "mla":
         return attn.mla_train(pl["attn"], x, cfg, plan=plan)
     if mixer == "hybrid":
+        if plan is not None:
+            return _tp_hybrid(pl, x, cfg, plan)[0]
         return (attn.gqa_train(pl["attn"], x, cfg) + ssm_mod.ssd_train(pl["ssd"], x, cfg)) * 0.5
-    return ssm_mod.mlstm_train(pl["mlstm"], x, cfg)
+    return ssm_mod.mlstm_train(pl["mlstm"], x, cfg, plan)
+
+
+def _tp_hybrid(pl, x, cfg: ArchConfig, plan, s_max: int = 0):
+    """The hybrid mixer on this rank's heads: ``(y, cache)``. Attention and
+    SSD read one input (``plan.enter``: the whole sequence under
+    ``seq_shard``), each gives the partial sums of the rank's heads, and
+    their average is added over the model axis once (reduce-scattered
+    along S under ``seq_shard``), ``bo`` (halved, as the average halves it)
+    after. With ``s_max`` (the prefill) also the layer's decode cache: the
+    rank's block of the attention cache's slots with every kv head, and
+    the SSD state whole on the heads."""
+    xin = plan.enter(x)
+    wa = attn._tp_weights(pl["attn"], cfg, plan)
+    ya, k, v = attn._tp_attend(wa, xin, cfg, plan, causal=True, use_rope=True)
+    ys, state = ssm_mod.ssd_apply(ssm_mod.tp_weights(pl["ssd"], cfg, plan), xin, cfg)
+    y = attn._tp_finish((ya + ys) * 0.5, _half_bias(wa, cfg), cfg, plan)
+    if not s_max:
+        return y, None
+    return y, {"attn": attn.tp_cache(k, v, s_max, cfg, plan),
+               "ssd": ssm_mod.whole_state(state, plan)}
+
+
+def _half_bias(w: dict, cfg: ArchConfig) -> dict:
+    """The attention's ``bo`` as the hybrid's average adds it: halved."""
+    return {"bo": w["bo"] * 0.5} if cfg.attn_bias else {}
 
 
 def block_train(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, plan=None):
     """One layer of the training forward; under a tensor-parallel ``plan``
-    (GQA or MLA, the dense or MoE FFN, ``distributed/tp.py``) on this
-    rank's shards, and on its positions under ``seq_shard``."""
+    (``distributed/tp.py``) on this rank's shards, and on its positions
+    under ``seq_shard``."""
     h = x + _mixer_train(pl, rmsnorm(x, _scale(pl["ln1"], plan), cfg.norm_eps), cfg, mixer,
                          plan)
     return _ffn(pl, h, cfg, ffn, n_groups, plan)
@@ -173,13 +206,15 @@ def block_prefill(pl, x, cfg: ArchConfig, mixer: str, ffn: str, n_groups: int, s
         y, cache = attn.gqa_prefill(pl["attn"], xin, cfg, s_max, plan=plan)
     elif mixer == "mla":
         y, cache = attn.mla_prefill(pl["attn"], xin, cfg, s_max, plan)
+    elif mixer == "hybrid" and plan is not None:
+        y, cache = _tp_hybrid(pl, xin, cfg, plan, s_max)
     elif mixer == "hybrid":
         ya, ac = attn.gqa_prefill(pl["attn"], xin, cfg, s_max)
         ys, sstate = ssm_mod.ssd_apply(pl["ssd"], xin, cfg)
         y, cache = (ya + ys) * 0.5, {"attn": ac, "ssd": sstate}
     else:
-        y, mstate = ssm_mod.mlstm_apply(pl["mlstm"], xin, cfg)
-        cache = {"mlstm": mstate}
+        y, mstate = ssm_mod.mlstm_apply(pl["mlstm"], xin, cfg, plan=plan)
+        cache = {"mlstm": ssm_mod.whole_state(mstate, plan)}
     h = x + y
     return _ffn(pl, h, cfg, ffn, n_groups, plan), cache
 
@@ -193,13 +228,18 @@ def block_decode(pl, x, cache, pos: int, cfg: ArchConfig, mixer: str, ffn: str, 
         y, cache = attn.gqa_decode(pl["attn"], xin, cache, pos, cfg, plan=plan)
     elif mixer == "mla":
         y, cache = attn.mla_decode(pl["attn"], xin, cache, pos, cfg, plan)
+    elif mixer == "hybrid" and plan is not None:  # both on the rank's heads, added once
+        ya = attn._tp_decode(pl["attn"], xin, cache["attn"], pos, cfg, plan, use_rope=True)
+        ys, sstate = ssm_mod.ssd_decode(pl["ssd"], xin, cache["ssd"], cfg, plan)
+        cache["ssd"].copy_(sstate)
+        y = attn._tp_finish((ya + ys) * 0.5, _half_bias(pl["attn"], cfg), cfg, plan)
     elif mixer == "hybrid":
         ya, _ = attn.gqa_decode(pl["attn"], xin, cache["attn"], pos, cfg)
         ys, sstate = ssm_mod.ssd_decode(pl["ssd"], xin, cache["ssd"], cfg)
         cache["ssd"].copy_(sstate)
         y = (ya + ys) * 0.5
     else:
-        y, mstate = ssm_mod.mlstm_decode(pl["mlstm"], xin, cache["mlstm"], cfg)
+        y, mstate = ssm_mod.mlstm_decode(pl["mlstm"], xin, cache["mlstm"], cfg, plan)
         cache["mlstm"].copy_(mstate)
     h = x + y
     return _ffn(pl, h, cfg, ffn, n_groups, plan), cache

@@ -626,12 +626,15 @@ def test_k3_op_cuda_cpu_and_fake_implementations(dev, dtype, with_lse):
     assert r["flops"] == 2 * 8 * visible_pairs(200, 200, True, 0) * 2 * 256
 
 
-@pytest.mark.parametrize("name", ["qwen3_serve_16", "command_r_16", "deepseek_mla_16"])
+@pytest.mark.parametrize("name", ["qwen3_serve_16", "command_r_16", "deepseek_mla_16",
+                                  "hymba_window_5", "whisper_cross_2"])
 def test_k3_on_a_ranks_head_slice_is_bitwise_the_whole_call(dev, name):
     """K3 on each tensor-parallel rank's q heads and its view (or block)
     of the kv heads (qwen3's serve prefill sliced 16 ways: 1 q head,
     G_local 1; command-r's: 6 q heads a rank reading 1 kv head, G 12;
-    deepseek-v3's MLA: 8 of 128 heads a rank at qk 192 / v 128) equals
+    deepseek-v3's MLA: 8 of 128 heads a rank at qk 192 / v 128; hymba's
+    windowed attention on 5 ranks, 5 q heads and 1 kv head each; whisper's
+    non-causal cross attention on 2, Sq 4096 against Sk 1500) equals
     those heads of the call over every head bit for bit; each view goes
     to the tensor-core kernel as it is, one launch a rank."""
     from repro_torch.kernels.flash_attention.cases import HEAD_SLICE_CASES, check_head_slices

@@ -5,16 +5,18 @@ in the pytest process, where other tests make gloo groups.
 * Every smoke arch × {train, prefill, decode} on a fake 4×4 mesh (the
   shapes' batches at 256 positions), and qwen3-1.7b's prefill_32k at full
   width on the 16×16 production mesh: each cell ``ok``, with the
-  reference's keys and the path its steps took (``tp`` for the dense, vlm
-  and MoE families, ``gathered`` for the others); long_500k is skipped for
-  a full-attention arch. qwen3's smoke train cell with ``--seq-shard``
-  traces (its residual stream reduce-scattered and all-gathered along S),
-  as does deepseek-v3's with ``--moe-buf-shard`` too (its expert slots
-  moved by all-to-alls); ``--seq-shard`` raises for hymba (still
-  gathered), ``--moe-buf-shard`` for whisper.
+  reference's keys and the path its steps took (``tp``, every family's);
+  long_500k is skipped for a full-attention arch. qwen3's smoke train
+  cell with ``--seq-shard`` traces (its residual stream reduce-scattered
+  and all-gathered along S), as does deepseek-v3's with
+  ``--moe-buf-shard`` too (its expert slots moved by all-to-alls), and
+  hymba's and xlstm's with ``--seq-shard``; whisper's with both flags
+  counts what its cell without them counts.
 * granite's and deepseek's smoke cells against the reference's GSPMD
   program on 1×1, 2×2 (with and without ``moe_buf_shard``), 1×4 and 4×1
-  (see ``test_moe_flops_against_the_reference``).
+  (see ``test_moe_flops_against_the_reference``); hymba's, xlstm's and
+  whisper's train and prefill cells on 1×1, 2×2 and 1×4 (see
+  ``test_mixer_flops_against_the_reference``).
 * Against the reference (``repro.launch.dryrun.build_lowered`` and
   ``analyze_hlo`` on host meshes of 1 and 4 devices), qwen3's smoke
   prefill and decode at B 4, S 64. At 1×1 the port's FLOPs equal the
@@ -72,18 +74,17 @@ def smoke_cells(tmp_path_factory):
 @pytest.mark.parametrize("arch", list_archs())
 def test_every_smoke_cell_traces_on_a_fake_4x4_mesh(smoke_cells, arch):
     """Train, prefill and decode each ``ok`` with the reference's keys, per
-    device: FLOPs and bytes counted, all-gathers (the weights on the
-    ``gathered`` path; a whole kv projection's heads or a decode step's q
-    heads on the ``tp`` path), the train step's gradients summed over data
-    (all-reduces), and a peak of live memory above the arguments; the path
-    (``tp`` for the dense, vlm and MoE families) and the experts' axes
-    recorded."""
+    device: FLOPs and bytes counted, all-gathers (a whole kv projection's
+    heads, a decode step's q heads, the vocab's logits, the params'
+    ``OPT_RULES`` blocks), the train step's gradients summed over data
+    (all-reduces), and a peak of live memory above the arguments; the
+    ``tp`` path and the experts' axes recorded."""
     for shape in KINDS:
         rec = smoke_cells[f"{arch}__{shape}__mesh4x4__smoke__s256.json"]
         assert rec["ok"], rec.get("traceback")
         assert KEYS <= set(rec) and set(rec["memory"]) == MEMORY_KEYS
         cfg = get_smoke_config(arch)
-        assert rec["path"] == ("tp" if cfg.family in ("dense", "vlm", "moe") else "gathered")
+        assert rec["path"] == "tp"
         assert rec["experts"] == (["model"] if cfg.moe else [])  # 8 experts: 16 do not divide
         assert (rec["mesh"], rec["chips"]) == ("4x4", 16)
         assert rec["cost"]["flops"] == rec["hlo"]["flops"] > 0
@@ -124,16 +125,31 @@ def test_full_width_prefill_cell_on_the_production_mesh(tmp_path):
 
 
 def test_seq_shard_refused(tmp_path):
-    """hymba-1.5b's steps gather their weights (its hybrid mixer waits for
-    ROADMAP item 4f), so ``--seq-shard`` is refused, as is
-    ``--moe-buf-shard`` for whisper-tiny (4g)."""
-    proc = _dryrun(tmp_path, "--arch", "hymba-1.5b", "--shape", "train_4k",
-                   "--seq-shard", check=False)
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
-    assert "tensor-parallel compute" in proc.stderr and "item 4f" in proc.stderr
-    proc = _dryrun(tmp_path, "--arch", "whisper-tiny", "--shape", "train_4k",
-                   "--moe-buf-shard", check=False)
-    assert proc.returncode != 0 and "--moe-buf-shard" in proc.stderr and "item 4g" in proc.stderr
+    """(Named when the hybrid, mLSTM and encoder–decoder families refused
+    the flags, until ROADMAP items 4f and 4g.) Their smoke train cells take
+    them on a fake 2×2 mesh: hymba's and xlstm's with ``--seq-shard``
+    (``__seqshard``) ``ok`` on the ``tp`` path, the residual stream
+    leaving each layer reduce-scattered along S; whisper's with
+    ``--seq-shard --moe-buf-shard`` (``__seqshard__moebuf``) counts the
+    FLOPs and collectives of its cell without them (the reference's
+    encoder–decoder constrains no stream and has no MoE buffer)."""
+    common = ("--smoke", "--mesh", "2x2", "--seq-len", "64", "--shape", "train_4k")
+    for arch in ("hymba-1.5b", "xlstm-1.3b"):
+        _dryrun(tmp_path, *common, "--arch", arch, "--seq-shard")
+    _dryrun(tmp_path, *common, "--arch", "whisper-tiny")
+    _dryrun(tmp_path, *common, "--arch", "whisper-tiny", "--seq-shard", "--moe-buf-shard")
+    cells = _cells(tmp_path)
+    for arch in ("hymba-1.5b", "xlstm-1.3b"):
+        rec = cells[f"{arch}__train_4k__mesh2x2__smoke__s64__seqshard.json"]
+        assert rec["ok"] and rec["path"] == "tp" and rec["seq_shard"], rec.get("traceback")
+        n_layers = get_smoke_config(arch).n_layers
+        assert rec["collectives"]["by_kind"]["reduce-scatter"]["count"] >= n_layers
+    plain = cells["whisper-tiny__train_4k__mesh2x2__smoke__s64.json"]
+    rec = cells["whisper-tiny__train_4k__mesh2x2__smoke__s64__seqshard__moebuf.json"]
+    assert rec["ok"] and rec["path"] == "tp", rec.get("traceback")
+    assert rec["seq_shard"] and rec["moe_buf_shard"] and not plain["seq_shard"]
+    assert rec["cost"]["flops"] == plain["cost"]["flops"]
+    assert rec["collectives"] == plain["collectives"]
 
 
 def test_moe_buf_shard_train_cell_on_a_fake_2x4_mesh(tmp_path):
@@ -254,7 +270,7 @@ MOE_CELLS = ([("granite-moe-1b-a400m", k, m, False)
                 for m in ((1, 1), (2, 2))]
              + [("deepseek-v3-671b", "train", (2, 2), True)])
 
-MOE_PORT = r"""
+SHARDED_PORT = r"""
 import json
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import InputShape
@@ -269,7 +285,8 @@ for arch, kind, dims, flag in __CELLS__:
                      moe_buf_shard=flag)
     out[f"{arch} {kind} {dims[0]}x{dims[1]} {int(flag)}"] = {
         "flops": rec["hlo"]["flops"], "path": rec["path"], "experts": rec["experts"],
-        "all_to_all": rec["hlo"]["collectives"]["by_kind"].get("all-to-all", {}).get("count", 0)}
+        "all_to_all": rec["hlo"]["collectives"]["by_kind"].get("all-to-all", {}).get("count", 0),
+        "mm": rec["flops_by_op"].get("aten.mm", 0)}
 print("FLOPS", json.dumps(out))
 """
 
@@ -277,9 +294,10 @@ print("FLOPS", json.dumps(out))
 # default Explicit axes refuse its moe_buf constraint), its dots' FLOPs
 # split by the einsum their metadata names: attention (blockwise
 # attention's einsums, and the dots XLA left without a name: its rewritten
-# attention loop's), the loss's unembedding, the expert products over all X
-# experts (a device's whole group through every expert) and the rest.
-MOE_REFERENCE = r"""
+# attention and recurrence loops'), the chunked recurrence's einsums, the
+# loss's unembedding, the expert products over all X experts (a device's
+# whole group through every expert) and the rest.
+SHARDED_REFERENCE = r"""
 import collections, json, re
 from repro.launch.dryrun import build_lowered  # sets 512 host devices before jax starts
 import jax
@@ -322,6 +340,8 @@ def parts(text, n_experts):
                 part = "attention"
             elif "...e,ve->...v" in on:
                 part = "loss"
+            elif any(e in on for e in ("bihn,bjhn", "bhij,bjhp", "bihn,bhnp", "bjhn,bjhp")):
+                part = "recurrence"
             elif ("xce," in on or "xcf," in on) and o.out_dims[0] == n_experts:
                 part = "experts_whole"
             else:
@@ -343,12 +363,27 @@ print("FLOPS", json.dumps(out))
 """
 
 
+# (arch, kind, mesh, moe_buf_shard) at S 64, B 8: hymba's 4 q / 2 kv heads
+# and its SSD's 4, xlstm's 2 mLSTM heads, whisper's 4 (encoder 64 frames),
+# each split 2 and (but xlstm's, whole) 4 ways, their MLPs and vocabs too
+MIXER_CELLS = [(a, k, m, False) for a in ("hymba-1.5b", "xlstm-1.3b", "whisper-tiny")
+               for k in ("train", "prefill") for m in ((1, 1), (2, 2), (1, 4))]
+
+
 @pytest.fixture(scope="module")
-def moe_flops():
-    cells = repr([(a, k, list(m), f) for a, k, m, f in MOE_CELLS])
-    return tuple(_flops(run_python(code.replace("__CELLS__", cells).replace("__S__", str(S))
-                                   .replace("__B__", str(2 * B)), timeout=600))
-                 for code in (MOE_PORT, MOE_REFERENCE))
+def sharded_flops():
+    """``(port, reference)``: each of :data:`MOE_CELLS`' and
+    :data:`MIXER_CELLS`' per-device counts, the port's trace
+    (:data:`SHARDED_PORT`) and GSPMD's program (:data:`SHARDED_REFERENCE`)
+    at S 64, B 8, the two subprocesses at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cells = repr([(a, k, list(m), f) for a, k, m, f in MOE_CELLS + MIXER_CELLS])
+    codes = [code.replace("__CELLS__", cells).replace("__S__", str(S))
+             .replace("__B__", str(2 * B)) for code in (SHARDED_PORT, SHARDED_REFERENCE)]
+    with ThreadPoolExecutor(2) as pool:
+        outs = list(pool.map(lambda code: run_python(code, timeout=600), codes))
+    return tuple(_flops(out) for out in outs)
 
 
 def _port_terms(arch, kind, dims):
@@ -381,7 +416,7 @@ def _port_terms(arch, kind, dims):
 
 @pytest.mark.parametrize("arch,kind,dims,flag", MOE_CELLS,
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
-def test_moe_flops_against_the_reference(moe_flops, arch, kind, dims, flag):
+def test_moe_flops_against_the_reference(sharded_flops, arch, kind, dims, flag):
     """granite's and deepseek's smoke cells on the ``tp`` path: the port's
     per-device FLOPs (its fake-group trace) within 2 % of the reference's
     compiled program on the same mesh (``analyze_hlo``), each side's
@@ -411,7 +446,7 @@ def test_moe_flops_against_the_reference(moe_flops, arch, kind, dims, flag):
     Every cell records the ``tp`` path and the experts' axes; the
     expert-parallel cells over data move tokens by all-to-alls (prefill,
     and train with ``moe_buf_shard``)."""
-    port, ref = moe_flops
+    port, ref = sharded_flops
     key = f"{arch} {kind} {dims[0]}x{dims[1]} {int(flag)}"
     p, r = port[key], ref[key]
     assert p["path"] == "tp" and p["experts"] == ([] if dims == (1, 1) else ["data", "model"]), p
@@ -422,3 +457,48 @@ def test_moe_flops_against_the_reference(moe_flops, arch, kind, dims, flag):
     theirs = r["flops"] - r.get("attention", 0) - (r.get("loss", 0) if kind == "train" else 0)
     theirs -= r.get("experts_whole", 0) * (1 - 1 / dims[1])
     assert abs(mine - theirs) / theirs < 0.02, (key, mine, theirs, p, r)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid, mLSTM and encoder-decoder families on their shards
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,kind,dims,flag", MIXER_CELLS,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_mixer_flops_against_the_reference(sharded_flops, arch, kind, dims, flag):
+    """hymba's, xlstm's and whisper's smoke cells on the ``tp`` path: the
+    port's per-device FLOPs within 2 % of the reference's compiled program
+    on the same mesh once each side's attention and chunked recurrence are
+    taken out by its own count, as ``test_moe_flops_against_the_reference``
+    takes out attention: the port's K3 op and its batched products (the
+    plain attention backward and the recurrence's einsums, every chunk at
+    once), the reference's attention and recurrence einsums and the dots
+    XLA left unnamed. The recurrence's schedule differs: the reference
+    checkpoints each chunk inside its scan (a train step recomputes it
+    within the layer's own recompute), the port computes every chunk at
+    once and recomputes the layer. What is left, the projections, the MLPs
+    and the loss, is split as GSPMD splits it, less the two differences
+    of schedule ``test_moe_flops_against_the_reference`` names (the
+    loss's fourth pass, and the gradient of a whole kv projection two
+    ranks' q heads read: hymba's 2 kv heads on 1×4) and a third: where a
+    mixer's heads stay whole (xlstm's 2 on 1×4, as its 4 and hymba's 25
+    on 16), both run its forward whole on every model rank, but GSPMD
+    splits its recompute by the projections' output columns and its
+    weights' gradients by their rows over the model ranks (about half
+    the port's per-device count here), while the port repeats them whole
+    on every rank: that cell is held to the reference's whole program
+    (its 1×1 count) and GSPMD's own count is below it."""
+    port, ref = sharded_flops
+    key = f"{arch} {kind} {dims[0]}x{dims[1]} {int(flag)}"
+    p, r = port[key], ref[key]
+    assert p["path"] == "tp" and p["experts"] == [], p
+    _, loss, split = _port_terms(arch, kind, dims)
+    mine = p["mm"] - loss - (split if arch == "hymba-1.5b" else 0)
+    theirs = r.get("rest", 0) + (r.get("loss", 0) if kind == "prefill" else 0)
+    cfg = get_smoke_config(arch)
+    if kind == "train" and cfg.n_heads % dims[1]:  # the heads stay whole
+        assert r["rest"] < 0.6 * mine, (key, mine, r)
+        theirs = ref[f"{arch} train 1x1 0"]["rest"]
+    assert abs(mine - theirs) / theirs < 0.02, (key, mine, theirs, p, r)
+    if kind == "prefill" and dims[1] > 1 and not cfg.mlstm:  # each rank's cache block
+        assert p["all_to_all"] > 0, p

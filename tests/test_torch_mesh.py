@@ -31,6 +31,10 @@ package on forced host devices.
   drops assignments, against the reference's; with
   ``DTensor.full_tensor`` raising, their train, prefill and decode steps
   run on 2×2 and record the ``tp`` path.
+* hymba's, xlstm's and whisper's steps take ``seq_shard`` and
+  ``moe_buf_shard`` (``test_torch_mesh_hybrid.py`` and
+  ``test_torch_mesh_encdec.py`` hold their steps against the reference):
+  the flags that change nothing there leave the step bitwise as it was.
 * The launcher's elastic restart: ``--remesh 2x2,1x2`` with a reclaim
   resumes from a state bitwise the published one and goes on within 1e-5
   of an uninterrupted 2×2 run (the model axis kept, so each model rank
@@ -389,6 +393,127 @@ def _assert_step_equals_reference(want: dict, got: list[dict]) -> None:
         assert all(np.array_equal(g["new"][k], got[0]["new"][k]) for k in g["new"])
 
 
+def assert_step_equals_reference(want: dict, got: list[dict]) -> None:
+    """``test_torch_mesh._assert_step_equals_reference`` with AdamW's
+    second moment ``nu`` (the gradient's square, after one update) held by
+    its root, linear in the gradient as ``mu`` is: held as it is, ``nu``
+    holds its largest gradient to half the tolerance ``mu`` does. The SSD's
+    ``dt_bias`` gradient sums terms that cancel: the port's unsharded step
+    differs from the reference's by 1.07e-5 of the max in its ``nu`` and
+    5.8e-6 in its ``mu`` (hymba smoke, these inputs), so held as it is
+    ``nu`` measures float32 order, not the sharding.
+
+    An attention's key bias ``bk`` adds ``q.b`` to every score of a row,
+    which softmax cancels: its gradient is 0 up to rounding in both
+    packages (``test_torch_encdec.py``), so its moments are held to 1e-6
+    of the largest of their kind in both, and AdamW's first update moves
+    each of its weights by up to lr either way (held within 2 lr)."""
+    def roots(step: dict) -> dict:
+        return {**step, "new": {k: np.sqrt(np.asarray(v, np.float32)) if k.startswith("opt/nu/")
+                                else v for k, v in step["new"].items()}}
+
+    want, got = roots(want), [roots(g) for g in got]
+    zero = sorted(k for k in want["new"] if k.endswith("/bk"))
+    for g in got:
+        for k in zero:
+            w, x = np.asarray(want["new"][k], np.float32), g["new"][k].astype(np.float32)
+            kind = k.split("/")[1] if k.startswith("opt/") else "params"
+            if kind in ("mu", "nu"):
+                scale = max(float(np.abs(np.asarray(v, np.float32)).max())
+                            for n, v in want["new"].items() if n.startswith(f"opt/{kind}/"))
+                assert max(np.abs(w).max(), np.abs(x).max()) <= 1e-6 * scale, k
+            else:
+                assert np.abs(x - w).max() <= 2 * want["lr"], k
+    _assert_step_equals_reference(
+        {**want, "new": {k: v for k, v in want["new"].items() if k not in zero}},
+        [{**g, "new": {k: v for k, v in g["new"].items() if k not in zero}} for g in got])
+
+
+def reference_steps(cases: dict, config, batch_of, tmp_path) -> tuple:
+    """The reference's unsharded step for each case (``config(jax smoke
+    config, case)``, ``batch_of(cfg)``; ``perturb(params, rng)`` where
+    ``cases`` maps a case to it), from its init at key 1 at step 3, and the
+    inputs pickled for the ranks: ``(path, want)``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import Model as JModel
+    from repro.optim.adamw import AdamWConfig as JAdamW
+    from repro.optim.adamw import adamw_update as jax_adamw
+    from repro.optim.adamw import init_opt_state as jax_init_opt
+    from repro.optim.schedules import warmup_cosine as jax_warmup
+    from repro.utils import flatten_with_paths as jax_flatten
+
+    inputs, want = {}, {}
+    for case, perturb in cases.items():
+        jcfg = config(jax_smoke_config, case)
+        jm = JModel(jcfg)
+        params, _ = jm.init(jax.random.PRNGKey(1))
+        if perturb is not None:
+            params = perturb(params, np.random.default_rng(11))
+        opt = jax_init_opt(params, JAdamW())
+        batch = batch_of(jcfg)
+        state = {"params": params, "opt": opt, "step": jnp.asarray(3, jnp.int32),
+                 "rng": jnp.asarray([0, 1], jnp.uint32),
+                 "data": {"data_step": jnp.asarray(3, jnp.int32),
+                          "seed": jnp.asarray(0, jnp.int32)}}
+        loss, grads = jax.value_and_grad(
+            lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()}))(params)
+        lr = jax_warmup(state["step"], total=TP_SCHED["total_steps"], warmup=TP_SCHED["warmup"],
+                        peak_lr=TP_SCHED["peak_lr"])
+        new_p, new_o, om = jax_adamw(grads, opt, params, lr, JAdamW())
+        inputs[case] = {"state": jax.tree_util.tree_map(np.array, state), "batch": batch}
+        want[case] = {"loss": float(loss), "lr": float(lr), "grad_norm": float(om["grad_norm"]),
+                      "new": {k: np.asarray(v) for k, v in
+                              jax_flatten({"params": new_p, "opt": new_o})[0].items()}}
+    path = tmp_path / "inputs.pkl"
+    path.write_bytes(pickle.dumps(inputs))
+    return path, want
+
+
+def sharded_steps(rank: int, inputs: str, meshes: dict, config) -> dict:
+    """Each case of each mesh shape (``meshes``: shape -> cases) stepped
+    once from the reference's state, without and with ``seq_shard``,
+    with ``DTensor.full_tensor`` raising during the step: ``{(shape, case,
+    seq_shard): the new state whole, the metrics}``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.steps import make_train_step, train_state_from_numpy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils import flatten_with_paths
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a weight gathered whole: DTensor.full_tensor")
+
+    with open(inputs, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for shape, names in meshes.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        for case in names:
+            cfg = config(get_smoke_config, case)
+            batch = {k: torch.from_numpy(v) if v.dtype == np.float32 else
+                     torch.from_numpy(v).long() for k, v in cases[case]["batch"].items()}
+            for seq_shard in (False, True):
+                st = train_state_from_numpy(cases[case]["state"], cfg, AdamWConfig(), mesh=mesh)
+                step_fn = make_train_step(cfg, AdamWConfig(), mesh=mesh, seq_shard=seq_shard,
+                                          **TP_SCHED)
+                full_tensor, DTensor.full_tensor = DTensor.full_tensor, refuse
+                try:
+                    st, m = step_fn(st, batch)
+                finally:
+                    DTensor.full_tensor = full_tensor
+                new = {k: v.full_tensor().numpy() for k, v in flatten_with_paths(
+                    {"params": st["params"], "opt": st["opt"]})[0].items()}
+                out[shape, case, seq_shard] = {
+                    "new": new, "loss": float(m["loss"]), "lr": float(m["lr"]),
+                    "grad_norm": float(m["grad_norm"]), "step": int(st["step"].to_local()),
+                    "path": m["path"]}
+    return out
+
+
 def test_sharding_context_redistributes_a_dtensor_activation(crossed):
     """``constrain(x, "resid")`` inside ``sharding_context`` gives the
     residual stream, sharded over data only, the installed placements
@@ -435,88 +560,24 @@ def _tp_batch(cfg) -> dict:
     return batch
 
 
-@pytest.fixture(scope="module")
-def tp_reference(tmp_path_factory):
-    """The reference's unsharded step for each of :data:`TP_CASES`, and its
-    inputs pickled for the ranks."""
-    import jax
-    import jax.numpy as jnp
-
-    from repro.configs import get_smoke_config as jax_smoke_config
-    from repro.models import Model as JModel
-    from repro.optim.adamw import AdamWConfig as JAdamW
-    from repro.optim.adamw import adamw_update as jax_adamw
-    from repro.optim.adamw import init_opt_state as jax_init_opt
-    from repro.optim.schedules import warmup_cosine as jax_warmup
-    from repro.utils import flatten_with_paths as jax_flatten
-
-    cases, want = {}, {}
-    for arch in TP_CASES:
-        jcfg = _tp_config(jax_smoke_config, arch)
-        jm = JModel(jcfg)
-        params, _ = jm.init(jax.random.PRNGKey(1))
-        opt = jax_init_opt(params, JAdamW())
-        batch = _tp_batch(jcfg)
-        state = {"params": params, "opt": opt, "step": jnp.asarray(3, jnp.int32),
-                 "rng": jnp.asarray([0, 1], jnp.uint32),
-                 "data": {"data_step": jnp.asarray(3, jnp.int32),
-                          "seed": jnp.asarray(0, jnp.int32)}}
-        loss, grads = jax.value_and_grad(
-            lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()}))(params)
-        lr = jax_warmup(state["step"], total=TP_SCHED["total_steps"], warmup=TP_SCHED["warmup"],
-                        peak_lr=TP_SCHED["peak_lr"])
-        new_p, new_o, om = jax_adamw(grads, opt, params, lr, JAdamW())
-        cases[arch] = {"state": jax.tree_util.tree_map(np.array, state), "batch": batch}
-        want[arch] = {"loss": float(loss), "lr": float(lr), "grad_norm": float(om["grad_norm"]),
-                      "new": {k: np.asarray(v) for k, v in
-                              jax_flatten({"params": new_p, "opt": new_o})[0].items()}}
-    path = tmp_path_factory.mktemp("tp") / "tp_inputs.pkl"
-    path.write_bytes(pickle.dumps(cases))
-    return path, want
-
-
-def _tp_rank(rank: int, inputs: str, mesh_shape: tuple) -> dict:
-    """One tensor-parallel step a case of this mesh (by its name), without
-    and with ``seq_shard``, from the reference's state."""
-    from torch.distributed.device_mesh import init_device_mesh
-
-    from repro_torch.distributed.steps import make_train_step, train_state_from_numpy
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.utils import flatten_with_paths
-
-    mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
-    with open(inputs, "rb") as f:
-        cases = pickle.load(f)
-    out = {}
-    for arch in TP_MESHES[mesh_shape]:
-        cfg = _tp_config(get_smoke_config, arch)
-        batch = {k: torch.from_numpy(v) if v.dtype == np.float32 else torch.from_numpy(v).long()
-                 for k, v in cases[arch]["batch"].items()}
-        for seq_shard in (False, True):
-            st = train_state_from_numpy(cases[arch]["state"], cfg, AdamWConfig(), mesh=mesh)
-            step_fn = make_train_step(cfg, AdamWConfig(), mesh=mesh, seq_shard=seq_shard,
-                                      **TP_SCHED)
-            st, m = step_fn(st, batch)
-            new = {k: v.full_tensor().numpy() for k, v in flatten_with_paths(
-                {"params": st["params"], "opt": st["opt"]})[0].items()}
-            out[arch, seq_shard] = {"new": new, "loss": float(m["loss"]), "lr": float(m["lr"]),
-                                    "grad_norm": float(m["grad_norm"]),
-                                    "step": int(st["step"].to_local()), "path": m["path"]}
-    return out
+def _tp_rank(rank: int, inputs: str) -> dict:
+    return sharded_steps(rank, inputs, TP_MESHES, _tp_config)
 
 
 @pytest.fixture(scope="module")
-def tp_steps(tp_reference):
-    return {shape: run_ranks(_tp_rank, 4, args=(str(tp_reference[0]), shape),
-                             timeout_s=GROUP_TIMEOUT_S, threads=1)
-            for shape in TP_MESHES}
+def tp_steps(tmp_path_factory):
+    """The reference's unsharded step for each of :data:`TP_CASES`, and the
+    ranks' steps on each of :data:`TP_MESHES`, without and with
+    ``seq_shard``."""
+    path, want = reference_steps({case: None for case in TP_CASES}, _tp_config, _tp_batch,
+                                 tmp_path_factory.mktemp("tp"))
+    return want, run_ranks(_tp_rank, 4, args=(str(path),), timeout_s=GROUP_TIMEOUT_S, threads=1)
 
 
 @pytest.mark.parametrize("seq_shard", [False, True], ids=["", "seq_shard"])
 @pytest.mark.parametrize("shape,arch", [(s, a) for s, archs in TP_MESHES.items() for a in archs],
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
-def test_tensor_parallel_train_step_equals_reference(tp_reference, tp_steps, shape, arch,
-                                                     seq_shard):
+def test_tensor_parallel_train_step_equals_reference(tp_steps, shape, arch, seq_shard):
     """The ``tp`` path's step against the reference's unsharded one, at
     ``test_sharded_train_step_equals_reference``'s tolerances. The cases
     cover each branch of the layers: on 2×2 the q and kv heads, the MLP
@@ -528,9 +589,10 @@ def test_tensor_parallel_train_step_equals_reference(tp_reference, tp_steps, sha
     ``seq_shard`` each rank's loss covers its positions and the sums are
     added). ``seq_shard`` splits the residual stream along S between
     layers (internvl2's 8 prefix positions and 12 tokens included)."""
-    got = [r[arch, seq_shard] for r in tp_steps[shape]]
+    want, ranks = tp_steps
+    got = [r[shape, arch, seq_shard] for r in ranks]
     assert {g["path"] for g in got} == {"tp"}
-    _assert_step_equals_reference(tp_reference[1][arch], got)
+    _assert_step_equals_reference(want[arch], got)
 
 
 def _no_gather_rank(rank: int, archs: tuple = TP_ARCHS, moe_buf: bool = False) -> dict:
@@ -794,26 +856,66 @@ def test_moe_steps_gather_no_weight():
             assert r[arch] == {"paths": ["tp"] * 6, "finite": True}, (arch, r[arch])
 
 
+def _flags_rank(rank: int) -> dict:
+    """hymba's, xlstm's and whisper's smoke train steps on 1×2 from one
+    init, without a flag, with ``seq_shard`` and with ``moe_buf_shard``:
+    the loss, the grad norm and the new params."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.steps import make_init_fn, make_train_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils import flatten_with_paths
+
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    rng = np.random.default_rng(2)
+    out = {}
+    for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-tiny"):
+        cfg = get_smoke_config(arch).with_(dtype="float32")
+        batch = {k: torch.from_numpy(v).long() for k, v in _tp_batch(cfg).items()}
+        if cfg.encdec:
+            batch["enc_frames"] = torch.from_numpy(
+                rng.standard_normal((4, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        for flag in ("", "seq_shard", "moe_buf_shard"):
+            st = make_init_fn(cfg, AdamWConfig(), seed=1, mesh=mesh)()
+            step = make_train_step(cfg, AdamWConfig(), mesh=mesh, **({flag: True} if flag else {}))
+            st, m = step(st, batch)
+            out[arch, flag] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                               "path": m["path"], "moe_buf_shard": m["moe_buf_shard"],
+                               "params": {k: v.full_tensor().numpy().tobytes() for k, v in
+                                          flatten_with_paths(st["params"])[0].items()}}
+    return out
+
+
+@pytest.fixture(scope="module")
+def flag_steps():
+    return run_ranks(_flags_rank, 2, timeout_s=GROUP_TIMEOUT_S, threads=1)
+
+
 @pytest.mark.parametrize("flag", ["seq_shard", "moe_buf_shard"])
 @pytest.mark.parametrize("arch,item", [("hymba-1.5b", "4f"), ("xlstm-1.3b", "4f"),
                                        ("whisper-tiny", "4g")])
-def test_families_still_gathered_refuse_the_flags(arch, item, flag):
-    """hymba's, xlstm's and whisper's sharded steps still gather their
-    weights, so ``make_train_step`` refuses ``seq_shard`` and
-    ``moe_buf_shard`` on a mesh, citing their ROADMAP item (4f, 4g), and
-    the dry run's ``check_flags`` refuses the same; granite and deepseek
-    take both."""
-    from repro_torch.distributed.sharding import AbstractMesh
-    from repro_torch.distributed.steps import make_train_step
-    from repro_torch.launch.dryrun import check_flags
-    from repro_torch.optim import AdamWConfig
-
-    mesh = AbstractMesh((2, 2), ("data", "model"))  # refused before the mesh is used
-    with pytest.raises(NotImplementedError, match=f"{flag}.*item {item}"):
-        make_train_step(get_smoke_config(arch), AdamWConfig(), mesh=mesh, **{flag: True})
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        check_flags([arch], flag == "seq_shard", flag == "moe_buf_shard")
-    check_flags(["granite-moe-1b-a400m", "deepseek-v3-671b"], True, True)
+def test_families_still_gathered_refuse_the_flags(flag_steps, arch, item, flag):
+    """(Named when these families' steps gathered their weights and
+    refused both flags, until ROADMAP items 4f and 4g.) hymba's, xlstm's
+    and whisper's sharded steps now compute on their shards and take
+    ``seq_shard`` and ``moe_buf_shard`` wherever the reference takes them,
+    on a 1×2 mesh from one init: ``moe_buf_shard`` (no MoE layer in any of
+    them) and whisper's ``seq_shard`` (the reference's encoder–decoder
+    constrains no residual stream) are bitwise the step without the flag;
+    hymba's and xlstm's ``seq_shard`` splits the residual stream and
+    computes the same step within 1e-6 (the reference's own criteria are
+    in ``test_torch_mesh_hybrid.py``). Every step records the ``tp`` path
+    and the flag."""
+    for r in flag_steps:
+        plain, got = r[arch, ""], r[arch, flag]
+        assert plain["path"] == got["path"] == "tp"
+        assert got["moe_buf_shard"] == (flag == "moe_buf_shard")
+        if flag == "moe_buf_shard" or arch == "whisper-tiny":
+            assert (got["loss"], got["grad_norm"]) == (plain["loss"], plain["grad_norm"])
+            assert got["params"] == plain["params"]
+        else:
+            assert got["loss"] == pytest.approx(plain["loss"], rel=1e-6)
+            assert got["grad_norm"] == pytest.approx(plain["grad_norm"], rel=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -12,16 +12,21 @@ gloo process groups (CPU ranks), against the JAX package's unsharded
   model), so the decode wrote the new position into the shard that owns
   it. MoE routing groups are one per sequence, so a batch block routes as
   the whole batch does.
-* The dense, vlm and MoE families compute on their shards (the ``tp``
-  path, ``distributed/tp.py``): prefill keeps each rank's block of
-  positions of the caches (GQA's k/v, MLA's latent ``ckv``/``kr``), decode
-  attends over it where it lies (MLA's absorbed form scoring every head
-  over the rank's block); the MoE experts lie over (data, model) and their
-  slots move by all-to-all. They are held the same way on 1×4 too, where
-  qwen3's, internvl2's and granite's one q head a rank reads one kv head
-  of the whole kv projection, deepseek's 4 MLA heads split 4 ways, and
-  yi-34b's smoke config with 6 heads and 2 kv heads (here on 2×2 and 1×4)
-  keeps its attention whole on 1×4.
+* Every family computes on its shards (the ``tp`` path,
+  ``distributed/tp.py``): prefill keeps each rank's block of positions of
+  the caches (GQA's k/v, hymba's rolled window slots, MLA's latent
+  ``ckv``/``kr``, whisper's self k/v and its cross ``xk``/``xv`` over the
+  encoder's frames) and the recurrent states (the SSD's, the mLSTM's)
+  whole on the heads, each rank computing its heads' part; decode attends
+  over each block where it lies (MLA's absorbed form scoring every head
+  over the rank's block; the cross caches only read); the MoE experts lie
+  over (data, model) and their slots move by all-to-all. They are held the
+  same way on 1×4 too, where qwen3's, internvl2's, granite's and hymba's
+  one q head a rank reads one kv head of the whole kv projection (hymba's
+  one SSD head a rank beside it), deepseek's 4 MLA heads, whisper's 4
+  heads and xlstm's 4 (its smoke config given 4 in both packages) split 4
+  ways, and yi-34b's smoke config with 6 heads and 2 kv heads (here on
+  2×2 and 1×4) keeps its attention whole on 1×4.
 * On a 1×1 mesh both steps equal ``Model.prefill``/``decode`` without a
   mesh bit for bit.
 * ``cache_axes`` and ``model_axes_for`` equal the reference's trees.
@@ -54,10 +59,13 @@ GROUP_TIMEOUT_S = 120
 CASES = {"qwen3-1.7b": (12, 16), "granite-moe-1b-a400m": (12, 16), "hymba-1.5b": (48, 64),
          "xlstm-1.3b": (12, 16), "deepseek-v3-671b": (12, 16), "whisper-tiny": (12, 16),
          "internvl2-76b": (12, 16), "yi-34b": (12, 16)}
-# replacements in both packages' smoke configs: yi's 6 heads do not divide 4
-OVERRIDES = {"yi-34b": {"n_heads": 6, "n_kv_heads": 2}}
-# the 1x4 cases (dense, vlm and MoE)
-TP_ARCHS = ("qwen3-1.7b", "internvl2-76b", "yi-34b", "granite-moe-1b-a400m", "deepseek-v3-671b")
+# replacements in both packages' smoke configs: yi's 6 heads do not divide
+# 4; xlstm's 2 would not split 4 ways
+OVERRIDES = {"yi-34b": {"n_heads": 6, "n_kv_heads": 2},
+             "xlstm-1.3b": {"n_heads": 4, "n_kv_heads": 4}}
+# the 1x4 cases (every family)
+TP_ARCHS = ("qwen3-1.7b", "internvl2-76b", "yi-34b", "granite-moe-1b-a400m", "deepseek-v3-671b",
+            "hymba-1.5b", "xlstm-1.3b", "whisper-tiny")
 MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-v3-671b")
 BATCH = 4
 DECODE_STEPS = 2
@@ -207,9 +215,8 @@ def test_sharded_prefill_and_decode_equal_reference_on_2x2(reference, ranks_2x2,
             _close(lg, wl, f"decode {i} logits")
             _cache_blocks_close(cb, wc, f"decode {i}")
         blocks.add(tuple(sorted((k, idx) for k, (idx, _) in got["prefill"].items())))
-        tp_path = arch in TP_ARCHS or arch in ("stablelm-12b", "command-r-plus-104b")
         assert got["experts"] == (["data", "model"] if arch in MOE_ARCHS else [])
-        assert got["paths"] == (("tp", "tp") if tp_path else ("gathered", "gathered"))
+        assert got["paths"] == ("tp", "tp")
     # each rank its own blocks; the mLSTM state has no seq dim, so the two
     # ranks of a data row hold the same block
     assert len(blocks) == (2 if arch == "xlstm-1.3b" else 4)
@@ -220,7 +227,9 @@ def test_tensor_parallel_prefill_and_decode_equal_reference_on_1x4(reference, ra
     """On 1×4 (one data row, the model axis 4 ways) the ``tp`` path's
     logits within 1e-5 of each max and each rank's block of positions of
     every cache (all kv heads) within 1e-5 of its block of the reference's,
-    after the prefill and after each decode step: four distinct blocks."""
+    after the prefill and after each decode step: four distinct blocks
+    (one for xlstm, whose mLSTM state has no positions: every rank holds
+    it whole)."""
     want = reference[2][arch]
     blocks = set()
     for r in ranks_1x4:
@@ -232,7 +241,7 @@ def test_tensor_parallel_prefill_and_decode_equal_reference_on_1x4(reference, ra
             _close(lg, wl, f"decode {i} logits")
             _cache_blocks_close(cb, wc, f"decode {i}")
         blocks.add(tuple(sorted((k, idx) for k, (idx, _) in got["prefill"].items())))
-    assert len(blocks) == 4
+    assert len(blocks) == (1 if arch == "xlstm-1.3b" else 4)
 
 
 def test_cache_placements_on_2x2(ranks_2x2):

@@ -4,7 +4,7 @@
     python3 tools/dryrun_table.py experiments/dryrun_torch
 
 One row a cell JSON in the directory, production meshes first: how the
-steps compute (``tp`` or ``gathered``; ``+seq_shard`` and
+steps compute (``tp``; ``+seq_shard`` and
 ``+moe_buf_shard`` after a train cell's shape, a depth cut as ``(N
 layers)``), per-device FLOPs, bytes, collective bytes (of them
 all-gathered; all-to-all), peak live memory and its ratio to an H100's
