@@ -8,7 +8,8 @@ with nvcc and prints one JSON line per phase:
   env        torch / CUDA versions, the card, nvidia-smi's name, power limit
              and SM clocks (now and the most the card allows)
   build      nvcc wall time and each kernel's registers and spills from ptxas
-             (K2 and the tensor-core K3 must spill nothing)
+             (K2, the tensor-core K3 and its backward's tensor-core
+             kernels must spill nothing)
   navlint    ``python -m repro_torch.analysis --check --coverage`` over the
              port exits 0 with no finding; every ``tests/lint_fixtures`` file
              gives exactly the findings its ``# EXPECT:`` comments name
@@ -102,8 +103,9 @@ with nvcc and prints one JSON line per phase:
              tokens each, against ``--workers 0``'s first 8
   chaos      three cells of ``repro_torch.chaos.matrix`` with cuda workers
              (a ``hop.*`` kill, a relay kill, a SIGKILL at stream accept),
-             each through the matrix's CLI, the three at once: each product
-             bitwise the calm run's, ``hop_root`` empty
+             each through the matrix's CLI, the three at once and beside
+             the CLI's ``--workers 2`` run: each product bitwise the calm
+             run's, ``hop_root`` empty
   train      qwen3-1.7b trained at full width by the Fig. 7 launcher
              (``python -m repro_torch.launch.train``, one process a run, so
              its deterministic settings precede its first CUDA call): run B
@@ -116,9 +118,15 @@ with nvcc and prints one JSON line per phase:
              its lse in every layer's forward and remat recompute, all
              tensor-core launches. Step seconds, tokens/s, model TFLOP/s,
              publish and restart seconds and bytes, peak memory, free disk;
-             K3 with lse against its plain version and against SDPA, the plain
-             attention backward timed, and a 2-layer float32 model's
-             gradients with K3 against plain attention under autograd
+             K3 with lse against its plain version and against SDPA; its
+             backward kernels against the plain attention backward at every
+             such shape (within 1e-2, two calls bitwise; within one bf16
+             rounding plus 2**-10 of each gradient's RMS of its float32
+             answer, which a planted skipped key tile breaks), timed beside
+             it and SDPA's backward; a 2-layer float32 model's gradients with K3
+             (the CUDA-core backward) against plain attention under autograd;
+             in every train phase and per-device train cell one tensor-core
+             backward launch a layer a step
   train_moe  the same two launcher runs for granite-moe-1b-a400m (the runs
              keep 4 of 24 layers, widths kept), K3 with lse at head dim 64
   serve_hybrid  hymba-1.5b at full width (32 layers of windowed attention
@@ -134,16 +142,17 @@ with nvcc and prints one JSON line per phase:
   xlstm      xlstm-1.3b at full width (48 mLSTM layers, no attention, no
              TPU kernel): served as the serve phase is, transcripts equal,
              one request resumed with zero re-prefill from its 202 MB mLSTM
-             state; full-depth training steps in this process
+             state; training steps in this process at 12 of its 48 layers
   serve_mla  deepseek-v3-671b at full width, its depth cut to 4 layers (3
              dense, 1 MoE of 256 experts, top 8, sigmoid routing, 1 shared;
              15.1 B parameters) through ``launch.serve.main --layers 4``:
              4 x 4 K3 launches, all tensor-core at qk 192 / v 128;
              transcripts equal ``run_reference``'s; one request resumed
              with zero re-prefill from its latent cache; prefill logits
-             with K3 against the plain attention; one dense MLA layer on
-             the card against the float32 CPU path; where the time goes
-             (K3, the MLA projections, the MoE dispatch, expert GEMMs)
+             with K3 against the plain attention; one dense MLA layer and
+             the MoE layer on the card against the float32 CPU path; where
+             the time goes (K3, the MLA projections, the MoE dispatch,
+             expert GEMMs)
   train_encdec  whisper-tiny at full width (4 encoder + 4 decoder layers,
              1,500 frames a sample, not cut) through the launcher at 4 x
              2048 tokens: B reclaimed after step 2 and resumed bitwise A's,
@@ -161,8 +170,9 @@ the fabric's counted inside the workers too; K3: the vision and dryrun
 phases' prefills, the serve, serve_moe,
 serve_hybrid and serve_mla phases' ``main``, the serving workers' prefills
 and the training runs of the four attention models, each counted inside
-its launcher process), the nvidia-smi
-line, and last
+its launcher process; K3's backward, a row of its own: the train phases,
+the mesh, the dryrun phase's per-device train steps and the in-process
+vision and whisper steps), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
 card, or a directory without the rest of the repository.
@@ -203,6 +213,12 @@ FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, bf16 dense tensor cores
 F32_TOL = 2e-5  # float32 sums in another order: tests/test_kernels.py's float32 tolerance
 BF16_TOL = 2e-2  # tests/test_kernels.py's bfloat16 tolerance
+BWD_BF16_TOL = 1e-2  # K3's backward against the plain one in bf16: tests/test_torch_cuda.py's
+# K3's backward against the plain one's float32 answer: one bf16 rounding,
+# 2**-8 |x|, plus this share of the gradient's RMS for the float32 sums
+# where x cancels to ~0 (2**-12 left the kernels at up to 0.9989 of the
+# limit, about what the rounding alone reaches over millions of elements)
+BWD_ATOL_RMS = 2.0 ** -10
 BF16_ROUNDING = 2.0 ** -8  # one round to nearest bf16 moves x by at most 2**-8 |x|
 # the serve phase: qwen3-1.7b at full width, the CLI's requests, and the
 # request published and resumed; serve_moe the same for granite-moe-1b-a400m
@@ -225,8 +241,8 @@ MLA_SERVE_SPEC = f"model:{MLA_ARCH}:full:layers={MLA_LAYERS}:seed=0"
 MLA_ON_CARD_TOKENS = 256  # the MLA layer checked against the float32 CPU path
 # deepseek's MoE layer on the card against the float32 CPU path at a
 # 512-token prefill group (capacity 20, still overflowed by the favoured
-# experts), cut from 2048 for the smoke's time: the CPU's float32 products
-# over all 256 experts took most of the check's 65 s on one H100 host
+# experts), cut from 2048 for the smoke's time: the host's float32 copy of
+# all 256 experts (45 GB) and its passes over it are most of the check
 MLA_MOE_ON_CARD_TOKENS = 512
 # train_encdec: whisper-tiny, 4 x 2048 decoder tokens and 4 x 1500 frames
 ENCDEC_ARCH = "whisper-tiny"
@@ -284,14 +300,18 @@ def serve_argv(arch: str, prompt_len: int = PROMPT_LEN, layers: int = 0) -> list
 
 
 SERVE_ARGV = serve_argv(SERVE_ARCH)
-# the serve CLI's routed mode (--workers 2) in the fleet phase: 2 of the
+# the serve CLI's routed mode (--workers 2) after the fleet phase: 2 of the
 # requests, 8 tokens each (every request's 32 took 77 s on one H100 host)
 CLI_FLEET_BATCH, CLI_FLEET_GEN = 2, 8
+# decode steps in each serve phase's profile (cut from 8 for the smoke's time)
+SERVE_PROFILE_STEPS = 4
 PUBLISH_EVERY = 16
 DROP_AT_DONE = 24  # the first host is dropped here; its last publish is at done 17
 # the serving fleet: two workers, a live migration after 8 rounds, a SIGKILL at 20
 FLEET_PUBLISH_EVERY, WARM_AT_ROUND, HANDOFF_AFTER, KILL_AT_ROUND = 8, 8, 4, 20
-# the chaos phase: a hop.* kill, a relay kill and a SIGKILL at stream accept
+# the chaos phase: a hop.* kill, a relay kill and a SIGKILL at stream
+# accept (115.7 s alone on one H100 host, so the cells run beside the
+# serve CLI's routed mode)
 CHAOS_CELLS = ("hop.before_restore:sigkill", "relay.mid_stream:kill_conn",
                "hop_stream.accept:sigkill")
 # the train phase: qwen3-1.7b through the launcher, 4 steps of 4 x 2048
@@ -317,10 +337,11 @@ def train_argv(arch: str, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH) -> lis
 # CMIs fit its budget: qwen3 2 of 28 (5.77 GB a CMI, 16.1 GiB for three),
 # granite 4 of 24 (3.70 GB), hymba 1 of 32 (1.98 GB: its untied 32,001-row
 # embeddings are most of it). The K3 checks, which write nothing, run at
-# the models' full shapes. The three train phases' in-process full-depth
-# steps were cut for the smoke's time (with them it took 1345 s of its
-# 1200 on one H100 host); xlstm's, its only training on the card, and
-# whisper's in-process step remain.
+# the models' full shapes. The smoke's own in-process full-depth steps
+# were cut for its time (with them it took 1345 s of its 1200 on one H100
+# host): qwen3's, granite's and hymba's; xlstm's, its only training step
+# without a mesh, runs at XLSTM_STEP_LAYERS; whisper's at full depth.
+XLSTM_STEP_LAYERS = 12
 TRAIN_WRITE_BUDGET = 17 * 2**30
 MOE_TRAIN_WRITE_BUDGET = 12 * 2**30
 HYBRID_TRAIN_WRITE_BUDGET = 6 * 2**30
@@ -328,7 +349,7 @@ ENCDEC_TRAIN_WRITE_BUDGET = 3 * 2**30  # whisper's three 0.69 GB CMIs, not cut
 # what the whole smoke may write (the machine's limit is 45 GiB a call)
 DISK_WRITE_LIMIT = 40 * 2**30
 # profiler ranges whose kernels form groups of their own
-RANGES = {"flash_attention_backward": "attention backward (plain torch)",
+RANGES = {"flash_attention_backward": "K3 backward (flash_attention_bwd kernels)",
           "adamw_update": "optimizer (AdamW)",
           "moe_dispatch": "MoE dispatch (router, sort, searchsorted, gathers)",
           "moe_experts": "MoE expert GEMMs (bmm)",
@@ -361,13 +382,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_ms(fn, kernel: str, reps: int, attempts: int = 3) -> float | None:
+def profiled_ms(fn, kernel: str, reps: int, attempts: int = 3,
+                per_call: int = 1) -> float | None:
     """Mean device time of one launch of the kernel named ``kernel`` while
-    ``fn`` runs, from torch.profiler's device events. Per recorded launch,
-    since the profiler may drop the first. A session late in the smoke has
-    recorded no device event at all where the same call early on did, so
-    a session without one is tried again, up to ``attempts`` in all (None
-    if none records any)."""
+    ``fn`` runs, from torch.profiler's device events (``per_call`` launches
+    of kernels whose names hold ``kernel`` a call of ``fn``: their sum).
+    Per recorded launch, since the profiler may drop the first. A session
+    late in the smoke has recorded no device event at all where the same
+    call early on did, so a session without one is tried again, up to
+    ``attempts`` in all (None if none records any)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -381,7 +404,7 @@ def profiled_ms(fn, kernel: str, reps: int, attempts: int = 3) -> float | None:
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
               and kernel in e.name]
         if us and sum(us) > 0:
-            return sum(us) / len(us) / 1e3
+            return sum(us) / len(us) * per_call / 1e3
     return None
 
 
@@ -728,6 +751,47 @@ def one_bf16_rounding(got: torch.Tensor, ref32: torch.Tensor) -> dict:
            "rounding_limit": f"2**-8 |x| + {F32_TOL}", "rounding_limit_use": use}
     assert use <= 1.0, out
     return out
+
+
+def bwd_rounding(grads, ref32) -> dict:
+    """K3's backward (dq, dk, dv in bf16) against the plain backward's
+    float32 answer on the same bf16-exact inputs: every element within one
+    bf16 rounding of it, 2**-8 |x|, plus BWD_ATOL_RMS of that gradient's
+    RMS (the float32 sums' and the bf16 hi + lo halves' own error, where
+    an element cancels to ~0). At 2k-4k positions |dq|, |dk|, |dv| are
+    ~0.02-0.05, so 1e-2 absolute would pass a skipped far key tile; this
+    limit follows each gradient's values. ``not_f32_rounded_share``: the
+    elements that differ from the float32 answer rounded to bf16."""
+    out = {}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref32):
+        err = (g.float() - r).abs()
+        rms = float(r.square().mean().sqrt())
+        use = float((err / (BF16_ROUNDING * r.abs() + BWD_ATOL_RMS * rms)).max())
+        out[name] = {"max_abs_err_vs_f32": float(err.max()), "rms": rms, "limit_use": use,
+                     "not_f32_rounded_share": float((g != r.to(g.dtype)).float().mean())}
+    out["limit"] = "2**-8 |x| + 2**-10 rms"
+    out["limit_use"] = max(out[n]["limit_use"] for n in ("dq", "dk", "dv"))
+    return out
+
+
+def dq_without_key_tile(q, k, v, o, lse, dout, dq, causal: bool, win: int,
+                        tile: int = 64) -> torch.Tensor:
+    """A planted fault: ``dq`` as a dQ kernel that skipped key tile 0 (its
+    first ``tile`` keys) in the later half of the query rows that see it
+    would give it, ``dq`` less that tile's scale dS K there in float32,
+    rounded to bf16. Tile 0 is those rows' farthest tile (at a window, its
+    edge), and their |dq| is the smallest."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    g, sq, d = q.shape[1] // k.shape[1], q.shape[2], q.shape[3]
+    kt, vt = (t[:, :, :tile].float().repeat_interleave(g, 1) for t in (k, v))
+    seen = flash_ops._visible(sq, k.shape[2], causal, win, q.device)[:, :tile]
+    rows = seen.any(1).nonzero()
+    seen[: (int(rows[-1]) + 1) // 2 if len(rows) else sq] = False
+    p = (q.float() @ kt.transpose(-1, -2) * d ** -0.5 - lse[..., None]).exp() * seen
+    ds = p * (dout.float() @ vt.transpose(-1, -2)
+              - (dout.float() * o.float()).sum(-1, keepdim=True))
+    return (dq.float() - ds @ kt * d ** -0.5).to(dq.dtype)
 
 
 def sdpa_backend(fn) -> str:
@@ -1477,6 +1541,8 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in name:
         return "K3 flash_attention"
+    if "flash_bwd" in name:
+        return RANGES["flash_attention_backward"]
     if any(tag in low for tag in ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "xmma")):
         return "matmul (cuBLAS)"
     if "memcpy" in low or "memset" in low:
@@ -1509,6 +1575,9 @@ def device_groups(prof) -> dict:
     k3_us = sum(e.time_range.elapsed_us() for e in device if "flash_fwd_kernel" in e.name)
     if groups.get("K3 flash_attention", 0.0) == 0.0:  # its ctypes launches have no op
         groups["K3 flash_attention"] = k3_us
+    bwd_us = sum(e.time_range.elapsed_us() for e in device if "flash_bwd" in e.name)
+    if groups.get(RANGES["flash_attention_backward"], 0.0) == 0.0 and bwd_us:  # the same
+        groups[RANGES["flash_attention_backward"]] = bwd_us
     rest = busy - sum(groups.values())
     if abs(rest) > 1.0:
         groups["not attributed"] = rest
@@ -1521,9 +1590,9 @@ def device_groups(prof) -> dict:
                                sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}}
 
 
-def profile_serve(engine, prompt: list[int], steps: int = 8) -> dict:
-    """Where one request's time goes: a 2048-token prefill and ``steps``
-    decode steps under torch.profiler, device time by kernel group and the
+def profile_serve(engine, prompt: list[int], steps: int = SERVE_PROFILE_STEPS) -> dict:
+    """Where one request's time goes: its prefill and ``steps`` decode
+    steps under torch.profiler, device time by kernel group and the
     device's idle share of each phase's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1651,14 +1720,15 @@ def run_serve_moe(root: Path, dev) -> dict:
 def _expert_stack(dev, gen, shape, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(X, a, b) expert weights N(0, scale**2) drawn on the card from
     ``gen`` one expert at a time and rounded to bf16, and the same values in
-    float32 on the host, filled expert by expert: neither device holds a
-    float32 or float64 draw of the whole stack (deepseek's 256 x 7168 x
-    2048 is 7.5 GB in bf16, 15 GB in float32)."""
+    float32 on the host, copied 16 experts at a time and widened there: the
+    card holds no float32 or float64 draw of the whole stack (deepseek's
+    256 x 7168 x 2048 is 7.5 GB in bf16, 15 GB in float32)."""
     card = torch.empty(shape, dtype=torch.bfloat16, device=dev)
-    host = torch.empty(shape, dtype=torch.float32)
     for x in range(shape[0]):
         card[x] = torch.randn(shape[1:], generator=gen, device=dev) * scale
-        host[x] = card[x].float().cpu()
+    host = torch.empty(shape, dtype=torch.float32)
+    for x in range(0, shape[0], 16):  # 16 experts a copy, widened on the host
+        host[x:x + 16] = card[x:x + 16].cpu()
     return card, host
 
 
@@ -1846,8 +1916,9 @@ def run_xlstm(root: Path, dev) -> dict:
     matrix products and elementwise work that the JAX package runs outside
     any Pallas kernel), transcripts equal ``run_reference``'s, one request
     published, dropped and resumed with zero re-prefill from its 202 MB
-    mLSTM state; then full-depth training steps in this process, timed,
-    with finite losses and the peak memory."""
+    mLSTM state; then training steps in this process at full width and
+    ``XLSTM_STEP_LAYERS`` of its 48 layers, timed, with finite losses and
+    the peak memory."""
     from repro_torch.configs import get_config
 
     metrics, launches, windows, peak = serve_counted(dev, XLSTM_ARCH)
@@ -1869,7 +1940,7 @@ def run_xlstm(root: Path, dev) -> dict:
             "tpu_kernels": "none: the JAX package runs the mLSTM outside any Pallas kernel"}
     del served, engine
     torch.cuda.reset_peak_memory_stats(dev)
-    line["full_depth_step"] = profile_train(dev, cfg.n_layers, XLSTM_ARCH)
+    line["cut_depth_step"] = profile_train(dev, XLSTM_STEP_LAYERS, XLSTM_ARCH)
     return line
 
 
@@ -1882,9 +1953,10 @@ def run_serve_mla(root: Path, dev) -> dict:
     rebuilt from the spec; one request published, dropped and resumed with
     zero re-prefill from its latent cache; prefill logits with K3 against
     the plain attention; one dense MLA layer and the MoE layer (all 256
-    experts) on the card against the float32 CPU path; where a prefill's
-    and a decode step's time goes (K3, the MLA range, the MoE dispatch,
-    expert GEMMs and combine)."""
+    experts, a prefill group of ``MLA_MOE_ON_CARD_TOKENS``) on the card
+    against the float32 CPU path; where a prefill's and a decode step's
+    time goes (K3, the MLA range, the MoE dispatch, expert GEMMs and
+    combine)."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
     from repro_torch.models.cases import check_mla_layer_on_device
@@ -2104,8 +2176,15 @@ def run_serve_fleet(root: Path, dev, local: dict) -> dict:
         router.close()
         sup.shutdown()
 
-    # the CLI's routed mode: two of the requests and their first tokens (a
-    # depth cut for the smoke's time), the tokens of --workers 0's
+    return out
+
+
+def run_serve_cli(local: dict) -> dict:
+    """The serve CLI's routed mode, ``launch.serve.main(--workers 2)``: two
+    of the serve phase's requests and their first tokens (a depth cut for
+    the smoke's time), the tokens of ``--workers 0``'s (``local``)."""
+    from repro_torch.launch import serve as launch_serve
+
     argv = list(SERVE_ARGV) + ["--workers", "2"]
     argv[argv.index("--batch") + 1] = str(CLI_FLEET_BATCH)
     argv[argv.index("--gen") + 1] = str(CLI_FLEET_GEN)
@@ -2115,10 +2194,10 @@ def run_serve_fleet(root: Path, dev, local: dict) -> dict:
     assert len(routed["transcripts"]) == CLI_FLEET_BATCH
     for rid, toks in routed["transcripts"].items():
         assert len(toks) == CLI_FLEET_GEN and toks == local["transcripts"][rid][:CLI_FLEET_GEN]
-    out["cli_workers_2"] = {k: routed[k] for k in ("mode", "prefill_tok_s", "decode_tok_s",
-                                                    "ttft_p50_s", "ttft_max_s")}
-    out["cli_workers_2"].update(wall_s=routed_s, batch=CLI_FLEET_BATCH, gen=CLI_FLEET_GEN,
-                                tokens_equal_workers_0=True)
+    out = {k: routed[k] for k in ("mode", "prefill_tok_s", "decode_tok_s", "ttft_p50_s",
+                                  "ttft_max_s")}
+    out.update(wall_s=routed_s, batch=CLI_FLEET_BATCH, gen=CLI_FLEET_GEN,
+               tokens_equal_workers_0=True, beside="the chaos phase's cells")
     return out
 
 
@@ -2127,32 +2206,44 @@ def run_serve_fleet(root: Path, dev, local: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def run_chaos(dev) -> dict:
-    """Three tour cells of the port's chaos matrix, each through its CLI
-    (``python -m repro_torch.chaos.matrix --cells <id>``) with its workers
-    on the card, the three at once (each in a directory of its own); a cell
-    that breaks an invariant exits non-zero."""
+def start_chaos(dev) -> dict:
+    """Start the tour cells of :data:`CHAOS_CELLS`, each through the chaos
+    matrix's CLI (``python -m repro_torch.chaos.matrix --cells <id>``) with
+    its workers on the card, all at once (each in a directory of its own);
+    :func:`finish_chaos` reads them."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
-    t0 = time.perf_counter()
     procs = {cell_id: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.chaos.matrix", "--cells", cell_id,
          "--device", str(dev)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for cell_id in CHAOS_CELLS}
+    return {"procs": procs, "t0": time.perf_counter(), "device": str(dev)}
+
+
+def stop_chaos(chaos: dict) -> None:
+    """End every cell process of ``chaos`` still running."""
+    for proc in chaos["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_chaos(chaos: dict) -> dict:
+    """Wait for the cells :func:`start_chaos` started; a cell that breaks
+    an invariant exits non-zero. Every cell's process is ended on the way
+    out, whatever happened."""
     cells = {}
     try:
-        for cell_id, proc in procs.items():
+        for cell_id, proc in chaos["procs"].items():
             log, _ = proc.communicate(timeout=600)
             assert proc.returncode == 0 and "1/1 cells survived" in log, (cell_id, log[-3000:])
             took = re.search(r"ok\s+\(\s*([0-9.]+)s\)", log)
             cells[cell_id] = {"s": float(took.group(1)), "verdict": "ok"}
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return {"cells": cells, "device": str(dev), "concurrent": True,
-            "wall_s": time.perf_counter() - t0}
+        stop_chaos(chaos)
+    return {"cells": cells, "device": chaos["device"], "concurrent": True,
+            "beside": "the serve CLI's --workers 2 run (serve_fleet.cli_workers_2)",
+            "wall_s": time.perf_counter() - chaos["t0"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2278,9 +2369,12 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
     assert starts == [(False, 0), (True, TRAIN_PREEMPT_AT)], starts
     per_run = 2 * TRAIN_STEPS * k3_per_forward(cfg)  # forward + remat recompute
     for k in "AB":
+        # one backward (tensor-core) for each layer's forward with lse that
+        # autograd keeps: the recompute's
         launched = end[k]["launches"]
         assert launched == {"flash_attention": per_run, "flash_attention_wgmma": per_run,
-                            "flash_attention_lse": per_run}, (k, launched)
+                            "flash_attention_lse": per_run, "flash_attention_bwd": per_run // 2,
+                            "flash_attention_bwd_mma": per_run // 2}, (k, launched)
 
     step_s = {k: [r["s"] for r in rec[k] if r["event"] == "step"] for k in "AB"}
     median_s = statistics.median(step_s["A"][1:])  # steps 2-4: step 1 warms up
@@ -2356,15 +2450,19 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
         unprofiled.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
     assert all(math.isfinite(loss) for loss in losses), losses
-    before = flash_attention.launches
+    before = (flash_attention.launches, flash_attention.bwd_launches,
+              flash_attention.bwd_mma_launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, tokens)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    k3_launches = flash_attention.launches - before
+    k3_launches = flash_attention.launches - before[0]
+    bwd_launches = flash_attention.bwd_launches - before[1]
     want_k3 = 2 * k3_per_forward(cfg)  # forward + remat recompute
     assert k3_launches == want_k3, (k3_launches, want_k3)
+    # one backward a layer, all tensor-core (bf16 models)
+    assert bwd_launches == flash_attention.bwd_mma_launches - before[2] == want_k3 // 2
     del state, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -2373,6 +2471,10 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
     k3_kernels = sum("flash_fwd_kernel" in e.name for e in device)
     k3_wgmma = sum("flash_fwd_kernel_wgmma" in e.name for e in device)
     assert k3_wgmma == k3_kernels and (k3_kernels > 0) == (want_k3 > 0), (k3_wgmma, k3_kernels)
+    bwd_kernels = sum("flash_bwd" in e.name for e in device)
+    bwd_mma = sum("flash_bwd_dkdv_mma" in e.name or "flash_bwd_dq_mma" in e.name for e in device)
+    assert (bwd_kernels > 0) == (want_k3 > 0) and not any(
+        "flash_bwd_dkdv<" in e.name or "flash_bwd_dq<" in e.name for e in device), bwd_kernels
     step_s = statistics.median(unprofiled[1:])
     flops = step_flops(cfg, batch, seq)
     return {"n_layers": cfg.n_layers, "batch": batch, "seq_len": seq, "losses": losses,
@@ -2385,6 +2487,9 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
             "device_busy_ms": busy / 1e3, "device_idle_share": 1 - busy / wall_us,
             "kernel_launches": len(device), "k3_launches": k3_launches,
             "k3_kernels_in_trace": k3_kernels, "k3_wgmma_kernels_in_trace": k3_wgmma,
+            "k3_backward_launches": bwd_launches,
+            "k3_backward_kernels_in_trace": bwd_kernels,
+            "k3_backward_mma_kernels_in_trace": bwd_mma,
             "groups_ms": split["groups_ms"], "top_kernels_ms": split["top_kernels_ms"]}
 
 
@@ -2853,6 +2958,7 @@ def run_dryrun(root: Path, dev) -> dict:
     mixers = by_name(DRYRUN_MIXER_CELLS, tp_cells[n_tp + n_moe:])
     launches = {k: prefill["launches"][k] + sum(c["launches"][k] for c in tp_cells)
                 for k in prefill["launches"]}
+    launches["flash_attention_bwd"] = sum(c["launches"]["flash_attention_bwd"] for c in tp_cells)
     return {"arch": DRYRUN_ARCH, "mesh": "1x1 (data, model), cuda, nccl, world 1",
             "dryrun_mesh": f"{DRYRUN_MESH} fake cuda ({DRYRUN_DATA_RANKS} ranks): the 1x1 "
                            "step's per-device program (the whole model, a 16th of the batch)",
@@ -2950,7 +3056,9 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
     def counts():
         return {"flash_attention": flash_attention.launches,
                 "flash_attention_wgmma": flash_attention.wgmma_launches,
-                "flash_attention_lse": flash_attention.lse_launches}
+                "flash_attention_lse": flash_attention.lse_launches,
+                "flash_attention_bwd": flash_attention.bwd_launches,
+                "flash_attention_bwd_mma": flash_attention.bwd_mma_launches}
 
     join_fake_group(256)
     try:
@@ -2987,6 +3095,7 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
             held = torch.cuda.memory_allocated(dev)
             flash_attention.launches = flash_attention.wgmma_launches = 0
             flash_attention.lse_launches = 0
+            flash_attention.bwd_launches = flash_attention.bwd_mma_launches = 0
             torch.cuda.reset_peak_memory_stats(dev)
             res, wall, dev_ms = _timed(lambda: step(*args))
             launches = counts()
@@ -3004,10 +3113,12 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
             n = k3_per_forward(ccfg)
             if shape.kind == "prefill":
                 assert launches == {"flash_attention": n, "flash_attention_wgmma": n,
-                                    "flash_attention_lse": 0}, launches
-            else:  # the forward and its recomputation in the backward, with lse
+                                    "flash_attention_lse": 0, "flash_attention_bwd": 0,
+                                    "flash_attention_bwd_mma": 0}, launches
+            else:  # the forward and its recomputation with lse, one tensor-core backward
                 assert launches == {"flash_attention": 2 * n, "flash_attention_wgmma": 2 * n,
-                                    "flash_attention_lse": 2 * n}, launches
+                                    "flash_attention_lse": 2 * n, "flash_attention_bwd": n,
+                                    "flash_attention_bwd_mma": n}, launches
             assert step.path == "tp", step.path
             del args, tokens, frames
             out.append(rec)
@@ -3086,6 +3197,8 @@ def run_mesh(root: Path, dev, no_mesh: dict) -> dict:
         assert got.pspec == want[path].record().pspec, path
     per_run = 2 * TRAIN_STEPS * k3_per_forward(cfg)  # forward + remat recompute
     assert end["launches"]["flash_attention"] == per_run, end["launches"]
+    assert (end["launches"]["flash_attention_bwd"] == end["launches"]["flash_attention_bwd_mma"]
+            == per_run // 2), end["launches"]
     return {"arch": ENCDEC_ARCH, "mesh": "1x1 (data, model), cuda, nccl, world 1",
             "remesh": "1x1,1x1", "preempt_at": TRAIN_PREEMPT_AT,
             "vs": "train_encdec.A (no mesh, uninterrupted)",
@@ -3105,8 +3218,14 @@ def k3_lse_case(dev, b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int
     """K3 with lse (the training forward) at one shape against its plain
     version (lse within LSE_TOL, the output within one bf16 rounding), its
     time with and without lse, SDPA's forward (saving its lse for a
-    backward; a window as a boolean mask) and backward, and the plain
-    attention backward, beside the forward's and backward's bounds."""
+    backward; a window as a boolean mask) and backward; K3's backward
+    kernels (``repro_torch::flash_attention_bwd``, the tensor-core variant
+    at (D, Dv) in ``WGMMA_HEAD_DIMS``) against the plain attention backward
+    on the same inputs (within BWD_BF16_TOL, as tests/test_torch_cuda.py
+    holds them; two calls bitwise equal) and against its float32 answer
+    within :func:`bwd_rounding`'s limit, which a planted fault (key tile 0
+    skipped in dq) must break; the kernels' time and the plain backward's,
+    beside the forward's and backward's bounds."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -3134,14 +3253,37 @@ def k3_lse_case(dev, b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int
     torch.cuda.synchronize()
     bwd_first_ms = (time.perf_counter() - t0) * 1e3
     assert all(torch.isfinite(g).all() for g in grads)
-    del grads
+    bwd_args = (q, k, v, got, lse, dout, causal, win, d ** -0.5)
+    fa = flash_ops.flash_attention
+    before = (fa.bwd_launches, fa.bwd_mma_launches)
+    kgrads = flash_ops.flash_attention_bwd(*bwd_args)
+    mma = (d, dv) in flash_ops.WGMMA_HEAD_DIMS
+    assert (fa.bwd_launches, fa.bwd_mma_launches) == (before[0] + 1, before[1] + mma)
+    bwd_err = 0.0
+    for kg, pg in zip(kgrads, grads):
+        torch.testing.assert_close(kg.float(), pg.float(), atol=BWD_BF16_TOL, rtol=BWD_BF16_TOL)
+        bwd_err = max(bwd_err, float((kg.float() - pg.float()).abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(kgrads, flash_ops.flash_attention_bwd(*bwd_args)))
+    ref32 = flash_ops.flash_attention_backward_plain(q.float(), k.float(), v.float(), got.float(),
+                                                     lse, dout.float(), causal=causal, window=win)
+    bwd_rnd = bwd_rounding(kgrads, ref32)
+    assert bwd_rnd["limit_use"] <= 1.0, bwd_rnd
+    faulty = dq_without_key_tile(q, k, v, got, lse, dout, kgrads[0], causal, win)
+    fault = bwd_rounding((faulty, *kgrads[1:]), ref32)["dq"]
+    fault["passes_1e-2"] = bool(torch.allclose(faulty.float(), grads[0].float(),
+                                               atol=BWD_BF16_TOL, rtol=BWD_BF16_TOL))
+    assert fault["limit_use"] > 1.0, fault  # the check fails the planted fault
+    del grads, kgrads, ref32, faulty
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     sdpa = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
     work = k3_work(b, h, hkv, sq, sk, d, dv, causal, win)
     pairs = work["visible_pairs"]
     # the backward: S recomputed, dQ = dS K and dK = dS^T Q over D; dV = P^T
-    # dO and dP = dO V^T over Dv (10 D a pair where Dv = D)
+    # dO and dP = dO V^T over Dv (10 D a pair where Dv = D); the kernels'
+    # own products: S and dP once more in the dQ pass, and each product
+    # with P or dS twice (its bf16 hi and lo halves), 2 (6 D + 5 Dv)
     bwd_flops = 2 * b * h * (3 * d + 2 * dv) * pairs
+    bwd_floor_flops = 2 * b * h * (6 * d + 5 * dv) * pairs
     nbytes = work["bytes"]
     out = {
         "shape": f"q bf16[{b},{h},{sq},{d}], k bf16[{b},{hkv},{sk},{d}], "
@@ -3161,6 +3303,16 @@ def k3_lse_case(dev, b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int
             lambda: F.scaled_dot_product_attention(*leaves, **sdpa_kw)),
         "library_sdpa_backward_ms": cuda_ms(
             lambda: torch.autograd.grad(sdpa, leaves, dout, retain_graph=True), 10),
+        "attention_backward_ms": cuda_ms(lambda: flash_ops.flash_attention_bwd(*bwd_args), 10),
+        "attention_backward_kernel_only_ms": profiled_ms(
+            lambda: flash_ops.flash_attention_bwd(*bwd_args), "flash_bwd", 10, per_call=3),
+        "attention_backward_kernel": "mma" if mma else "cuda-core",
+        "attention_backward_max_abs_err": bwd_err, "attention_backward_tol": BWD_BF16_TOL,
+        "attention_backward_vs_f32": bwd_rnd,
+        "attention_backward_rounding_limit_use": bwd_rnd["limit_use"],
+        "attention_backward_planted_fault": {
+            "fault": "key tile 0 (64 keys) skipped in dq's later half of the rows that see "
+                     "it", **fault},
         "attention_backward_plain_ms": cuda_ms(
             lambda: flash_ops.flash_attention_backward_plain(q, k, v, got, lse, dout,
                                                              causal=causal, window=win), 3),
@@ -3170,6 +3322,7 @@ def k3_lse_case(dev, b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int
         "backward_bound_ms": max(bwd_flops / BF16_FLOPS,
                                  (nbytes * 2 + b * h * sq * (dv * 2 + 4)) / HBM_BYTES_PER_S) * 1e3,
         "backward_bound_by": "operations",
+        "backward_floor_ms": bwd_floor_flops / BF16_FLOPS * 1e3,
     }
     del q, k, v, dout, got, lse, want, want_lse, leaves, sdpa
     torch.cuda.empty_cache()
@@ -3210,10 +3363,13 @@ def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True,
         loss = model.loss(treedef.unflatten(leaves), batch)
         return loss, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
-    before = flash_ops.flash_attention.lse_launches
+    fa = flash_ops.flash_attention
+    before = (fa.lse_launches, fa.bwd_launches, fa.bwd_mma_launches)
     loss, grads = loss_and_grads()
-    k3_runs = flash_ops.flash_attention.lse_launches - before
+    k3_runs = fa.lse_launches - before[0]
+    bwd_runs = (fa.bwd_launches - before[1], fa.bwd_mma_launches - before[2])
     assert k3_runs == 2 * small.n_layers, k3_runs
+    assert bwd_runs == (small.n_layers, 0), bwd_runs  # float32: the CUDA-core kernels
     kernel = attn.flash_attention
     attn.flash_attention = flash_ops.flash_attention_plain  # autograd through plain torch
     try:
@@ -3226,6 +3382,7 @@ def check_k3_training(dev, arch: str = TRAIN_ARCH, gradients: bool = True,
     out["model_gradients"] = {
         "config": f"{arch} widths, 2 layers, float32, B1 S{seq}", "loss": float(loss.detach()),
         "loss_plain_attention": float(want_loss.detach()), "k3_launches": k3_runs,
+        "k3_backward_launches": bwd_runs[0],
         "max_rel_err": max(worst.values()), "worst_leaf": max(worst, key=worst.get),
         "tol": f"{GRAD_TOL} of each gradient's max"}
     del params, grads, want
@@ -3260,8 +3417,12 @@ def main() -> int:
     k3_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k3_wgmma.values())
     k2_entry = {entry: v for entry, v in ptxas["colocate"].items() if "colocate_kernel" in entry}
     k2_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k2_entry.values())
+    # the backward's tensor-core dK/dV and dQ kernels at the three (D, Dv)
+    k3_bwd_mma = {entry: v for entry, v in ptxas["flash_attention_bwd"].items() if "_mma" in entry}
+    k3_bwd_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k3_bwd_mma.values())
     emit("build", seconds=build_s, sources=list(_build.SOURCES), ptxas=ptxas,
          k2_spill_bytes=k2_spills, k3_wgmma_spill_bytes=k3_spills,
+         k3_bwd_mma_spill_bytes=k3_bwd_spills,
          disk=disk.mark("build", dir_bytes(ROOT / "build" / "kernels")))
     emit("navlint", **run_navlint(navlint), disk=disk.mark("navlint", 0))
 
@@ -3302,7 +3463,8 @@ def main() -> int:
         # train step needs the card nearly empty, so it runs first), K3's
         # counts from 0 just before, read just after; nothing published
         vision = run_vision(dev)
-        by_path = {"vision": {"flash_attention": vision["launches"]["flash_attention"]}}
+        by_path = {"vision": {"flash_attention": vision["launches"]["flash_attention"],
+                              "flash_attention_bwd": vision["train_step"]["k3_backward_launches"]}}
         emit("vision", **vision, k3=k3["at_internvl2"], disk=disk.mark("vision", 0))
         del vision
 
@@ -3313,7 +3475,8 @@ def main() -> int:
         # 16x16 group; K3's counts from 0 just before each step, read just
         # after
         dry = run_dryrun(work / "dryrun", dev)
-        by_path["dryrun"] = {"flash_attention": dry["launches"]["flash_attention"]}
+        by_path["dryrun"] = {"flash_attention": dry["launches"]["flash_attention"],
+                             "flash_attention_bwd": dry["launches"]["flash_attention_bwd"]}
         emit("dryrun", **dry, k3=k3["at_prefill_32k"], k3_tensor_parallel=k3["at_command_r_32k"],
              k3_moe={"deepseek_prefill_32k": k3["at_mla_32k"],
                      "deepseek_train_4k": k3["at_mla_train_4k"],
@@ -3411,17 +3574,25 @@ def main() -> int:
         fleet = run_serve_fleet(work / "fleet", dev, metrics)
         launches["flash_attention"] += fleet["launches"]["flash_attention"]
         by_path["serve_fleet"] = {"flash_attention": fleet["launches"]["flash_attention"]}
+        # the chaos cells run beside the serve CLI's routed mode: both are
+        # worker processes that wait on their starts most of the time
+        chaos = start_chaos(dev)
+        try:
+            fleet["cli_workers_2"] = run_serve_cli(metrics)
+        except BaseException:
+            stop_chaos(chaos)
+            raise
         emit("serve_fleet", **fleet, disk=disk.mark("serve_fleet", dir_bytes(work / "fleet")))
         del fleet
-        emit("chaos", **run_chaos(dev), disk=disk.mark("chaos", 0))
+        emit("chaos", **finish_chaos(chaos), disk=disk.mark("chaos", 0))
 
         # the training path: each launcher process counts its own K3
         # launches from 0 and reports them at its end
         train = run_train(work / "train")
         for run in ("A", "B"):
             launches["flash_attention"] += train["launches"][run]["flash_attention"]
-        by_path["train"] = {"flash_attention": sum(train["launches"][run]["flash_attention"]
-                                                   for run in ("A", "B"))}
+        by_path["train"] = {k: sum(train["launches"][run][k] for run in ("A", "B"))
+                            for k in ("flash_attention", "flash_attention_bwd")}
         from repro_torch.configs import get_config
 
         emit("train", **train, k3=k3_train,
@@ -3432,8 +3603,8 @@ def main() -> int:
         # the MoE training path: granite through the launcher, each
         # process counting its own K3 launches from 0
         train = run_train(work / "train_moe", MOE_ARCH, MOE_TRAIN_WRITE_BUDGET)
-        by_path["train_moe"] = {"flash_attention": sum(train["launches"][run]["flash_attention"]
-                                                       for run in ("A", "B"))}
+        by_path["train_moe"] = {k: sum(train["launches"][run][k] for run in ("A", "B"))
+                                for k in ("flash_attention", "flash_attention_bwd")}
         launches["flash_attention"] += by_path["train_moe"]["flash_attention"]
         emit("train_moe", **train, k3=k3_train_moe,
              disk=disk.mark("train_moe", train_files(work / "train_moe", train)))
@@ -3453,8 +3624,8 @@ def main() -> int:
         # K3 launches from 0
         train = run_train(work / "train_hybrid", HYBRID_ARCH, HYBRID_TRAIN_WRITE_BUDGET,
                           HYBRID_TRAIN_SEQ, HYBRID_TRAIN_BATCH)
-        by_path["train_hybrid"] = {"flash_attention": sum(
-            train["launches"][run]["flash_attention"] for run in ("A", "B"))}
+        by_path["train_hybrid"] = {k: sum(train["launches"][run][k] for run in ("A", "B"))
+                                   for k in ("flash_attention", "flash_attention_bwd")}
         launches["flash_attention"] += by_path["train_hybrid"]["flash_attention"]
         emit("train_hybrid", **train, k3=k3_train_hybrid,
              disk=disk.mark("train_hybrid", train_files(work / "train_hybrid", train)))
@@ -3462,7 +3633,7 @@ def main() -> int:
         del train
 
         # the mLSTM: xlstm-1.3b served (counts from 0 just before, read just
-        # after: it launches none) and a full-depth step in this process
+        # after: it launches none)
         emit("xlstm", **run_xlstm(work / "xlstm", dev),
              disk=disk.mark("xlstm", dir_bytes(work / "xlstm")))
 
@@ -3479,13 +3650,15 @@ def main() -> int:
         # the encoder-decoder: whisper-tiny through the launcher, each
         # process counting its own K3 launches from 0
         train = run_train(work / "train_encdec", ENCDEC_ARCH, ENCDEC_TRAIN_WRITE_BUDGET)
-        by_path["train_encdec"] = {"flash_attention": sum(
-            train["launches"][run]["flash_attention"] for run in ("A", "B"))}
+        by_path["train_encdec"] = {k: sum(train["launches"][run][k] for run in ("A", "B"))
+                                   for k in ("flash_attention", "flash_attention_bwd")}
         launches["flash_attention"] += by_path["train_encdec"]["flash_attention"]
         assert train["depth_cut"] is None, train["depth_cut"]  # full width and depth
         torch.cuda.reset_peak_memory_stats(dev)
         train["in_process_step"] = profile_train(dev, get_config(ENCDEC_ARCH).n_layers,
                                                  ENCDEC_ARCH)
+        by_path["train_encdec"]["flash_attention_bwd"] += \
+            train["in_process_step"]["k3_backward_launches"]
         emit("train_encdec", **train,
              k3={key: k3_lse_new[key] for key in ("whisper_encoder", "whisper_cross",
                                                   "whisper_decoder")},
@@ -3502,7 +3675,8 @@ def main() -> int:
         # the mesh: whisper-tiny through the launcher on a 1x1 cuda mesh,
         # each process counting its own K3 launches from 0
         mesh = run_mesh(work / "mesh", dev, no_mesh)
-        by_path["mesh"] = {"flash_attention": mesh["launches"]["flash_attention"]}
+        by_path["mesh"] = {k: mesh["launches"][k]
+                           for k in ("flash_attention", "flash_attention_bwd")}
         launches["flash_attention"] += by_path["mesh"]["flash_attention"]
         emit("mesh", **mesh, disk=disk.mark("mesh", dir_bytes(work / "mesh")))
         shutil.rmtree(work / "mesh", ignore_errors=True)
@@ -3518,6 +3692,7 @@ def main() -> int:
 
     assert len(k2_entry) == 1 and k2_spills == 0, k2_entry  # K2 spills nothing
     assert len(k3_wgmma) == 3 and k3_spills == 0, k3_wgmma  # the tensor-core K3 spills nothing
+    assert len(k3_bwd_mma) == 6 and k3_bwd_spills == 0, k3_bwd_mma  # nor does its backward
     rows = []
     parity = {"delta_encode": "bitmaps equal", "colocate": "idx equal, cos bitwise equal",
               "flash_attention": "within 2e-5 (f32) / 2e-2 (bf16) of the plain version; "
@@ -3555,6 +3730,43 @@ def main() -> int:
                          "training_d64": k3_train_moe, "training_hymba": k3_train_hybrid,
                          "lse_new_shapes": k3_lse_new}
                         if name == "flash_attention" else {})})
+    # K3's backward: its own kernels, timed at each K3 shape with lse; the
+    # row's numbers at qwen3's training shape (B 4)
+    bwd_cases = {"qwen3_b1": k3_train["serve_shape"], "qwen3_b4": k3_train["train_shape"],
+                 "d64_b1": k3_train_moe["serve_shape"], "d64_b4": k3_train_moe["train_shape"],
+                 "hymba_b1": k3_train_hybrid["serve_shape"],
+                 "hymba_b2": k3_train_hybrid["train_shape"], **k3_lse_new}
+    at = bwd_cases["qwen3_b4"]
+    bwd_keys = ("shape", "attention_backward_kernel", "attention_backward_ms",
+                "attention_backward_kernel_only_ms", "attention_backward_max_abs_err",
+                "attention_backward_rounding_limit_use", "attention_backward_planted_fault",
+                "attention_backward_plain_ms", "library_sdpa_backward_ms", "backward_bound_ms",
+                "backward_floor_ms", "visible_pairs")
+    rows.append({"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/kernels/flash_attention/flash_attention.py:120",
+                 "replaces_note": "the gradient of that kernel: the JAX package has no Pallas "
+                                  "backward and differentiates blockwise_attention "
+                                  "(src/repro/models/attention.py) with jax.grad",
+                 "launches": sum(n.get("flash_attention_bwd", 0) for n in by_path.values()),
+                 "launches_by_path": {path: n["flash_attention_bwd"]
+                                      for path, n in by_path.items() if "flash_attention_bwd" in n},
+                 "max_abs_err": max(c["attention_backward_max_abs_err"]
+                                    for c in bwd_cases.values()),
+                 "ms": at["attention_backward_ms"], "plain_ms": at["attention_backward_plain_ms"],
+                 "bound_ms": at["backward_bound_ms"], "bound_by": at["backward_bound_by"],
+                 "library_ms": at["library_sdpa_backward_ms"],
+                 "kernel_only_ms": at["attention_backward_kernel_only_ms"],
+                 "floor_hi_lo_ms": at["backward_floor_ms"], "shape": at["shape"],
+                 "parity": f"dq, dk, dv within {BWD_BF16_TOL} (atol and rtol) of the plain "
+                           "backward on the same bf16 inputs, and within 2**-8 |x| + 2**-10 "
+                           "rms of its float32 answer (a skipped far key tile fails that); two "
+                           "calls bitwise equal",
+                 "rounding_limit_use": max(c["attention_backward_rounding_limit_use"]
+                                           for c in bwd_cases.values()),
+                 "at": {key: {f: c[f] for f in bwd_keys} for key, c in bwd_cases.items()}})
+    assert rows[-1]["launches"] > 0 and all(n > 0 for n in rows[-1]["launches_by_path"].values()
+                                            if n is not None), rows[-1]["launches_by_path"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

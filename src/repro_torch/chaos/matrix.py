@@ -289,12 +289,16 @@ def _host_bytes(t: torch.Tensor) -> bytes:
 def _spawn_missing(sup: FabricSupervisor, socket_paths: dict[str, str]) -> None:
     """(Re)provision any dead/missing tour worker at its pinned address
     (a socket path on unix, a reserved host:port on tcp)."""
+    missing = []
     for name in _TOUR_NODES:
         handle = sup.workers.get(name)
         if handle is not None and handle.alive():
             continue
         sup.workers.pop(name, None)
-        sup.spawn(name, serve_only=True, socket_path=socket_paths[name])
+        sup.spawn(name, serve_only=True, socket_path=socket_paths[name], wait=False)
+        missing.append(name)
+    for name in missing:  # started together
+        sup.await_started(name)
 
 
 def _attempt_tour(sup: FabricSupervisor, store_root: Path, x: torch.Tensor):

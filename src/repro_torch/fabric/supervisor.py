@@ -250,37 +250,46 @@ class FabricSupervisor:
         else:
             address = ("unix", bind)
         if wait:
-            # Poll readiness in short slices, checking the process between
-            # attempts: a startup crash fails fast instead of burning the
-            # whole spawn timeout, and a short-lived job worker that runs to
-            # completion (rc=0) before a ping can land is a success, not a
-            # startup death — its exit code is the readiness signal.
-            deadline = time.monotonic() + self.spawn_timeout_s
-            while True:
-                try:
-                    wait_ready(address, timeout=min(2.0, max(0.1, deadline - time.monotonic())))
-                    break
-                except TimeoutError:
-                    if proc.poll() is not None:
-                        if proc.returncode == 0:
-                            break
-                        raise RuntimeError(
-                            f"worker {name} died during startup (rc={proc.returncode})"
-                        ) from None
-                    if time.monotonic() >= deadline:
-                        proc.kill()
-                        try:
-                            proc.wait(timeout=10)  # reap: no zombies on retry loops
-                        except subprocess.TimeoutExpired:
-                            pass
-                        raise TimeoutError(
-                            f"no fabric server at {address} after {self.spawn_timeout_s}s"
-                        ) from None
+            self._await_server(proc, name, address)
         handle = WorkerHandle(name=name, proc=proc, address=address, ready_file=ready)
         self.workers[name] = handle
         self.incarnations += 1
         logger.info("spawned worker %s pid=%d on %s", name, proc.pid, address)
         return handle
+
+    def await_started(self, name: str) -> None:
+        """Wait for a worker spawned with ``wait=False`` to answer, as
+        :meth:`spawn` waits: workers spawned together start together."""
+        handle = self.workers[name]
+        self._await_server(handle.proc, name, handle.address)
+
+    def _await_server(self, proc: subprocess.Popen, name: str, address: tuple) -> None:
+        """Poll readiness in short slices, checking the process between
+        attempts: a startup crash fails fast instead of burning the whole
+        spawn timeout, and a short-lived job worker that runs to completion
+        (rc=0) before a ping can land is a success, not a startup death —
+        its exit code is the readiness signal."""
+        deadline = time.monotonic() + self.spawn_timeout_s
+        while True:
+            try:
+                wait_ready(address, timeout=min(2.0, max(0.1, deadline - time.monotonic())))
+                return
+            except TimeoutError:
+                if proc.poll() is not None:
+                    if proc.returncode == 0:
+                        return
+                    raise RuntimeError(
+                        f"worker {name} died during startup (rc={proc.returncode})"
+                    ) from None
+                if time.monotonic() >= deadline:
+                    proc.kill()
+                    try:
+                        proc.wait(timeout=10)  # reap: no zombies on retry loops
+                    except subprocess.TimeoutExpired:
+                        pass
+                    raise TimeoutError(
+                        f"no fabric server at {address} after {self.spawn_timeout_s}s"
+                    ) from None
 
     def _await_ready_address(
         self, proc: subprocess.Popen, name: str, ready: str

@@ -28,10 +28,14 @@ their strides: ``(B, S, H, D)`` activations transposed to the
 Under autograd (an input that requires grad, grad mode on) the call goes
 through :class:`FlashAttention`: the forward is the same kernel, asked also
 for each row's float32 log-sum-exp (the statistics the Pallas kernel keeps
-as its m and l outputs), and the backward is
-:func:`flash_attention_backward_plain`, plain PyTorch in float32. The JAX
-package has no backward kernel either: it differentiates its plain
-``blockwise_attention``.
+as its m and l outputs), and the backward is the operator
+``repro_torch::flash_attention_bwd`` (:func:`flash_attention_bwd`): on CUDA
+the kernels of ``csrc/flash_attention_bwd.cu`` (bf16 at (D, Dv) in
+:data:`WGMMA_HEAD_DIMS` on the tensor cores with ``mma.sync``, everything
+else the forward's CUDA-core kernel takes on the CUDA cores), on the CPU
+:func:`flash_attention_backward_plain`, plain PyTorch in float32 (float64
+for float64 inputs), which is also the kernels' oracle. The JAX package
+has no backward kernel: it differentiates its plain ``blockwise_attention``.
 """
 
 from __future__ import annotations
@@ -226,7 +230,9 @@ def _kernel(entry: str):
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a dense copy where the TMA cannot read it: it needs a
     16-byte aligned base and batch, head and sequence strides in whole
-    16-byte units (a dimension of extent 1 may have any stride)."""
+    16-byte units (a dimension of extent 1 may have any stride). The
+    backward's tensor-core kernels read their rows with 16-byte
+    ``cp.async`` copies, which need the same."""
     nbytes = t.element_size()
     ok = t.numel() == 0 or (t.data_ptr() % 16 == 0 and all(
         n == 1 or (s > 0 and s * nbytes % 16 == 0) for n, s in zip(t.shape[:3], t.stride()[:3])))
@@ -347,9 +353,122 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
     return out, (lse if with_lse else None)
 
 
+@functools.cache
+def _bwd_kernel(entry: str):
+    """``flash_attention_bwd`` (takes a dtype code before the stream) or
+    ``flash_attention_bwd_mma`` (bf16 only)."""
+    fn = getattr(_build.load("flash_attention_bwd"), entry)
+    dtype = [ctypes.c_int] if entry == "flash_attention_bwd" else []
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 24
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + dtype + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _grad_outputs(q, k, v):
+    """Empty ``(dq, dk, dv)``: each in its input's dense layout where that
+    keeps the last dimension dense ((B, S, H, D) storage gives the same),
+    else contiguous."""
+    def like(t):
+        out = torch.empty_like(t)
+        return out if out.stride(-1) == 1 else t.new_empty(t.shape)
+
+    return like(q), like(k), like(v)
+
+
+def _launch_backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
+    """``(dq, dk, dv)``: the CUDA kernels on ``q``'s card (raising on what
+    they do not take); zero gradients and no launch where Sq or Sk is 0."""
+    _check(q, k, v)
+    if any(t.device != q.device for t in (k, v, o, lse, do)):
+        raise ValueError("flash_attention_bwd needs every input on one CUDA device")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the CUDA kernels take float32 or bfloat16, got {q.dtype}")
+    if not (q.dtype == k.dtype == v.dtype == o.dtype == do.dtype):
+        raise ValueError(f"dtypes differ: q {q.dtype} k {k.dtype} v {v.dtype} o {o.dtype} "
+                         f"dout {do.dtype}")
+    b, h, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if o.shape != (b, h, sq, dv) or do.shape != o.shape or lse.shape != (b, h, sq):
+        raise ValueError(f"o{tuple(o.shape)}, dout{tuple(do.shape)}, lse{tuple(lse.shape)} "
+                         f"do not match q{tuple(q.shape)} v{tuple(v.shape)}")
+    if lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32, got {lse.dtype}")
+    if d > KERNEL_MAX_HEAD_DIM or dv > KERNEL_MAX_V_HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take head dims D <= {KERNEL_MAX_HEAD_DIM} and "
+                         f"Dv <= {KERNEL_MAX_V_HEAD_DIM}, got {d} and {dv}")
+    if b * h >= 2**31 or sq > 65535 * KERNEL_BLOCK_Q or sk > 65535 * KERNEL_BLOCK_Q:
+        raise ValueError(f"flash_attention_bwd shapes beyond the kernels' grids: "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    dq, dk, dv_ = _grad_outputs(q, k, v)
+    if q.numel() == 0 or sk == 0:  # no pair: zero gradients (dk, dv empty where Sk is 0)
+        return dq.zero_(), dk.zero_(), dv_.zero_()
+    mma = q.dtype == torch.bfloat16 and (d, dv) in WGMMA_HEAD_DIMS
+    # the kernels read rows through strides; each row's values must be dense
+    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
+    if mma:
+        q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    lse = lse.contiguous()
+    delta = q.new_empty((b, h, sq), dtype=torch.float32)  # rowsum(dO * o), scratch
+    strides = [s for t in (q, k, v, o, do, dq, dk, dv_) for s in t.stride()[:3]]
+    args = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv_)]
+    args += [b, h, hkv, sq, sk, d, dv, *strides, scale, int(bool(causal)), window]
+    entry = "flash_attention_bwd_mma" if mma else "flash_attention_bwd"
+    if not mma:
+        args.append(_DTYPES[q.dtype])
+    with torch.cuda.device(q.device):  # the launches go to the current device
+        err = _bwd_kernel(entry)(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")
+    flash_attention.bwd_launches += 1
+    if mma:
+        flash_attention.bwd_mma_launches += 1
+    return dq, dk, dv_
+
+
+# K3's backward as an operator of its own, as the forward is: the CUDA
+# implementation is the launch, the CPU one the plain version (float64
+# included, for gradcheck), and the fake one makes the outputs, so the dry
+# run traces it and counts it by its formula.
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, causal: bool, window: int,
+                        scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of K3 from its inputs, its output ``o``, the row
+    log-sum-exp ``lse`` its forward wrote and the output's gradient ``do``."""
+    return _launch_backward(q, k, v, o, lse, do, causal, window, scale)
+
+
+@flash_attention_bwd.register_kernel("cpu")
+def _flash_attention_bwd_cpu(q, k, v, o, lse, do, causal, window, scale):
+    return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                          scale=scale)
+
+
+@flash_attention_bwd.register_fake
+def _flash_attention_bwd_fake(q, k, v, o, lse, do, causal, window, scale):
+    return _grad_outputs(q, k, v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_attention_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal,
+                               window, *args, out_shape=None, **kwargs) -> int:
+    """2 (4 D + 3 Dv) a visible (q, k) pair, batch row and head: the
+    two-pass algorithm's products, S = q k^T twice (the dK/dV pass and the
+    dQ pass, which recomputes it rather than sum dQ by atomics), dP = dO v^T
+    twice, dV = P^T dO, dK = dS^T q and dQ = dS k; the least work is 2 (3 D
+    + 2 Dv). The dry run counts this. The bf16 tensor-core kernels run each
+    product with P or dS twice (its bf16 hi and lo halves), 2 (6 D + 5 Dv)
+    on the tensor cores; the CUDA-core kernels run this count."""
+    b, h, sq, d = q_shape
+    sk, dv = k_shape[2], v_shape[3]
+    return b * h * visible_pairs(sq, sk, causal, window) * 2 * (4 * d + 3 * dv)
+
+
 class FlashAttention(torch.autograd.Function):
-    """K3 under autograd: the forward kernel with ``lse``, the backward
-    :func:`flash_attention_backward_plain`."""
+    """K3 under autograd: the forward kernel with ``lse``, the backward the
+    operator :func:`flash_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale):
@@ -361,10 +480,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        scale = float(ctx.scale) if ctx.scale is not None else 1.0 / math.sqrt(q.shape[-1])
         # a named range, so a profile can attribute the backward's kernels
         with torch.profiler.record_function("flash_attention_backward"):
-            dq, dk, dv = flash_attention_backward_plain(
-                q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window, scale=ctx.scale)
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, bool(ctx.causal),
+                                             int(ctx.window), scale)
         return dq, dk, dv, None, None, None
 
 
@@ -392,3 +512,5 @@ def flash_attention(
 flash_attention.launches = 0  # kernel launches since the last reset, either kernel
 flash_attention.wgmma_launches = 0  # of those, the tensor-core kernel's
 flash_attention.lse_launches = 0  # of those, the ones that also wrote lse (training)
+flash_attention.bwd_launches = 0  # backward launches (delta, dK/dV and dQ kernels), either variant
+flash_attention.bwd_mma_launches = 0  # of those, the tensor-core variant's

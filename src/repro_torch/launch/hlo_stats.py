@@ -8,7 +8,9 @@ so nothing is computed or allocated) and returns the reference's keys:
   flops        — ``torch.utils.flop_counter``'s formulas (FlopCounterMode's
                  registry: matrix products, convolutions, attention), K3's
                  own among them (``kernels/flash_attention/ops.py``: 2 (D +
-                 Dv) a visible (q, k) pair);
+                 Dv) a visible (q, k) pair forward, 2 (4 D + 3 Dv) backward:
+                 the two-pass algorithm's products, before the bf16
+                 tensor-core kernels split P and dS into hi and lo halves);
   bytes        — per op: output + operand bytes, each tensor at its own
                  (view) size; views, ``detach``, allocations and metadata
                  ops count 0, as the reference's ``_FREE_OPS``. A layer

@@ -104,10 +104,12 @@ def run_routed(spec: str, requests: list[dict], *, workers: int, transport: str,
                            transport=transport, device=device)
     router = ServeRouter(jobstore=JobStore(root + "/jobs"))
     try:
-        for i in range(workers):
-            handle = spawn_serve_worker(sup, f"s{i}", engine_spec=spec,
-                                        publish_every=publish_every)
-            router.add_worker(f"s{i}", handle.address)
+        handles = [spawn_serve_worker(sup, f"s{i}", engine_spec=spec,
+                                      publish_every=publish_every, wait=False)
+                   for i in range(workers)]
+        for handle in handles:  # started together, each its own process
+            sup.await_started(handle.name)
+            router.add_worker(handle.name, handle.address)
         t0 = time.perf_counter()
         for req in requests:
             router.admit(req["prompt"], req["max_new"], req_id=req["id"])

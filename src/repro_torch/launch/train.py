@@ -236,9 +236,15 @@ def state_digest(tree) -> str:
     return h.hexdigest()
 
 
-def _k3_counts() -> tuple[int, int, int]:
+K3_COUNTS = ("flash_attention", "flash_attention_wgmma", "flash_attention_lse",
+             "flash_attention_bwd", "flash_attention_bwd_mma")
+
+
+def _k3_counts() -> tuple[int, ...]:
+    """K3's launch counts, in the order of :data:`K3_COUNTS`."""
     return (flash_attention.launches, flash_attention.wgmma_launches,
-            flash_attention.lse_launches)
+            flash_attention.lse_launches, flash_attention.bwd_launches,
+            flash_attention.bwd_mma_launches)
 
 
 def _local(x):
@@ -488,14 +494,13 @@ def main(argv=None) -> float:
             schedule = SpotSchedule(
                 preempt_steps=tuple(int(x) for x in args.preempt_at.split(",") if x),
             )
-            box = {"schedule": schedule, "reclaim": reclaim, "launches": [0, 0, 0],
+            box = {"schedule": schedule, "reclaim": reclaim, "launches": [0] * len(K3_COUNTS),
                    "peak_memory_bytes": None}
             loss, incarnations = run_preemptible(
                 build_worker(args, cfg, job_id, device, mesh_specs, box))
             _Metrics(args.metrics)(
                 "end", job_id=job_id, final_loss=loss, incarnations=incarnations, mesh=mesh_specs,
-                launches=dict(zip(("flash_attention", "flash_attention_wgmma",
-                                   "flash_attention_lse"), box["launches"])),
+                launches=dict(zip(K3_COUNTS, box["launches"])),
                 peak_memory_bytes=box["peak_memory_bytes"])
     finally:
         signal.signal(signal.SIGTERM, previous)

@@ -233,7 +233,8 @@ def test_flash_attention_gradient_on_the_card(dev, case):
     values: 1e-4 in float32 (sums in another order); in bf16, where the
     output and the gradients round to bf16 once, 2e-2 of each gradient's
     largest magnitude. The backward matches :func:`flash_attention_backward_plain`
-    fed the plain version's output and lse."""
+    fed the plain version's output and lse. One backward launch a backward,
+    the tensor-core variant's exactly where (dtype, D, Dv) picks it."""
     b, h, hkv, sq, sk, d, dv, causal, window, dt = _case(case)
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(sq * 11 + d)
@@ -248,7 +249,11 @@ def test_flash_attention_gradient_on_the_card(dev, case):
     before = flash_attention.lse_launches
     out = flash_attention(*leaves, causal=causal, window=window)
     assert flash_attention.lse_launches == before + 1
+    bwd, bwd_mma = flash_attention.bwd_launches, flash_attention.bwd_mma_launches
     got = torch.autograd.grad(out, leaves, dout)
+    assert flash_attention.bwd_launches == bwd + 1
+    mma = dt == "bfloat16" and (d, dv) in WGMMA_HEAD_DIMS
+    assert flash_attention.bwd_mma_launches == bwd_mma + mma
     ref = [t.float().requires_grad_(True) for t in (q, k, v)]
     want = torch.autograd.grad(_attention_f32(*ref, causal, window), ref, dout.float())
     for g, w in zip(got, want):
@@ -262,6 +267,89 @@ def test_flash_attention_gradient_on_the_card(dev, case):
     for g, w in zip(got, plain):
         torch.testing.assert_close(g.float(), w.float(), atol=1e-2 if dt == "bfloat16" else 1e-4,
                                    rtol=1e-2 if dt == "bfloat16" else 1e-4)
+
+
+# the backward's own cases: float32 (CUDA cores), bf16 at each tensor-core
+# instance, a bf16 head dim the tensor cores do not take, G > 1 with a
+# window across tile edges, Sq != Sk both ways
+_BACKWARD_CASES = [
+    (1, 4, 2, 200, 200, 128, True, 64, "float32"),
+    (1, 4, 2, 300, 300, 192, True, 0, "float32", 128),
+    (2, 4, 4, 130, 130, 64, True, 0, "bfloat16"),
+    (1, 8, 2, 333, 333, 128, True, 100, "bfloat16"),
+    (1, 4, 4, 200, 200, 192, True, 0, "bfloat16", 128),
+    (1, 2, 2, 130, 130, 96, True, 0, "bfloat16"),
+    (2, 6, 6, 300, 170, 64, False, 0, "bfloat16"),
+    (1, 4, 2, 100, 260, 128, True, 0, "bfloat16"),
+]
+
+
+def _backward_inputs(dev, case, seed):
+    """q, k, v, the kernel forward's output and lse, and dout on the card."""
+    b, h, hkv, sq, sk, d, dv, causal, window, dt = _case(case)
+    rng = np.random.default_rng(seed)
+    dtype = getattr(torch, dt)
+    shapes = ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv), (b, h, sq, dv))
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+                     for s in shapes)
+    out, lse = flash_attention_forward(q, k, v, causal, window, None, True)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("case", _BACKWARD_CASES, ids=[str(c) for c in _BACKWARD_CASES])
+def test_flash_attention_backward_bitwise_repeatable_and_strided(dev, case):
+    """The backward kernels sum in a fixed order (no atomics): two calls on
+    the same inputs give the same bits; and they read q, k, v and dO
+    through their strides: q and dO held as (B, S, H, D) storage, k and v
+    as views of one fused (B, S, Hkv, D + Dv) projection, give the
+    gradients of the same values made contiguous, bit for bit, one launch
+    each."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+
+    b, h, hkv, sq, sk, d, dv, causal, window, dt = _case(case)
+    q, k, v, out, lse, dout = _backward_inputs(dev, case, sq + d)
+    args = (causal, window, d ** -0.5)
+    before = flash_attention.bwd_launches
+    first = flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    for a, w in zip(first, again):
+        assert torch.equal(a, w)
+    fused = torch.empty((b, sk, hkv, d + dv), dtype=q.dtype, device=dev)
+    fused[..., :d] = k.transpose(1, 2)
+    fused[..., d:] = v.transpose(1, 2)
+    kv = fused[..., :d].transpose(1, 2), fused[..., d:].transpose(1, 2)
+    strided = flash_attention_bwd(_bshd(q), *kv, out, lse, _bshd(dout), *args)
+    assert flash_attention.bwd_launches == before + 3
+    assert strided[0].stride() == _bshd(q).stride()  # dq in q's storage order
+    for a, w in zip(strided, first):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_attention_backward_rows_without_a_key(dev, dt):
+    """Rows that see no key (causal, a 32-key window, Sq 256 against Sk 64:
+    queries from 95 on) have lse = +inf and get zero dq, never NaN; dk and
+    dv match the plain backward (1e-4 in float32, 1e-2 in bf16). Sk = 0
+    gives zero dq and empty dk, dv without a launch."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+
+    case = (1, 4, 2, 256, 64, 128, True, 32, dt)
+    q, k, v, out, lse, dout = _backward_inputs(dev, case, 3)
+    blind = torch.isinf(lse[0, 0])
+    assert int(blind.sum()) == 256 - 95 and bool(blind[95:].all())
+    got = flash_attention_bwd(q, k, v, out, lse, dout, True, 32, 128 ** -0.5)
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout, causal=True, window=32)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert not got[0][:, :, blind].any()
+    tol = 1e-2 if dt == "bfloat16" else 1e-4
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+    before = flash_attention.bwd_launches
+    empty = torch.empty((1, 2, 0, 128), dtype=q.dtype, device=dev)
+    lse0 = torch.full((1, 4, 256), float("inf"), device=dev)
+    dq, dk, dv = flash_attention_bwd(q, empty, empty, out, lse0, dout, True, 0, 128 ** -0.5)
+    assert flash_attention.bwd_launches == before
+    assert not dq.any() and dk.shape == dv.shape == (1, 2, 0, 128)
 
 
 # ---------------------------------------------------------------------------

@@ -388,7 +388,8 @@ def sharded_flops():
 
 def _port_terms(arch, kind, dims):
     """The port's attention (K3's visible pairs, twice in a train step with
-    the remat recompute, and the plain backward's full S x S products), its
+    the remat recompute, and its backward operator's 2 (4 D + 3 Dv) a
+    visible pair), its
     loss's unembedding (4 passes of a train step: forward, the chunk's
     recompute, the two gradients) and the whole weights' gradients GSPMD
     splits over the model ranks (see the test)."""
@@ -402,7 +403,7 @@ def _port_terms(arch, kind, dims):
     per = b * h * cfg.n_layers
     if kind == "prefill":
         return per * 2 * (d + dv) * pairs, 0, 0
-    attention = per * (2 * 2 * (d + dv) * pairs + 2 * (3 * d + 2 * dv) * s * s)
+    attention = per * (2 * 2 * (d + dv) * pairs + 2 * (4 * d + 3 * dv) * pairs)
     loss = 4 * 2 * b * s * cfg.d_model * cfg.vocab // m_
     t, e = b * s, cfg.d_model
     if cfg.mla:  # wq_a and wkv_a, every layer
@@ -422,8 +423,9 @@ def test_moe_flops_against_the_reference(sharded_flops, arch, kind, dims, flag):
     compiled program on the same mesh (``analyze_hlo``), each side's
     attention taken out by its own count, as ``test_flops_against_the_reference``
     does (the port's K3 counts visible pairs, twice in a train step, and
-    its plain backward the full S x S; blockwise attention computes every
-    pair, 4 to 4.5 times in a train step by XLA's rewrites). In a train
+    its backward operator 2 (4 D + 3 Dv) a visible pair; blockwise
+    attention computes every pair, 4 to 4.5 times in a train step by XLA's
+    rewrites). In a train
     step three more differences of schedule are taken out, each counted
     on its own side:
 
@@ -470,9 +472,9 @@ def test_mixer_flops_against_the_reference(sharded_flops, arch, kind, dims, flag
     port's per-device FLOPs within 2 % of the reference's compiled program
     on the same mesh once each side's attention and chunked recurrence are
     taken out by its own count, as ``test_moe_flops_against_the_reference``
-    takes out attention: the port's K3 op and its batched products (the
-    plain attention backward and the recurrence's einsums, every chunk at
-    once), the reference's attention and recurrence einsums and the dots
+    takes out attention: the port's K3 ops (forward and backward) and its
+    batched products (the recurrence's einsums, every chunk at once), the
+    reference's attention and recurrence einsums and the dots
     XLA left unnamed. The recurrence's schedule differs: the reference
     checkpoints each chunk inside its scan (a train step recomputes it
     within the layer's own recompute), the port computes every chunk at
