@@ -410,10 +410,11 @@ def profiled_ms(fn, kernel: str, reps: int, attempts: int = 3,
 
 def ptxas_entries(log: str) -> dict:
     """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
-    report, by mangled entry name, and the report's warnings."""
+    report, by mangled entry name, and the report's warnings, its notes of a
+    performance loss among them (C7515, C7518: wgmmas serialized)."""
     out, cur = {"warnings": []}, None
     for ln in log.splitlines():
-        if "warning" in ln.lower():
+        if "warning" in ln.lower() or "Performance Loss" in ln:
             out["warnings"].append(ln.strip())
         elif "Compiling entry function" in ln:
             cur = ln.split("'")[1]
@@ -2472,9 +2473,12 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
     k3_wgmma = sum("flash_fwd_kernel_wgmma" in e.name for e in device)
     assert k3_wgmma == k3_kernels and (k3_kernels > 0) == (want_k3 > 0), (k3_wgmma, k3_kernels)
     bwd_kernels = sum("flash_bwd" in e.name for e in device)
-    bwd_mma = sum("flash_bwd_dkdv_mma" in e.name or "flash_bwd_dq_mma" in e.name for e in device)
-    assert (bwd_kernels > 0) == (want_k3 > 0) and not any(
-        "flash_bwd_dkdv<" in e.name or "flash_bwd_dq<" in e.name for e in device), bwd_kernels
+    bwd_wgmma = sum("flash_bwd_dkdv_wgmma" in e.name or "flash_bwd_dq_wgmma" in e.name
+                    for e in device)
+    # every dK/dV and dQ kernel the tensor-core one: no mma.sync or CUDA-core kernel
+    bwd_delta = sum("flash_bwd_delta" in e.name for e in device)
+    assert (bwd_wgmma > 0) == (want_k3 > 0) and bwd_wgmma == bwd_kernels - bwd_delta, (
+        bwd_kernels, bwd_wgmma, bwd_delta)
     step_s = statistics.median(unprofiled[1:])
     flops = step_flops(cfg, batch, seq)
     return {"n_layers": cfg.n_layers, "batch": batch, "seq_len": seq, "losses": losses,
@@ -2489,7 +2493,7 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
             "k3_kernels_in_trace": k3_kernels, "k3_wgmma_kernels_in_trace": k3_wgmma,
             "k3_backward_launches": bwd_launches,
             "k3_backward_kernels_in_trace": bwd_kernels,
-            "k3_backward_mma_kernels_in_trace": bwd_mma,
+            "k3_backward_wgmma_kernels_in_trace": bwd_wgmma,
             "groups_ms": split["groups_ms"], "top_kernels_ms": split["top_kernels_ms"]}
 
 
@@ -3306,7 +3310,7 @@ def k3_lse_case(dev, b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int
         "attention_backward_ms": cuda_ms(lambda: flash_ops.flash_attention_bwd(*bwd_args), 10),
         "attention_backward_kernel_only_ms": profiled_ms(
             lambda: flash_ops.flash_attention_bwd(*bwd_args), "flash_bwd", 10, per_call=3),
-        "attention_backward_kernel": "mma" if mma else "cuda-core",
+        "attention_backward_kernel": "wgmma" if mma else "cuda-core",
         "attention_backward_max_abs_err": bwd_err, "attention_backward_tol": BWD_BF16_TOL,
         "attention_backward_vs_f32": bwd_rnd,
         "attention_backward_rounding_limit_use": bwd_rnd["limit_use"],
@@ -3324,6 +3328,9 @@ def k3_lse_case(dev, b: int, h: int, hkv: int, sq: int, sk: int, d: int, dv: int
         "backward_bound_by": "operations",
         "backward_floor_ms": bwd_floor_flops / BF16_FLOPS * 1e3,
     }
+    # the share of the bf16 peak the kernels reach on their own products
+    kernel_ms = out["attention_backward_kernel_only_ms"]
+    out["backward_floor_share"] = out["backward_floor_ms"] / kernel_ms if kernel_ms else None
     del q, k, v, dout, got, lse, want, want_lse, leaves, sdpa
     torch.cuda.empty_cache()
     return out
@@ -3417,12 +3424,20 @@ def main() -> int:
     k3_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k3_wgmma.values())
     k2_entry = {entry: v for entry, v in ptxas["colocate"].items() if "colocate_kernel" in entry}
     k2_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k2_entry.values())
-    # the backward's tensor-core dK/dV and dQ kernels at the three (D, Dv)
-    k3_bwd_mma = {entry: v for entry, v in ptxas["flash_attention_bwd"].items() if "_mma" in entry}
-    k3_bwd_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k3_bwd_mma.values())
+    # the backward's tensor-core dK/dV and dQ kernels at the three (D, Dv),
+    # and no mma.sync kernel left beside them
+    k3_bwd_wgmma = {entry: v for entry, v in ptxas["flash_attention_bwd"].items()
+                    if "_wgmma" in entry}
+    k3_bwd_spills = sum(v["spill_stores"] + v["spill_loads"] for v in k3_bwd_wgmma.values())
+    assert not any("_mma" in entry for entry in ptxas["flash_attention_bwd"]), ptxas
+    # and ptxas serializes none of their wgmmas (its C7515/C7518 notes)
+    k3_bwd_serialized = [w for w in ptxas["flash_attention_bwd"]["warnings"]
+                         if "Performance Loss" in w]
     emit("build", seconds=build_s, sources=list(_build.SOURCES), ptxas=ptxas,
          k2_spill_bytes=k2_spills, k3_wgmma_spill_bytes=k3_spills,
-         k3_bwd_mma_spill_bytes=k3_bwd_spills,
+         k3_bwd_wgmma_spill_bytes=k3_bwd_spills,
+         k3_bwd_wgmma_registers={entry: v["registers"] for entry, v in k3_bwd_wgmma.items()},
+         k3_bwd_serialized=k3_bwd_serialized,
          disk=disk.mark("build", dir_bytes(ROOT / "build" / "kernels")))
     emit("navlint", **run_navlint(navlint), disk=disk.mark("navlint", 0))
 
@@ -3692,7 +3707,8 @@ def main() -> int:
 
     assert len(k2_entry) == 1 and k2_spills == 0, k2_entry  # K2 spills nothing
     assert len(k3_wgmma) == 3 and k3_spills == 0, k3_wgmma  # the tensor-core K3 spills nothing
-    assert len(k3_bwd_mma) == 6 and k3_bwd_spills == 0, k3_bwd_mma  # nor does its backward
+    assert len(k3_bwd_wgmma) == 6 and k3_bwd_spills == 0, k3_bwd_wgmma  # nor does its backward
+    assert not k3_bwd_serialized, k3_bwd_serialized
     rows = []
     parity = {"delta_encode": "bitmaps equal", "colocate": "idx equal, cos bitwise equal",
               "flash_attention": "within 2e-5 (f32) / 2e-2 (bf16) of the plain version; "
@@ -3741,7 +3757,7 @@ def main() -> int:
                 "attention_backward_kernel_only_ms", "attention_backward_max_abs_err",
                 "attention_backward_rounding_limit_use", "attention_backward_planted_fault",
                 "attention_backward_plain_ms", "library_sdpa_backward_ms", "backward_bound_ms",
-                "backward_floor_ms", "visible_pairs")
+                "backward_floor_ms", "backward_floor_share", "visible_pairs")
     rows.append({"name": "flash_attention_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  "replaces": "src/repro/kernels/flash_attention/flash_attention.py:120",
@@ -3757,7 +3773,8 @@ def main() -> int:
                  "bound_ms": at["backward_bound_ms"], "bound_by": at["backward_bound_by"],
                  "library_ms": at["library_sdpa_backward_ms"],
                  "kernel_only_ms": at["attention_backward_kernel_only_ms"],
-                 "floor_hi_lo_ms": at["backward_floor_ms"], "shape": at["shape"],
+                 "floor_hi_lo_ms": at["backward_floor_ms"],
+                 "floor_share": at["backward_floor_share"], "shape": at["shape"],
                  "parity": f"dq, dk, dv within {BWD_BF16_TOL} (atol and rtol) of the plain "
                            "backward on the same bf16 inputs, and within 2**-8 |x| + 2**-10 "
                            "rms of its float32 answer (a skipped far key tile fails that); two "

@@ -3,11 +3,12 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), under
 ``build/kernels/`` at the repository root. The library's file name carries
-a hash of its source and flags, so an edited source is never served by a
-stale build. Nothing is built when a module is imported: the first CUDA
-launch builds what it needs, and :func:`build` compiles several sources at
-once, one nvcc process each. nvcc's ptxas report (registers, spills) is
-kept beside each library.
+a hash of its source, the headers beside it (``csrc/*.cuh``) and the flags,
+so an edited source or header is never served by a stale build. Nothing is
+built when a module is imported: the first CUDA launch builds what it
+needs, and :func:`build` compiles several sources at once, one nvcc
+process each. nvcc's ptxas report (registers, spills) is kept beside each
+library.
 """
 
 from __future__ import annotations
@@ -41,8 +42,12 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The build of ``csrc/<name>.cu``: its name hashes the source, every
+    header of ``csrc`` (which any source may include) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(), digest_size=6).hexdigest()
+    headers = b"".join(p.name.encode() + p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.blake2b(src + headers + " ".join(NVCC_FLAGS).encode(),
+                          digest_size=6).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

@@ -31,7 +31,7 @@ for each row's float32 log-sum-exp (the statistics the Pallas kernel keeps
 as its m and l outputs), and the backward is the operator
 ``repro_torch::flash_attention_bwd`` (:func:`flash_attention_bwd`): on CUDA
 the kernels of ``csrc/flash_attention_bwd.cu`` (bf16 at (D, Dv) in
-:data:`WGMMA_HEAD_DIMS` on the tensor cores with ``mma.sync``, everything
+:data:`WGMMA_HEAD_DIMS` on the tensor cores with ``wgmma`` and TMA, everything
 else the forward's CUDA-core kernel takes on the CUDA cores), on the CPU
 :func:`flash_attention_backward_plain`, plain PyTorch in float32 (float64
 for float64 inputs), which is also the kernels' oracle. The JAX package
@@ -231,8 +231,7 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a dense copy where the TMA cannot read it: it needs a
     16-byte aligned base and batch, head and sequence strides in whole
     16-byte units (a dimension of extent 1 may have any stride). The
-    backward's tensor-core kernels read their rows with 16-byte
-    ``cp.async`` copies, which need the same."""
+    backward's tensor-core kernels load q, k, v and dO by TMA too."""
     nbytes = t.element_size()
     ok = t.numel() == 0 or (t.data_ptr() % 16 == 0 and all(
         n == 1 or (s > 0 and s * nbytes % 16 == 0) for n, s in zip(t.shape[:3], t.stride()[:3])))
@@ -409,7 +408,10 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool, window: int, scale: floa
     if mma:
         q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
     lse = lse.contiguous()
-    delta = q.new_empty((b, h, sq), dtype=torch.float32)  # rowsum(dO * o), scratch
+    # rowsum(dO * o), scratch; the tensor-core kernels' holds each 64-row
+    # tile's lse log2(e) and D side by side, padded to whole tiles
+    rows = 2 * 64 * -(-sq // 64) if mma else sq
+    delta = q.new_empty((b, h, rows), dtype=torch.float32)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv_) for s in t.stride()[:3]]
     args = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv_)]
     args += [b, h, hkv, sq, sk, d, dv, *strides, scale, int(bool(causal)), window]

@@ -95,3 +95,23 @@ def test_import_builds_nothing():
     # importing every kernel module above left no library loaded
     assert _build._libs == {}
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+
+
+def test_build_tag_follows_the_shared_header(tmp_path, monkeypatch):
+    # a library's name hashes the headers its source may include, so an
+    # edited csrc/*.cuh is never served by a stale build; the sources stay
+    # the .cu files
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["hopper.cuh"]
+    before = {name: _build.lib_path(name) for name in _build.SOURCES}
+    assert before == {name: _build.lib_path(name) for name in _build.SOURCES}  # stable
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.lib_path(name) for name in _build.SOURCES}
+    assert all(after[name] != before[name] for name in _build.SOURCES)
+    assert all(after[name].name.startswith(f"lib{name}-") for name in _build.SOURCES)
+    assert set(_build.SOURCES) == {p.stem for p in csrc.glob("*.cu")}

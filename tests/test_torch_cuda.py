@@ -325,6 +325,101 @@ def test_flash_attention_backward_bitwise_repeatable_and_strided(dev, case):
         assert torch.equal(a, w)
 
 
+# the tensor-core backward's edges, at each (D, Dv) it takes: Sq and Sk
+# not multiples of its 128-key and 128-row blocks (1,000; whisper's 1,500
+# frames), a window whose edge falls inside a key block (hymba's 2,048 at
+# 4,096 positions; 300 at 700), G 8, key tiles that no query sees (causal,
+# Sq < Sk) and rows that see no key (Sq > Sk with a window)
+_WGMMA_EDGES = [
+    # (b, h, hkv, sq, sk, causal, window)
+    (1, 2, 1, 1000, 1000, True, 0),
+    (1, 2, 2, 1000, 1500, False, 0),
+    (1, 5, 1, 4096, 4096, True, 2048),
+    (1, 4, 2, 700, 700, True, 300),
+    (1, 16, 2, 640, 640, True, 0),
+    (1, 2, 1, 200, 700, True, 0),
+    (2, 4, 2, 300, 100, True, 32),
+]
+_WGMMA_EDGE_CASES = [(*c[:5], d, *c[5:], "bfloat16", dv)
+                     for d, dv in sorted(WGMMA_HEAD_DIMS) for c in _WGMMA_EDGES]
+BWD_BF16_TOL = 1e-2  # the kernels against the plain backward on the same bf16 inputs
+
+
+def _one_rounding_use(grad, ref32):
+    """max |grad - ref32| / (2**-8 |ref32| + 2**-10 rms(ref32)): at most 1
+    where the bf16 ``grad`` is the float32 ``ref32`` rounded once, its sums
+    in another order (chip_smoke.py's limit for the backward kernels)."""
+    limit = 2.0 ** -8 * ref32.abs() + 2.0 ** -10 * ref32.square().mean().sqrt()
+    return float(((grad.float() - ref32).abs() / limit).max())
+
+
+@pytest.mark.parametrize("case", _WGMMA_EDGE_CASES, ids=[str(c) for c in _WGMMA_EDGE_CASES])
+def test_flash_attention_backward_wgmma_edges(dev, case):
+    """The tensor-core backward at its tiles' edges: within BWD_BF16_TOL of
+    the plain backward and within one bf16 rounding of its float32 answer,
+    two calls bitwise equal, one tensor-core launch each; k and v as views
+    of one (B, S, Hkv, D + Dv) projection give the same bits; a key that
+    no query sees gets zero dK and dV, a row that sees no key zero dQ."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+
+    b, h, hkv, sq, sk, d, dv, causal, window, dt = _case(case)
+    q, k, v, out, lse, dout = _backward_inputs(dev, case, sq + sk + d + window)
+    args = (causal, window, d ** -0.5)
+    before = (flash_attention.bwd_launches, flash_attention.bwd_mma_launches)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    assert (flash_attention.bwd_launches, flash_attention.bwd_mma_launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, w in zip(got, flash_attention_bwd(q, k, v, out, lse, dout, *args)):
+        assert torch.equal(a, w)
+    plain = flash_attention_backward_plain(q, k, v, out, lse, dout, causal=causal, window=window)
+    ref32 = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                           dout.float(), causal=causal, window=window)
+    for g, w, r in zip(got, plain, ref32):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=BWD_BF16_TOL, rtol=BWD_BF16_TOL)
+        assert _one_rounding_use(g, r) <= 1.0
+    qpos, kpos = torch.arange(sq, device=dev)[:, None], torch.arange(sk, device=dev)[None, :]
+    seen = torch.ones(sq, sk, dtype=torch.bool, device=dev)
+    if causal:
+        seen &= kpos <= qpos
+    if window:
+        seen &= kpos > qpos - window
+    assert not got[1][:, :, ~seen.any(0)].any() and not got[2][:, :, ~seen.any(0)].any()
+    assert not got[0][:, :, ~seen.any(1)].any()
+    fused = torch.empty((b, sk, hkv, d + dv), dtype=q.dtype, device=dev)
+    fused[..., :d] = k.transpose(1, 2)
+    fused[..., d:] = v.transpose(1, 2)
+    kv = fused[..., :d].transpose(1, 2), fused[..., d:].transpose(1, 2)
+    for a, w in zip(flash_attention_bwd(_bshd(q), *kv, out, lse, _bshd(dout), *args), got):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("d,dv", sorted(WGMMA_HEAD_DIMS))
+def test_flash_attention_backward_runs_the_wgmma_kernels(dev, d, dv):
+    """The profiler's trace of a bf16 backward at each tensor-core (D, Dv)
+    holds the delta, ``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma``
+    kernels once each, and no other backward kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+
+    case = (2, 4, 2, 384, 384, d, True, 0, "bfloat16", dv)
+    q, k, v, out, lse, dout = _backward_inputs(dev, case, d)
+    flash_attention_bwd(q, k, v, out, lse, dout, True, 0, d ** -0.5)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd(q, k, v, out, lse, dout, True, 0, d ** -0.5)
+        torch.cuda.synchronize()
+    names = sorted(e.name for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                   and "flash_bwd" in e.name)
+    assert len(names) == 3, names
+    assert sum("flash_bwd_delta" in n for n in names) == 1, names
+    assert sum(f"flash_bwd_dkdv_wgmma<{d}, {dv}," in n for n in names) == 1, names
+    assert sum(f"flash_bwd_dq_wgmma<{d}, {dv}>" in n for n in names) == 1, names
+    assert not any("_mma" in n for n in names), names
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_flash_attention_backward_rows_without_a_key(dev, dt):
     """Rows that see no key (causal, a 32-key window, Sq 256 against Sk 64:
