@@ -1,0 +1,11 @@
+"""The chunked recurrence's device time a step: the kernels launched under
+the program's ``linear_recurrence`` range in the traced steps (the forward
+and its recomputation; the backward's kernels run outside the range)."""
+
+
+def read(view):
+    trace = view["trace"]
+    secs = trace["range_s"].get("linear_recurrence", 0.0) if trace else 0.0
+    if view["kind"] != "train" or secs <= 0:
+        return None
+    return 1e3 * secs / view["traced_steps"]
