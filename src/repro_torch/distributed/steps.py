@@ -68,6 +68,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.distributed.sharding import (
     CACHE_RULES,
@@ -241,7 +242,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3
     (its expert-placed dispatch buffer: tokens move to the experts) need a
     mesh; each changes nothing where the reference's does not
     (``moe_buf_shard`` for a model without MoE layers, ``seq_shard`` for
-    the encoder–decoder)."""
+    the encoder–decoder). A step runs under the span ``train_step``."""
     for flag, on, what in (("seq_shard", seq_shard, "splits the residual stream over a mesh's "
                             "model axis"),
                            ("moe_buf_shard", moe_buf_shard, "places the MoE dispatch buffer on "
@@ -262,13 +263,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, peak_lr: float = 3
     model = Model(cfg)
     selection_only = model.selection_only_paths()  # zero gradients, as jax.grad's
 
+    @spans.span("train_step")
     def train_step(state: dict[str, Any], batch: dict[str, torch.Tensor]):
         params = state["params"]
         flat, treedef = flatten_with_paths(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
         loss = model.loss(treedef.unflatten(leaves), batch, n_groups=n_groups)
-        # every other leaf must reach the loss: autograd raises where one does not
-        reached = [k for k in leaves if k not in selection_only]
         grads = _gradients(loss, leaves, selection_only)
         lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup, total=total_steps)
         om = adamw_update(treedef.unflatten(grads), state["opt"], params, lr, opt_cfg)
@@ -331,6 +331,7 @@ def _make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, *, pea
         for a in axes:  # a sum over the product of the batch axes
             dist.all_reduce(t, group=mesh.get_group(a))
 
+    @spans.span("train_step")
     def train_step(state: dict[str, Any], batch: dict[str, torch.Tensor]):
         local, axes, share = shard_batch(batch)
         shards = 1
@@ -419,7 +420,7 @@ def _adamw_sharded(grads: dict[str, torch.Tensor], opt_state: dict, p_flat: dict
     once: each leaf's squares summed over the axes it is split over (the
     model axis, the data axis too for an expert), a whole leaf's (the
     same on every rank) once."""
-    with torch.profiler.record_function("adamw_update"):
+    with spans.span("adamw_update"):
         mu_flat, _ = flatten_with_paths(opt_state["mu"])
         nu_flat, _ = flatten_with_paths(opt_state["nu"])
         m_flat, _ = flatten_with_paths(opt_state["master"])

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_Q = 512  # the plain version's tiles (the reference's defaults)
@@ -483,8 +484,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         scale = float(ctx.scale) if ctx.scale is not None else 1.0 / math.sqrt(q.shape[-1])
-        # a named range, so a profile can attribute the backward's kernels
-        with torch.profiler.record_function("flash_attention_backward"):
+        # a span, so a profile can attribute the backward's kernels
+        with spans.span("flash_attention_backward"):
             dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, bool(ctx.causal),
                                              int(ctx.window), scale)
         return dq, dk, dv, None, None, None

@@ -51,8 +51,8 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, init_const, init_dense, pdtype, rmsnorm
@@ -467,7 +467,7 @@ def _mla_attend(p, x, cfg: ArchConfig, causal: bool, plan=None):
                                                      and x.shape[1] % plan.size == 0))
     b, s = x.shape[0], x.shape[1] * (plan.size if plan is not None and plan.seq_shard else 1)
     nd = cfg.qk_nope_dim
-    with record_function("mla"):
+    with spans.span("mla"):
         if split:  # x reaches only wq_a and wkv_a: their products on the rank's positions
             xb = x if plan.seq_shard else plan.split_seq(x)
             q_nope, q_rope, ckv, k_rope = _mla_qkv(w, xb, cfg, torch.arange(s, device=x.device),
@@ -482,7 +482,7 @@ def _mla_attend(p, x, cfg: ArchConfig, causal: bool, plan=None):
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, k_nope.shape[2], -1)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
-    with record_function("mla"):
+    with spans.span("mla"):
         if plan is None:
             y = torch.matmul(o.transpose(1, 2).flatten(-2), w["wo"].flatten(0, 1))
         else:
@@ -513,7 +513,7 @@ def mla_prefill(p, x, cfg: ArchConfig, s_max: int, plan=None):
     return y, {"ckv": ckv_c, "kr": kr_c}
 
 
-@record_function("mla")
+@spans.span("mla")
 def mla_decode(p, x, cache: dict, pos: int, cfg: ArchConfig, plan=None):
     """Absorbed one-token decode: scores and output in the latent space, so
     a step reads O(S (KVr + Rr)) of cache, not O(S H Dh). Writes ``ckv``

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 
 # Vocabulary rows per float32 block of the unembedding: 16,384 rows at
@@ -209,7 +210,17 @@ def softmax_xent_chunked(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.T
     ``h`` enters the split region (gathered along S under ``seq_shard``);
     with it whole under ``seq_shard``, each rank takes its own positions
     and the sums are added over the ranks.
+
+    The loss head runs under the span ``loss_head``; its backward pass,
+    each chunk's recomputation and gradient, is the span ``loss_head.bwd``.
     """
+    with spans.span("loss_head"):
+        return spans.backward_span("loss_head", (h, emb_out),
+                                   lambda h, emb_out: _xent_chunks(h, emb_out, labels, chunk, plan))
+
+
+def _xent_chunks(h: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor, chunk: int,
+                 plan) -> torch.Tensor:
     xent = _xent_chunk
     if plan is not None and plan.vocab:
         h = plan.gather_seq(h) if plan.seq_shard else plan.copy_to(h)

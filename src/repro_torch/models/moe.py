@@ -86,8 +86,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import init_const, init_dense, pdtype, swiglu
 
@@ -222,8 +222,10 @@ def _moe_groups(xg: torch.Tensor, p: dict, cfg: ArchConfig, capacity: int,
     token's weighted outputs summed over the experts this rank computes:
     all of them with no ``plan``; under one, its model column's (see the
     module's docstring), the others' terms zeros. The three phases run
-    under profiler ranges (``moe_dispatch``, ``moe_experts``,
-    ``moe_combine``) that a trace groups its kernels by."""
+    under spans (``moe_dispatch``, ``moe_experts``, ``moe_combine``) that a
+    trace groups its kernels by; while spans record, the counters
+    ``moe.slots`` and ``moe.filled`` add the slots the experts compute and
+    those that hold a token."""
     g_, t_g, e = xg.shape
     x_, k = cfg.n_experts, cfg.top_k
     dev = xg.device
@@ -235,7 +237,7 @@ def _moe_groups(xg: torch.Tensor, p: dict, cfg: ArchConfig, capacity: int,
     # the column's experts (all of them with nothing split: no index)
     sel = slice(None) if nc == x_ else torch.tensor(col, device=dev)
     gc = g_ * capacity
-    with record_function("moe_dispatch"):
+    with spans.span("moe_dispatch"):
         a = _assign(xg, p, cfg, capacity)
         experts = torch.arange(x_, device=dev).expand(g_, x_).contiguous()
         counts = torch.searchsorted(a.eid, experts, side="right") - a.starts
@@ -244,6 +246,8 @@ def _moe_groups(xg: torch.Tensor, p: dict, cfg: ArchConfig, capacity: int,
         c = torch.arange(capacity, device=dev)
         src = torch.clamp(a.starts[:, sel].T[:, :, None] + c, max=n - 1)
         filled = (c < counts[:, sel].T[:, :, None]).reshape(-1, 1)
+        spans.count("moe.slots", filled.numel())
+        spans.count("moe.filled", filled.sum)
         gi = torch.arange(g_, device=dev)[None, :, None]
         slot_tok = (gi * t_g + a.tid[gi, src]).reshape(-1, 1)  # each slot's row of xg
         slot_gate = (a.gate[gi, src].reshape(-1, 1) * filled.float()).to(xg.dtype)
@@ -261,7 +265,7 @@ def _moe_groups(xg: torch.Tensor, p: dict, cfg: ArchConfig, capacity: int,
         buf = _Gather.apply(xg.reshape(-1, e), slot_tok, filled.to(xg.dtype), tok_slot,
                             keep.reshape(-1, k).to(xg.dtype)).reshape(nc, gc, e)
 
-    with record_function("moe_experts"):
+    with spans.span("moe_experts"):
         w = {name: p[name] for name in ("wg", "wu", "wd")}  # (X_local, ...)
         if move:  # the slots go to their experts
             xl = nc // rows
@@ -279,7 +283,7 @@ def _moe_groups(xg: torch.Tensor, p: dict, cfg: ArchConfig, capacity: int,
     # each token's k weighted expert outputs, summed in the parameter dtype
     # in the reference's order (ascending expert id), one rounding an add;
     # no scatter, forward or backward, so no order is left to the device
-    with record_function("moe_combine"):
+    with spans.span("moe_combine"):
         out = _Gather.apply(out_buf.reshape(-1, e), tok_slot, w_c.reshape(-1, k), slot_tok,
                             slot_gate)
     return out.reshape(g_, t_g, e)
@@ -308,8 +312,10 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, *, n_groups: int = 0,
     t = b * s
     assert t % g == 0, (t, g)
     t_g = t // g
-    out = _moe_groups(xs.reshape(g, t_g, e), pw, cfg, capacity(t_g, cfg),
-                      plan).reshape(b, s, e)
+    # its backward pass is the span moe.bwd
+    out = spans.backward_span(
+        "moe", (xs.reshape(g, t_g, e),),
+        lambda xg: _moe_groups(xg, pw, cfg, capacity(t_g, cfg), plan)).reshape(b, s, e)
     if partial:
         out = plan.scatter_seq(out) if seq_shard else plan.reduce_from(out)
     elif seq_shard:  # every model rank computed every position: keep its own

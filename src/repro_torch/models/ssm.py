@@ -46,12 +46,13 @@ all-gathered into it.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import init_const, init_dense, pdtype, rmsnorm
 
@@ -65,50 +66,58 @@ def chunked_linear_recurrence(
     chunk: int,
     initial_state: torch.Tensor | None = None,  # (B, H, N, P)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, H, P) float32, final_state (B, H, N, P) float32)."""
-    with record_function("linear_recurrence"):
-        b, s, h, n = q.shape
-        p = v.shape[-1]
-        qf, kf, vf, la = (t.float() for t in (q, k, v, log_a))
-        cq = min(chunk, s)
-        nc = -(-s // cq)
-        pad = nc * cq - s
-        if pad:  # log a = 0 -> a = 1 on the padding
-            qf, kf, vf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
-            la = F.pad(la, (0, 0, 0, pad))
-        qc, kc, vc = (t.reshape(b, nc, cq, h, t.shape[-1]) for t in (qf, kf, vf))
-        cum = torch.cumsum(la.reshape(b, nc, cq, h), dim=2)  # (B, nc, Q, H) inclusive
-        tot = cum[:, :, -1]  # (B, nc, H)
+    """Returns (y (B, S, H, P) float32, final_state (B, H, N, P) float32).
+    The forward runs under the span ``linear_recurrence``; its backward pass
+    is the span ``linear_recurrence.bwd``."""
+    with spans.span("linear_recurrence"):
+        ins = (q, k, v, log_a) + (() if initial_state is None else (initial_state,))
+        return spans.backward_span("linear_recurrence", ins,
+                                   functools.partial(_recurrence, chunk=chunk))
 
-        # intra-chunk, every chunk at once: La_i − La_j masked to −inf above
-        # the diagonal before exp (see the module docstring)
-        cum_h = cum.transpose(2, 3)  # (B, nc, H, Q)
-        dec = cum_h[..., :, None] - cum_h[..., None, :]  # (B, nc, H, i, j)
-        upper = torch.ones((cq, cq), dtype=torch.bool, device=q.device).triu(1)
-        dec = dec.masked_fill(upper, float("-inf"))
-        sc = torch.einsum("bcihn,bcjhn->bchij", qc, kc) * torch.exp(dec)
-        y = torch.einsum("bchij,bcjhp->bcihp", sc, vc)
 
-        # each chunk's own contribution to the carry, every chunk at once
-        kw = kc * torch.exp(tot[:, :, None] - cum)[..., None]  # (B, nc, Q, H, N)
-        contrib = torch.einsum("bcjhn,bcjhp->bchnp", kw, vc)  # (B, nc, H, N, P)
+def _recurrence(q, k, v, log_a, initial_state=None, *, chunk: int):
+    b, s, h, n = q.shape
+    p = v.shape[-1]
+    qf, kf, vf, la = (t.float() for t in (q, k, v, log_a))
+    cq = min(chunk, s)
+    nc = -(-s // cq)
+    pad = nc * cq - s
+    if pad:  # log a = 0 -> a = 1 on the padding
+        qf, kf, vf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
+        la = F.pad(la, (0, 0, 0, pad))
+    qc, kc, vc = (t.reshape(b, nc, cq, h, t.shape[-1]) for t in (qf, kf, vf))
+    cum = torch.cumsum(la.reshape(b, nc, cq, h), dim=2)  # (B, nc, Q, H) inclusive
+    tot = cum[:, :, -1]  # (B, nc, H)
 
-        # the carry, chunk by chunk in the reference's order; prev[c] is the
-        # state entering chunk c. Each chunk's decay and contribution are
-        # views of one unbind: the backward stacks their gradients once,
-        # where indexing each chunk would make and add nc gradients of the
-        # whole (B, nc, H, N, P)
-        state = (initial_state.float() if initial_state is not None
-                 else torch.zeros((b, h, n, p), dtype=torch.float32, device=q.device))
-        prev = []
-        for decay, part in zip(torch.exp(tot)[..., None, None].unbind(1), contrib.unbind(1)):
-            prev.append(state)
-            state = state * decay + part
+    # intra-chunk, every chunk at once: La_i − La_j masked to −inf above
+    # the diagonal before exp (see the module docstring)
+    cum_h = cum.transpose(2, 3)  # (B, nc, H, Q)
+    dec = cum_h[..., :, None] - cum_h[..., None, :]  # (B, nc, H, i, j)
+    upper = torch.ones((cq, cq), dtype=torch.bool, device=q.device).triu(1)
+    dec = dec.masked_fill(upper, float("-inf"))
+    sc = torch.einsum("bcihn,bcjhn->bchij", qc, kc) * torch.exp(dec)
+    y = torch.einsum("bchij,bcjhp->bcihp", sc, vc)
 
-        # inter-chunk, every chunk at once
-        y = y + torch.einsum("bcihn,bchnp->bcihp", qc * torch.exp(cum)[..., None],
-                             torch.stack(prev, dim=1))
-        return y.reshape(b, nc * cq, h, p)[:, :s], state
+    # each chunk's own contribution to the carry, every chunk at once
+    kw = kc * torch.exp(tot[:, :, None] - cum)[..., None]  # (B, nc, Q, H, N)
+    contrib = torch.einsum("bcjhn,bcjhp->bchnp", kw, vc)  # (B, nc, H, N, P)
+
+    # the carry, chunk by chunk in the reference's order; prev[c] is the
+    # state entering chunk c. Each chunk's decay and contribution are
+    # views of one unbind: the backward stacks their gradients once,
+    # where indexing each chunk would make and add nc gradients of the
+    # whole (B, nc, H, N, P)
+    state = (initial_state.float() if initial_state is not None
+             else torch.zeros((b, h, n, p), dtype=torch.float32, device=q.device))
+    prev = []
+    for decay, part in zip(torch.exp(tot)[..., None, None].unbind(1), contrib.unbind(1)):
+        prev.append(state)
+        state = state * decay + part
+
+    # inter-chunk, every chunk at once
+    y = y + torch.einsum("bcihn,bchnp->bcihp", qc * torch.exp(cum)[..., None],
+                         torch.stack(prev, dim=1))
+    return y.reshape(b, nc * cq, h, p)[:, :s], state
 
 
 def linear_recurrence_step(

@@ -31,12 +31,14 @@ everything (no checkpoint).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -263,18 +265,28 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _recompute_contexts(inner=None):
+    """A checkpoint's ``context_fn``: ``inner``'s pair (none by default),
+    the recomputation also under :func:`spans.recompute`."""
+    fwd, rec = inner() if inner is not None else (contextlib.nullcontext(), None)
+    return fwd, spans.recompute(rec)
+
+
 def _remat(fn, cfg: ArchConfig):
-    """``fn`` under ``cfg.remat``'s policy (see the module docstring)."""
+    """``fn`` under ``cfg.remat``'s policy (see the module docstring); a
+    layer's recomputation is the span ``recompute``."""
     if cfg.remat == "full":
         return fn
     if cfg.remat == "nothing":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=_recompute_contexts)
     if cfg.remat == "dots":
         from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
         return functools.partial(
             checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+            context_fn=functools.partial(_recompute_contexts, functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)))
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 

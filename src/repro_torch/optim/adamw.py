@@ -25,6 +25,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import spans
 from repro_torch.utils import flatten_with_paths, tree_map
 
 
@@ -112,8 +113,8 @@ def adamw_update(grads: Any, opt_state: dict, params: Any, lr, cfg: AdamWConfig)
     where the reference's does (no fused multiply-adds), so the two agree
     to float32 rounding.
     """
-    # a named range, so a profile can attribute the update's kernels
-    with torch.profiler.record_function("adamw_update"):
+    # a span, so a profile can attribute the update's kernels
+    with spans.span("adamw_update"):
         g_flat, _ = flatten_with_paths(grads)
         p_flat, _ = flatten_with_paths(params)
         if sorted(g_flat) != sorted(p_flat):

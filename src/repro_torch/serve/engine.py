@@ -46,6 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.utils import resolve_device
 
 
@@ -159,7 +160,10 @@ class ModelEngine:
         cut = f":layers={self.layers}" if self.layers else ""
         return f"model:{self.arch}:{'smoke' if self.smoke else 'full'}{cut}:seed={self.seed}"
 
+    @spans.span("prefill")
     def prefill(self, prompt, max_new: int) -> dict:
+        """The request's state after its prompt, the first token read back
+        to the host: all of it the span ``prefill``."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
