@@ -28,7 +28,12 @@ with nvcc and prints one JSON line per phase:
              the tensor-core kernel's floor 2 D + 4 Dv a pair) and
              whisper-tiny's non-causal encoder (1,500 frames) and cross
              attention (2,048 tokens against 1,500 frames) and its decoder's
-             causal self-attention (2,048 tokens, B 4, 6 heads)
+             causal self-attention (2,048 tokens, B 4, 6 heads); the
+             chunked linear recurrence's kernels, forward and backward, at
+             hymba-1.5b's serve and train shapes and xlstm-1.3b's mLSTM
+             (N 512, P 513), within 2e-4 and 1e-4 of the plain version,
+             bitwise repeatable, with the time the trace puts under the
+             ``linear_recurrence`` range
   dryrun     ``python -m repro_torch.launch.dryrun`` for qwen3-1.7b's
              prefill_32k and decode_32k cells on a fake 16x1 cuda mesh (a
              16th of the batch and the whole model a device: the 1x1 run's
@@ -56,7 +61,10 @@ with nvcc and prints one JSON line per phase:
              all-to-all) and train_4k with ``seq_shard`` and
              ``moe_buf_shard``, each at 8 of 61 layers (its 3 dense and 5
              MoE), granite's prefill_32k (24 layers, 2 of 32 experts a rank
-             over the model axis); each with its peak memory (below the
+             over the model axis); hymba's prefill_32k and train_4k, xlstm's
+             train_4k and whisper's the same way (the recurrence's kernels
+             once a recurrent layer a prefill, twice and a backward a train
+             step); each with its peak memory (below the
              card's, within 2 % of the dry run's net of what the process
              held beyond the step's arguments, which may not pass 200 MB)
              beside the dry run's, device time and TFLOP/s of
@@ -132,17 +140,21 @@ with nvcc and prints one JSON line per phase:
   serve_hybrid  hymba-1.5b at full width (32 layers of windowed attention
              in parallel with SSD heads): 4 requests of 4096 prompt tokens,
              past the 2048-token window, and 32 generated; 4 x 32 K3
-             launches, all tensor-core, each with the window; transcripts
+             launches, all tensor-core, each with the window, and 4 x 32
+             forward launches of the recurrence's kernels; transcripts
              equal ``run_reference``'s; one request resumed with zero
              re-prefill from a CMI holding its SSD states; one hybrid layer
              on the card against the float32 CPU path; where the time goes
   train_hybrid  the two launcher runs for hymba at 2 x 4096 tokens a step
              (the runs keep 1 of 32 layers), every loss finite; K3 with lse
-             at its heads and window
+             at its heads and window; the recurrence's kernels twice
+             forward (the remat recompute) and once backward a layer a step
   xlstm      xlstm-1.3b at full width (48 mLSTM layers, no attention, no
-             TPU kernel): served as the serve phase is, transcripts equal,
+             TPU kernel): served as the serve phase is (4 x 48 forward
+             launches of the recurrence's kernels), transcripts equal,
              one request resumed with zero re-prefill from its 202 MB mLSTM
              state; training steps in this process at 12 of its 48 layers
+             (the recurrence twice forward and once backward a layer)
   serve_mla  deepseek-v3-671b at full width, its depth cut to 4 layers (3
              dense, 1 MoE of 256 experts, top 8, sigmoid routing, 1 shared;
              15.1 B parameters) through ``launch.serve.main --layers 4``:
@@ -172,7 +184,9 @@ serve_hybrid and serve_mla phases' ``main``, the serving workers' prefills
 and the training runs of the four attention models, each counted inside
 its launcher process; K3's backward, a row of its own: the train phases,
 the mesh, the dryrun phase's per-device train steps and the in-process
-vision and whisper steps), the nvidia-smi line, and last
+vision and whisper steps; the recurrence's kernels, a row of their own:
+the dryrun phase's hymba and xlstm steps, serve_hybrid, train_hybrid and
+xlstm), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero before the last line; so does a machine without a CUDA
 card, or a directory without the rest of the repository.
@@ -1591,6 +1605,129 @@ def device_groups(prof) -> dict:
                                sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}}
 
 
+# the chunked recurrence's kernels (kernels/linear_recurrence): hymba-1.5b's
+# SSD at its serve prefill (B 1, S 32,768) and its train step's (B 2, S
+# 8,192), 25 heads of N 16, P 64, chunk 128, q/k/v bf16 as the model makes
+# them; xlstm-1.3b's mLSTM (4 heads of N 512, P 513 with the normaliser
+# column, chunk 128; q bf16, k and v float32) at 4,096 tokens
+RECURRENCE_CASES = {"hymba_serve": (1, 32768, 25, 16, 64, 128, torch.bfloat16, False),
+                    "hymba_train": (2, 8192, 25, 16, 64, 128, torch.bfloat16, True),
+                    "mlstm": (1, 4096, 4, 512, 513, 128, None, True)}
+RECURRENCE_FWD_KERNELS = ("chunk_state_kernel", "state_scan_kernel", "chunk_out_kernel")
+RECURRENCE_BWD_KERNELS = ("chunk_state_kernel", "state_scan_bwd_kernel", "chunk_grad_kernel")
+REC_TOL = 2e-4  # tests/test_torch_ssm.py's forward tolerance (the sums' order differs)
+# the counts the kernels line reads from a path, where the path has them
+RECORDED = ("flash_attention", "flash_attention_bwd", "linear_recurrence", "linear_recurrence_bwd")
+
+
+def _kernels_ms(fn, names: tuple[str, ...], reps: int) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel of ``names`` (one
+    launch of each a call; :func:`profiled_ms`) and their sum (None where
+    a profile recorded none)."""
+    by = {name: profiled_ms(fn, name, reps) for name in names}
+    return {"total": None if None in by.values() else sum(by.values()), **by}
+
+
+def check_linear_recurrence(dev) -> dict:
+    """The recurrence's kernels against the plain version (``ssm._recurrence``)
+    on the card at :data:`RECURRENCE_CASES`: y and the final state within
+    :data:`REC_TOL`, the float32 gradients (train and mLSTM cases) within
+    :data:`GRAD_TOL` of each max, two runs bitwise equal; the wrapper's time
+    (CUDA events), the kernels' (torch.profiler), the plain version's and
+    the least time (the causal triangle's FLOPs at the float32 CUDA-core
+    rate, or the bytes the function reads and writes once, the larger);
+    and, profiled through ``models.ssm.chunked_linear_recurrence``, the
+    device time the trace puts under the ``linear_recurrence`` range beside
+    the kernels' own."""
+    from repro_torch.kernels.linear_recurrence import ops
+    from repro_torch.models import ssm
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = {}
+    for case, (b, s, h, n, p, cq, dtype, backward) in RECURRENCE_CASES.items():
+        gen = torch.Generator(device=dev).manual_seed(31 + s)
+        mlstm = dtype is None
+        q = torch.randn((b, s, h, n), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((b, s, h, n), generator=gen, device=dev)
+        v = torch.randn((b, s, h, p), generator=gen, device=dev)
+        if mlstm:  # the mLSTM's k_eff and v_aug (its ones column) are float32
+            q, k, v = q / math.sqrt(n), k / math.sqrt(n), v.clone()
+            v[..., -1] = 1.0
+        else:
+            k, v = k.to(dtype), v.to(dtype)
+        log_a = -torch.rand((b, s, h), generator=gen, device=dev) * 0.2
+        dy = torch.randn((b, s, h, p), generator=gen, device=dev)
+        dfinal = torch.randn((b, h, n, p), generator=gen, device=dev)
+        ins = (q, k, v, log_a)
+        wide = tuple(t.float() for t in ins)
+        dense = ops.operands(*ins)[:4]  # what the operators take: the mLSTM's q widened
+        with torch.no_grad():
+            y, final, states, tot = ops.linear_recurrence_fwd(*dense, None, cq)
+            y2, final2, _, _ = ops.linear_recurrence_fwd(*dense, None, cq)
+            y0, final0 = ssm._recurrence(*wide, chunk=cq)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(final, final2), case
+        err = max(float(((a - c).abs() - REC_TOL * c.abs()).max())
+                  for a, c in ((y, y0), (final, final0)))
+        assert err <= REC_TOL, (case, err)
+        flops = 2 * b * -(-s // cq) * cq * h * ((cq + 1) / 2 * (n + p) + 2 * n * p)
+        fwd_bytes = nbytes(*ins, y, final)
+        reps = 20 if s * h * n * p < 2**32 else 5
+        with torch.no_grad():
+            row = {
+                "shape": f"q {q.dtype}[{b},{s},{h},{n}], k {k.dtype}, v {v.dtype}[..,{p}], "
+                         f"chunk {cq}",
+                "max_abs_err_over_tol": err,
+                "bitwise_repeat": True,
+                "ms": cuda_ms(lambda: ops.linear_recurrence(*ins, chunk=cq), reps),
+                "kernel_ms": _kernels_ms(lambda: ops.linear_recurrence(*ins, chunk=cq),
+                                         RECURRENCE_FWD_KERNELS, reps),
+                "bound_ms": max(flops / FP32_FLOPS, fwd_bytes / HBM_BYTES_PER_S) * 1e3,
+                "bound_by": "operations" if flops / FP32_FLOPS >= fwd_bytes / HBM_BYTES_PER_S
+                            else "bytes",
+                "flops": flops, "bytes": fwd_bytes,
+                "plain_ms": cuda_ms(lambda: ssm._recurrence(*wide, chunk=cq), 3),
+            }
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ssm.chunked_linear_recurrence(*ins, chunk=cq)
+                torch.cuda.synchronize()
+            groups = device_groups(prof)["groups_ms"]
+            row["traced_range_ms"] = groups.get(RANGES["linear_recurrence"], 0.0)
+            row["traced_groups_ms"] = groups
+        if backward:
+            args = (*dense, states, final, tot, dy, dfinal, cq)
+            grads = ops.linear_recurrence_bwd(*args)
+            grads2 = ops.linear_recurrence_bwd(*args)
+            leaves = [t.clone().requires_grad_(True) for t in wide]
+            py, pf = ssm._recurrence(*leaves, chunk=cq)
+            want = torch.autograd.grad((py, pf), leaves, (dy, dfinal), retain_graph=True)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, c) for a, c in zip(grads, grads2)), case
+            gerr = {name: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-12)
+                    for name, g, w in zip(("q", "k", "v", "log_a"), grads, want)}
+            assert all(torch.isfinite(g).all() for g in grads) and max(gerr.values()) <= GRAD_TOL, \
+                (case, gerr)
+            bwd_bytes = nbytes(*ins, dy, *(g for g in grads[:4]))
+            row["backward"] = {
+                "max_err_over_max": gerr,
+                "ms": cuda_ms(lambda: ops.linear_recurrence_bwd(*args), reps),
+                "kernel_ms": _kernels_ms(lambda: ops.linear_recurrence_bwd(*args),
+                                         RECURRENCE_BWD_KERNELS, reps),
+                "bound_ms": max(2 * flops / FP32_FLOPS, bwd_bytes / HBM_BYTES_PER_S) * 1e3,
+                "plain_ms": cuda_ms(lambda: torch.autograd.grad((py, pf), leaves, (dy, dfinal),
+                                                                retain_graph=True), 3),
+            }
+            del py, pf, leaves, want, grads, grads2
+        out[case] = row
+        del ins, wide, dense, y, y2, y0, states, dy
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_serve(engine, prompt: list[int], steps: int = SERVE_PROFILE_STEPS) -> dict:
     """Where one request's time goes: its prefill and ``steps`` decode
     steps under torch.profiler, device time by kernel group and the
@@ -1637,13 +1774,15 @@ def serve_counted(dev, arch: str, prompt_len: int = PROMPT_LEN,
                   layers: int = 0) -> tuple[dict, dict, dict, int]:
     """``launch.serve.main`` for ``arch`` at full width (its depth cut to
     ``layers`` where given), every kernel's count set to 0 just before and
-    read just after: (metrics, launches, the ``window`` of each call the
-    model made to K3, peak memory)."""
+    read just after (the recurrence's forward and backward among them):
+    (metrics, launches, the ``window`` of each call the model made to K3,
+    peak memory)."""
     from collections import Counter
 
     from repro_torch.kernels.colocate import ops as colocate_ops
     from repro_torch.kernels.delta_encode import ops as delta_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.linear_recurrence import ops as recurrence_ops
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import attention as attn
 
@@ -1660,6 +1799,8 @@ def serve_counted(dev, arch: str, prompt_len: int = PROMPT_LEN,
     colocate_ops.colocate_match.launches = 0
     flash_ops.flash_attention.launches = 0
     flash_ops.flash_attention.wgmma_launches = 0
+    recurrence_ops.linear_recurrence.launches = 0
+    recurrence_ops.linear_recurrence.bwd_launches = 0
     attn.flash_attention = seen
     try:
         metrics = launch_serve.main(serve_argv(arch, prompt_len, layers))
@@ -1669,7 +1810,9 @@ def serve_counted(dev, arch: str, prompt_len: int = PROMPT_LEN,
     launches = {"delta_encode": delta_ops.changed_blocks.launches,
                 "colocate": colocate_ops.colocate_match.launches,
                 "flash_attention": flash_ops.flash_attention.launches,
-                "flash_attention_wgmma": flash_ops.flash_attention.wgmma_launches}
+                "flash_attention_wgmma": flash_ops.flash_attention.wgmma_launches,
+                "linear_recurrence": recurrence_ops.linear_recurrence.launches,
+                "linear_recurrence_bwd": recurrence_ops.linear_recurrence.bwd_launches}
     return metrics, launches, dict(windows), torch.cuda.max_memory_allocated(dev)
 
 
@@ -1694,7 +1837,8 @@ def run_serve_moe(root: Path, dev) -> dict:
     cfg = engine.cfg
     assert cfg == get_config(MOE_ARCH), cfg  # the full width and depth, nothing cut
     assert launches == {"delta_encode": 0, "colocate": 0, "flash_attention": BATCH * cfg.n_layers,
-                        "flash_attention_wgmma": BATCH * cfg.n_layers}, launches
+                        "flash_attention_wgmma": BATCH * cfg.n_layers, "linear_recurrence": 0,
+                        "linear_recurrence_bwd": 0}, launches
     resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
     in_model = check_model_kernel_vs_plain(engine, req["prompt"])
     on_card = check_moe_on_card(dev, cfg)
@@ -1835,7 +1979,9 @@ def run_serve_hybrid(root: Path, dev) -> dict:
     4096 prompt tokens, past its 2048-token window, and 32 generated (the
     first decode writes slot 0 of the rolling cache again). K3 counted from
     0 just before and read just after: one launch a layer a prefill (4 x
-    32), all on the tensor cores, every call with the window. Transcripts
+    32), all on the tensor cores, every call with the window, and one
+    forward launch set of the recurrence's kernels a layer a prefill (4 x
+    32, no backward). Transcripts
     equal ``run_reference``'s; one request published, dropped and resumed
     with zero re-prefill, its SSD states in the CMI; prefill logits with K3
     against the plain attention; one hybrid layer on the card against the
@@ -1848,8 +1994,10 @@ def run_serve_hybrid(root: Path, dev) -> dict:
     cfg = engine.cfg
     assert cfg == get_config(HYBRID_ARCH) and 0 < cfg.window < HYBRID_PROMPT_LEN, cfg  # nothing cut
     per_run = BATCH * cfg.n_layers
+    assert recurrences_per_forward(cfg) == cfg.n_layers  # an SSD beside each attention
     assert launches == {"delta_encode": 0, "colocate": 0, "flash_attention": per_run,
-                        "flash_attention_wgmma": per_run}, launches
+                        "flash_attention_wgmma": per_run, "linear_recurrence": per_run,
+                        "linear_recurrence_bwd": 0}, launches
     assert windows == {cfg.window: per_run}, windows
     resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
     ssd = {p: n for p, n in resume["cmi_cache_arrays"].items() if p.endswith("/ssd")}
@@ -1868,7 +2016,8 @@ def run_serve_hybrid(root: Path, dev) -> dict:
             "prompt_len": HYBRID_PROMPT_LEN, "resume": resume,
             "kernel_vs_plain_in_model": in_model, "hybrid_layer_on_card": on_card,
             "where_the_time_goes": trace, "launches": launches, "k3_windows": windows,
-            "k3_launches_per_prefill": cfg.n_layers, "peak_memory_bytes": peak}
+            "k3_launches_per_prefill": cfg.n_layers,
+            "recurrence_launches_per_prefill": cfg.n_layers, "peak_memory_bytes": peak}
 
 
 def check_hybrid_on_card(dev, cfg) -> dict:
@@ -1913,13 +2062,14 @@ def check_hybrid_on_card(dev, cfg) -> dict:
 def run_xlstm(root: Path, dev) -> dict:
     """xlstm-1.3b at full width: served through ``launch.serve.main`` (4
     requests of 2048 prompt tokens, 32 generated; every kernel counted from
-    0 just before and read just after, and none launched: the mLSTM is
-    matrix products and elementwise work that the JAX package runs outside
-    any Pallas kernel), transcripts equal ``run_reference``'s, one request
-    published, dropped and resumed with zero re-prefill from its 202 MB
-    mLSTM state; then training steps in this process at full width and
-    ``XLSTM_STEP_LAYERS`` of its 48 layers, timed, with finite losses and
-    the peak memory."""
+    0 just before and read just after: no K1-K3, as the JAX package runs the
+    mLSTM outside any Pallas kernel, and one forward launch set of the
+    recurrence's kernels a layer a prefill, 4 x 48), transcripts equal
+    ``run_reference``'s, one request published, dropped and resumed with
+    zero re-prefill from its 202 MB mLSTM state; then training steps in
+    this process at full width and ``XLSTM_STEP_LAYERS`` of its 48 layers,
+    timed, with finite losses, the peak memory and the recurrence's
+    launches (:func:`profile_train`)."""
     from repro_torch.configs import get_config
 
     metrics, launches, windows, peak = serve_counted(dev, XLSTM_ARCH)
@@ -1927,8 +2077,11 @@ def run_xlstm(root: Path, dev) -> dict:
     engine, req = served["engine"], served["requests"][0]
     cfg = engine.cfg
     assert cfg == get_config(XLSTM_ARCH), cfg
+    per_run = BATCH * recurrences_per_forward(cfg)
+    assert per_run == BATCH * cfg.n_layers  # every layer an mLSTM
     assert launches == {"delta_encode": 0, "colocate": 0, "flash_attention": 0,
-                        "flash_attention_wgmma": 0} and not windows, (launches, windows)
+                        "flash_attention_wgmma": 0, "linear_recurrence": per_run,
+                        "linear_recurrence_bwd": 0} and not windows, (launches, windows)
     resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
     dh = cfg.resolved_head_dim
     assert list(resume["cmi_cache_arrays"].values()) == [cfg.n_layers * cfg.n_heads * dh
@@ -1976,7 +2129,8 @@ def run_serve_mla(root: Path, dev) -> dict:
     assert cfg == get_config(MLA_ARCH).with_(n_layers=MLA_LAYERS), cfg  # widths kept
     per_run = BATCH * cfg.n_layers
     assert launches == {"delta_encode": 0, "colocate": 0, "flash_attention": per_run,
-                        "flash_attention_wgmma": per_run}, launches
+                        "flash_attention_wgmma": per_run, "linear_recurrence": 0,
+                        "linear_recurrence_bwd": 0}, launches
     assert windows == {0: per_run}, windows
     check_s = time.perf_counter() - t0
     resume = run_serve_resume(root, dev, engine, req, served["reference"][req["id"]])
@@ -2261,6 +2415,12 @@ def k3_per_forward(cfg) -> int:
     return 0 if cfg.mlstm else cfg.n_layers
 
 
+def recurrences_per_forward(cfg) -> int:
+    """Calls of the chunked recurrence in one forward pass: one a layer of
+    the hybrid (its SSD heads) and of the mLSTM, none elsewhere."""
+    return cfg.n_layers if cfg.ssm or cfg.mlstm else 0
+
+
 def state_bytes(cfg) -> int:
     """Bytes of the train state of ``cfg`` (params, master, moments)."""
     from repro_torch.distributed.steps import state_specs
@@ -2369,13 +2529,16 @@ def run_train(root: Path, arch: str = TRAIN_ARCH, budget: int = TRAIN_WRITE_BUDG
     starts = [(r["resumed"], r["step"]) for r in rec["B"] if r["event"] == "start"]
     assert starts == [(False, 0), (True, TRAIN_PREEMPT_AT)], starts
     per_run = 2 * TRAIN_STEPS * k3_per_forward(cfg)  # forward + remat recompute
+    rec_run = 2 * TRAIN_STEPS * recurrences_per_forward(cfg)  # as K3's
     for k in "AB":
         # one backward (tensor-core) for each layer's forward with lse that
-        # autograd keeps: the recompute's
+        # autograd keeps: the recompute's; the recurrence's likewise
         launched = end[k]["launches"]
         assert launched == {"flash_attention": per_run, "flash_attention_wgmma": per_run,
                             "flash_attention_lse": per_run, "flash_attention_bwd": per_run // 2,
-                            "flash_attention_bwd_mma": per_run // 2}, (k, launched)
+                            "flash_attention_bwd_mma": per_run // 2,
+                            "linear_recurrence": rec_run,
+                            "linear_recurrence_bwd": rec_run // 2}, (k, launched)
 
     step_s = {k: [r["s"] for r in rec[k] if r["event"] == "step"] for k in "AB"}
     median_s = statistics.median(step_s["A"][1:])  # steps 2-4: step 1 warms up
@@ -2427,13 +2590,15 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
     tokens/s, model TFLOP/s, peak memory, every loss finite), then one
     profiled: device time by kernel group (:func:`device_groups`: K3's
     backward, AdamW, the MoE phases and the chunked recurrence by their
-    ranges), the device's idle share, K3 launches (none for the mLSTM)."""
+    ranges), the device's idle share, K3 launches (none for the mLSTM) and
+    the recurrence's (forward, recompute and backward a recurrent layer)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed.steps import batch_to_device, make_init_fn, make_train_step
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_recurrence import linear_recurrence
     from repro_torch.launch.train import step_flops
     from repro_torch.optim import AdamWConfig
 
@@ -2452,7 +2617,8 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
         losses.append(float(m["loss"]))
     assert all(math.isfinite(loss) for loss in losses), losses
     before = (flash_attention.launches, flash_attention.bwd_launches,
-              flash_attention.bwd_mma_launches)
+              flash_attention.bwd_mma_launches, linear_recurrence.launches,
+              linear_recurrence.bwd_launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, tokens)
@@ -2464,6 +2630,10 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
     assert k3_launches == want_k3, (k3_launches, want_k3)
     # one backward a layer, all tensor-core (bf16 models)
     assert bwd_launches == flash_attention.bwd_mma_launches - before[2] == want_k3 // 2
+    rec_launches = (linear_recurrence.launches - before[3],
+                    linear_recurrence.bwd_launches - before[4])
+    want_rec = recurrences_per_forward(cfg)
+    assert rec_launches == (2 * want_rec, want_rec), (rec_launches, want_rec)
     del state, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -2494,6 +2664,8 @@ def profile_train(dev, layers: int, arch: str = TRAIN_ARCH, seq: int = TRAIN_SEQ
             "k3_backward_launches": bwd_launches,
             "k3_backward_kernels_in_trace": bwd_kernels,
             "k3_backward_wgmma_kernels_in_trace": bwd_wgmma,
+            "recurrence_launches": rec_launches[0],
+            "recurrence_backward_launches": rec_launches[1],
             "groups_ms": split["groups_ms"], "top_kernels_ms": split["top_kernels_ms"]}
 
 
@@ -2962,7 +3134,8 @@ def run_dryrun(root: Path, dev) -> dict:
     mixers = by_name(DRYRUN_MIXER_CELLS, tp_cells[n_tp + n_moe:])
     launches = {k: prefill["launches"][k] + sum(c["launches"][k] for c in tp_cells)
                 for k in prefill["launches"]}
-    launches["flash_attention_bwd"] = sum(c["launches"]["flash_attention_bwd"] for c in tp_cells)
+    for k in ("flash_attention_bwd", "linear_recurrence", "linear_recurrence_bwd"):
+        launches[k] = sum(c["launches"][k] for c in tp_cells)
     return {"arch": DRYRUN_ARCH, "mesh": "1x1 (data, model), cuda, nccl, world 1",
             "dryrun_mesh": f"{DRYRUN_MESH} fake cuda ({DRYRUN_DATA_RANKS} ranks): the 1x1 "
                            "step's per-device program (the whole model, a 16th of the batch)",
@@ -3036,13 +3209,15 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
     (its collectives return at once and write nothing) and makes the 16x16
     production mesh over it; the params and train state are rank 0's real
     blocks (:func:`_real_dtensors`), the batch the global one (each step
-    takes its data block; whisper's frames drawn too). K3's counts set to
-    0 just before each step and read just after: a prefill's
-    :func:`k3_per_forward` launches, a train step's twice as many with lse
-    (the forward and its recompute), all tensor-core (none for the
-    mLSTM). Each step's wall and device time (CUDA events; the collectives
-    take none) and peak memory, each step run once. The group is destroyed
-    at the end."""
+    takes its data block; whisper's frames drawn too). K3's and the
+    recurrence's counts set to 0 just before each step and read just after:
+    a prefill's :func:`k3_per_forward` launches, a train step's twice as
+    many with lse (the forward and its recompute), all tensor-core (none
+    for the mLSTM); the recurrence's :func:`recurrences_per_forward` a
+    prefill, twice as many and one backward a layer a train step. Each
+    step's wall and device time (CUDA events; the collectives take none)
+    and peak memory, each step run once. The group is destroyed at the
+    end."""
     import torch.distributed as dist
 
     from repro_torch.configs import SHAPES, get_config
@@ -3050,6 +3225,7 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
                                                model_axes_for, state_struct_for,
                                                train_state_shardings)
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.linear_recurrence import linear_recurrence
     from repro_torch.launch.dryrun import join_fake_group
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.optim import AdamWConfig
@@ -3062,7 +3238,9 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
                 "flash_attention_wgmma": flash_attention.wgmma_launches,
                 "flash_attention_lse": flash_attention.lse_launches,
                 "flash_attention_bwd": flash_attention.bwd_launches,
-                "flash_attention_bwd_mma": flash_attention.bwd_mma_launches}
+                "flash_attention_bwd_mma": flash_attention.bwd_mma_launches,
+                "linear_recurrence": linear_recurrence.launches,
+                "linear_recurrence_bwd": linear_recurrence.bwd_launches}
 
     join_fake_group(256)
     try:
@@ -3100,6 +3278,7 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
             flash_attention.launches = flash_attention.wgmma_launches = 0
             flash_attention.lse_launches = 0
             flash_attention.bwd_launches = flash_attention.bwd_mma_launches = 0
+            linear_recurrence.launches = linear_recurrence.bwd_launches = 0
             torch.cuda.reset_peak_memory_stats(dev)
             res, wall, dev_ms = _timed(lambda: step(*args))
             launches = counts()
@@ -3114,15 +3293,17 @@ def run_dryrun_tp(dev, cells) -> list[dict]:
                    "device_ms": dev_ms, "launches": launches, "arguments_bytes": held,
                    "max_memory_allocated": peak,
                    "depth_cut": f"{layers} of {cfg.n_layers} layers" if layers else None}
-            n = k3_per_forward(ccfg)
+            n, r = k3_per_forward(ccfg), recurrences_per_forward(ccfg)
             if shape.kind == "prefill":
                 assert launches == {"flash_attention": n, "flash_attention_wgmma": n,
                                     "flash_attention_lse": 0, "flash_attention_bwd": 0,
-                                    "flash_attention_bwd_mma": 0}, launches
+                                    "flash_attention_bwd_mma": 0, "linear_recurrence": r,
+                                    "linear_recurrence_bwd": 0}, launches
             else:  # the forward and its recomputation with lse, one tensor-core backward
                 assert launches == {"flash_attention": 2 * n, "flash_attention_wgmma": 2 * n,
                                     "flash_attention_lse": 2 * n, "flash_attention_bwd": n,
-                                    "flash_attention_bwd_mma": n}, launches
+                                    "flash_attention_bwd_mma": n, "linear_recurrence": 2 * r,
+                                    "linear_recurrence_bwd": r}, launches
             assert step.path == "tp", step.path
             del args, tokens, frames
             out.append(rec)
@@ -3451,8 +3632,9 @@ def main() -> int:
         k2 = check_colocate(dev, geo)
         del geo
         k3 = check_flash_attention(dev)
+        recurrence = check_linear_recurrence(dev)
         emit("kernels", delta_encode=k1, colocate=k2, flash_attention=k3,
-             disk=disk.mark("kernels", 0))
+             linear_recurrence=recurrence, disk=disk.mark("kernels", 0))
         # K3 with lse at each trained model's heads, reported in its train
         # line; run here, where the profiler records the kernel's own time
         # (after the later phases its sessions have recorded no device event)
@@ -3490,8 +3672,7 @@ def main() -> int:
         # 16x16 group; K3's counts from 0 just before each step, read just
         # after
         dry = run_dryrun(work / "dryrun", dev)
-        by_path["dryrun"] = {"flash_attention": dry["launches"]["flash_attention"],
-                             "flash_attention_bwd": dry["launches"]["flash_attention_bwd"]}
+        by_path["dryrun"] = {k: dry["launches"][k] for k in RECORDED}
         emit("dryrun", **dry, k3=k3["at_prefill_32k"], k3_tensor_parallel=k3["at_command_r_32k"],
              k3_moe={"deepseek_prefill_32k": k3["at_mla_32k"],
                      "deepseek_train_4k": k3["at_mla_train_4k"],
@@ -3563,7 +3744,9 @@ def main() -> int:
         n_layers = cfg.n_layers
         assert serve_launches == {"delta_encode": 0, "colocate": 0,
                                   "flash_attention": BATCH * n_layers,
-                                  "flash_attention_wgmma": BATCH * n_layers}, serve_launches
+                                  "flash_attention_wgmma": BATCH * n_layers,
+                                  "linear_recurrence": 0, "linear_recurrence_bwd": 0}, \
+            serve_launches
         assert windows == {0: BATCH * n_layers}, windows
         engine, req = served["engine"], served["requests"][0]
         resume = run_serve_resume(work / "serve", dev, engine, req, served["reference"][req["id"]])
@@ -3630,7 +3813,7 @@ def main() -> int:
         # just after
         hybrid = run_serve_hybrid(work / "serve_hybrid", dev)
         launches["flash_attention"] += hybrid["launches"]["flash_attention"]
-        by_path["serve_hybrid"] = {"flash_attention": hybrid["launches"]["flash_attention"]}
+        by_path["serve_hybrid"] = {k: n for k, n in hybrid["launches"].items() if k in RECORDED}
         emit("serve_hybrid", **hybrid,
              disk=disk.mark("serve_hybrid", dir_bytes(work / "serve_hybrid")))
         del hybrid
@@ -3640,7 +3823,7 @@ def main() -> int:
         train = run_train(work / "train_hybrid", HYBRID_ARCH, HYBRID_TRAIN_WRITE_BUDGET,
                           HYBRID_TRAIN_SEQ, HYBRID_TRAIN_BATCH)
         by_path["train_hybrid"] = {k: sum(train["launches"][run][k] for run in ("A", "B"))
-                                   for k in ("flash_attention", "flash_attention_bwd")}
+                                   for k in RECORDED}
         launches["flash_attention"] += by_path["train_hybrid"]["flash_attention"]
         emit("train_hybrid", **train, k3=k3_train_hybrid,
              disk=disk.mark("train_hybrid", train_files(work / "train_hybrid", train)))
@@ -3648,9 +3831,15 @@ def main() -> int:
         del train
 
         # the mLSTM: xlstm-1.3b served (counts from 0 just before, read just
-        # after: it launches none)
-        emit("xlstm", **run_xlstm(work / "xlstm", dev),
-             disk=disk.mark("xlstm", dir_bytes(work / "xlstm")))
+        # after: no K1-K3, the recurrence's forward in every prefill) and
+        # trained in this process
+        xlstm = run_xlstm(work / "xlstm", dev)
+        step = xlstm["cut_depth_step"]
+        by_path["xlstm"] = {"linear_recurrence": (xlstm["launches"]["linear_recurrence"]
+                                                  + step["recurrence_launches"]),
+                            "linear_recurrence_bwd": step["recurrence_backward_launches"]}
+        emit("xlstm", **xlstm, disk=disk.mark("xlstm", dir_bytes(work / "xlstm")))
+        del xlstm, step
 
         # MLA: deepseek-v3 at full width, depth cut to 4 layers, served
         # (counts from 0 just before, read just after)
@@ -3784,6 +3973,37 @@ def main() -> int:
                  "at": {key: {f: c[f] for f in bwd_keys} for key, c in bwd_cases.items()}})
     assert rows[-1]["launches"] > 0 and all(n > 0 for n in rows[-1]["launches_by_path"].values()
                                             if n is not None), rows[-1]["launches_by_path"]
+    # the recurrence's kernels: no Pallas kernel's port; the row's numbers
+    # at hymba's serve prefill, the backward's at its train step
+    serve_row, train_row = recurrence["hymba_serve"], recurrence["hymba_train"]
+    rec_paths = {path: {"forward": n["linear_recurrence"], "backward": n["linear_recurrence_bwd"]}
+                 for path, n in by_path.items() if "linear_recurrence" in n}
+    rows.append({"name": "linear_recurrence", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/linear_recurrence.cu",
+                 "replaces": None,
+                 "replaces_note": "no Pallas kernel: the JAX package's chunked_linear_recurrence "
+                                  "(src/repro/models/ssm.py) is plain jnp; the port's plain "
+                                  "version is src/repro_torch/models/ssm.py _recurrence",
+                 "launches": sum(n["forward"] for n in rec_paths.values()),
+                 "bwd_launches": sum(n["backward"] for n in rec_paths.values()),
+                 "launches_by_path": rec_paths,
+                 "max_abs_err_over_tol": max(c["max_abs_err_over_tol"]
+                                             for c in recurrence.values()),
+                 "ms": serve_row["ms"], "kernel_ms": serve_row["kernel_ms"]["total"],
+                 "plain_ms": serve_row["plain_ms"], "bound_ms": serve_row["bound_ms"],
+                 "bound_by": serve_row["bound_by"], "shape": serve_row["shape"],
+                 "backward": {k: train_row["backward"][k] for k in ("ms", "plain_ms", "bound_ms")}
+                 | {"kernel_ms": train_row["backward"]["kernel_ms"]["total"],
+                    "shape": train_row["shape"]},
+                 "parity": f"y and the final state within {REC_TOL} (atol and rtol) of the plain "
+                           f"version, each float32 gradient within {GRAD_TOL} of its largest "
+                           "magnitude; two calls bitwise equal",
+                 "at": recurrence})
+    # every path that runs a recurrent model launched the kernels: one
+    # forward set a recurrent layer a prefill, two and a backward a step
+    assert set(rec_paths) == {"dryrun", "serve_hybrid", "train_hybrid", "xlstm"}, rec_paths
+    assert all(n["forward"] > 0 for n in rec_paths.values()), rec_paths
+    assert all(n["backward"] > 0 for p, n in rec_paths.items() if p != "serve_hybrid"), rec_paths
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -40,8 +40,8 @@ publishes after the step it is on, and the next incarnation resumes.
         --device cpu --steps 8 --publish-every 3 --preempt-at 5 --remesh 2x2,2x1
 
 ``--metrics FILE`` appends one JSON line per step, publish and
-incarnation (losses, seconds, CMI names, model FLOPs a step, K3 launches,
-peak device memory).
+incarnation (losses, seconds, CMI names, model FLOPs a step, K3's and the
+recurrence's launches, peak device memory).
 ``main`` returns the final loss.
 """
 
@@ -66,6 +66,7 @@ from repro_torch.core.preemption import SpotSchedule, run_preemptible
 from repro_torch.data import TokenPipeline
 from repro_torch.distributed.steps import batch_to_device, make_init_fn, make_train_step
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.linear_recurrence import linear_recurrence
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.optim import AdamWConfig
 from repro_torch.utils import logger, resolve_device, warm_cpu_math
@@ -236,15 +237,18 @@ def state_digest(tree) -> str:
     return h.hexdigest()
 
 
-K3_COUNTS = ("flash_attention", "flash_attention_wgmma", "flash_attention_lse",
-             "flash_attention_bwd", "flash_attention_bwd_mma")
+LAUNCH_COUNTS = ("flash_attention", "flash_attention_wgmma", "flash_attention_lse",
+                 "flash_attention_bwd", "flash_attention_bwd_mma", "linear_recurrence",
+                 "linear_recurrence_bwd")
 
 
-def _k3_counts() -> tuple[int, ...]:
-    """K3's launch counts, in the order of :data:`K3_COUNTS`."""
+def _launch_counts() -> tuple[int, ...]:
+    """K3's and the recurrence kernels' launch counts, in the order of
+    :data:`LAUNCH_COUNTS`."""
     return (flash_attention.launches, flash_attention.wgmma_launches,
             flash_attention.lse_launches, flash_attention.bwd_launches,
-            flash_attention.bwd_mma_launches)
+            flash_attention.bwd_mma_launches, linear_recurrence.launches,
+            linear_recurrence.bwd_launches)
 
 
 def _local(x):
@@ -270,7 +274,7 @@ def _incarnation(job: dict, rank: int = 0) -> dict:
     mesh in the default group: rank 0 owns the job store and the
     publishes, every rank sends its shards to rank 0 and reads its own
     from a CMI. Every rank returns its outcome; rank 0's carries the
-    schedule on to the next incarnation, its K3 launches and its peak
+    schedule on to the next incarnation, its kernel launches and its peak
     memory."""
     from repro_torch.core.cmi import restore_cmi, snapshot_to_host
     from repro_torch.distributed.group import beat
@@ -285,7 +289,7 @@ def _incarnation(job: dict, rank: int = 0) -> dict:
     warm_cpu_math(torch.zeros(1, device=device))
     lead = rank == 0
     metrics = _Metrics(args.metrics if lead else None)
-    counts = _k3_counts()
+    counts = _launch_counts()
     store = JobStore(args.store)
     node = f"instance-{incarnation}"
     opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
@@ -375,7 +379,7 @@ def _incarnation(job: dict, rank: int = 0) -> dict:
         import torch.distributed as dist
 
         dist.barrier()
-    now = _k3_counts()
+    now = _launch_counts()
     return {"outcome": outcome, "loss": loss, "step": step,
             "schedule": schedule if lead else None,
             "launches": [b - a for a, b in zip(counts, now)],
@@ -494,13 +498,13 @@ def main(argv=None) -> float:
             schedule = SpotSchedule(
                 preempt_steps=tuple(int(x) for x in args.preempt_at.split(",") if x),
             )
-            box = {"schedule": schedule, "reclaim": reclaim, "launches": [0] * len(K3_COUNTS),
+            box = {"schedule": schedule, "reclaim": reclaim, "launches": [0] * len(LAUNCH_COUNTS),
                    "peak_memory_bytes": None}
             loss, incarnations = run_preemptible(
                 build_worker(args, cfg, job_id, device, mesh_specs, box))
             _Metrics(args.metrics)(
                 "end", job_id=job_id, final_loss=loss, incarnations=incarnations, mesh=mesh_specs,
-                launches=dict(zip(K3_COUNTS, box["launches"])),
+                launches=dict(zip(LAUNCH_COUNTS, box["launches"])),
                 peak_memory_bytes=box["peak_memory_bytes"])
     finally:
         signal.signal(signal.SIGTERM, previous)

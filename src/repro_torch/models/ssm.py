@@ -14,11 +14,14 @@ within a chunk::
     inter:  y_i += exp(La_i) · S_prevᵀ q_i
     carry:  S_new = exp(La_Q) S_prev + Σ_j exp(La_Q − La_j) k_j ⊗ v_j
 
-The reference scans the chunks one by one. Here every chunk's intra-chunk
-tile and carry contribution are computed at once, as (B, nc, H, Q, Q) and
-(B, nc, H, N, P) tensors; only the carry itself runs chunk by chunk, in the
-reference's order, and the inter-chunk term is again one product over all
-chunks. Products are float32 ``einsum``s, as in the reference.
+The reference scans the chunks one by one. On CUDA tensors the kernels of
+``kernels/linear_recurrence`` compute it, forward and backward, in a few
+launches a call with no Q×Q tile in device memory. On CPU tensors the
+plain version, :func:`_recurrence`, computes every chunk's intra-chunk
+tile and carry contribution at once, as (B, nc, H, Q, Q) and (B, nc, H, N,
+P) tensors; only the carry itself runs chunk by chunk, in the reference's
+order, and the inter-chunk term is again one product over all chunks. Both
+compute in float32, the plain version by ``einsum``s as in the reference.
 
 The one difference of substance: the reference exponentiates La_i − La_j
 over the whole Q×Q tile and masks the upper triangle afterwards. Above the
@@ -27,8 +30,9 @@ to inf once a chunk's log-decays sum below about −88; the forward stays
 finite (the mask selects 0), but the backward multiplies 0 by inf and the
 gradients of q, k and log a become NaN (hymba at full width reaches −99.6
 on average with the reference's init). Here the upper triangle's exponent
-is set to −inf before ``exp``, so its weight is exactly 0 and so is its
-gradient; every entry the reference keeps is computed the same way.
+is set to −inf before ``exp`` (the kernels never exponentiate it), so its
+weight is exactly 0 and so is its gradient; every entry the reference
+keeps is computed the same way.
 
 Under a tensor-parallel plan (``distributed/tp.py``) both mixers run on
 the rank's heads, as the reference's GSPMD program does: every leaf on the
@@ -54,6 +58,7 @@ import torch.nn.functional as F
 
 from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.linear_recurrence import linear_recurrence
 from repro_torch.models.layers import init_const, init_dense, pdtype, rmsnorm
 
 
@@ -66,16 +71,18 @@ def chunked_linear_recurrence(
     chunk: int,
     initial_state: torch.Tensor | None = None,  # (B, H, N, P)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, H, P) float32, final_state (B, H, N, P) float32).
-    The forward runs under the span ``linear_recurrence``; its backward pass
-    is the span ``linear_recurrence.bwd``."""
+    """Returns (y (B, S, H, P) float32, final_state (B, H, N, P) float32):
+    the plain :func:`_recurrence` on CPU tensors, the CUDA kernels
+    otherwise. The forward runs under the span ``linear_recurrence``; its
+    backward pass is the span ``linear_recurrence.bwd``."""
     with spans.span("linear_recurrence"):
         ins = (q, k, v, log_a) + (() if initial_state is None else (initial_state,))
-        return spans.backward_span("linear_recurrence", ins,
-                                   functools.partial(_recurrence, chunk=chunk))
+        fn = _recurrence if all(t.device.type == "cpu" for t in ins) else linear_recurrence
+        return spans.backward_span("linear_recurrence", ins, functools.partial(fn, chunk=chunk))
 
 
 def _recurrence(q, k, v, log_a, initial_state=None, *, chunk: int):
+    """The plain version, in float32 ``einsum``s (see the module docstring)."""
     b, s, h, n = q.shape
     p = v.shape[-1]
     qf, kf, vf, la = (t.float() for t in (q, k, v, log_a))
